@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from dmayolo_tpu_torch/csrc (one nvcc per
+source, all at once), then:
+
+1. K2 (greedy NMS, csrc/nms_greedy.cu) against its plain PyTorch version at
+   the serving shape (128, 512) and on edge cases: clustered near-duplicates,
+   equal-score ties, all-masked rows, a deep chain, K = 64 < max_det.
+   keep_idx and keep_valid must be equal everywhere.
+2. K1 (3x3 conv, csrc/conv3x3_s1.cu) against its plain version at the
+   flagship's C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 +
+   |plain|), TF32 off) and bf16 (2e-2), timed beside cuDNN (`F.conv2d`, the
+   library yardstick only).
+3. The serving main path: the full-width flagship (nc 10, seeded random
+   weights with the head priors, BN statistics calibrated on two random
+   images) behind `MicroBatcher` (640 px, bf16, NMS backend "pallas"), 8
+   requests of different native sizes from several threads.  Launch
+   counters are zeroed just before and read just after; K2 must have
+   launched.  Then one batch of 32 at conf 0.0, where all 512 candidates
+   per image are live, through both NMS backends: the detections must be
+   identical.  A small f32 input must give the same raw head on the card
+   as on the CPU.  Last, bs128 640 px serving is timed with CUDA events,
+   and one step is profiled by kernel.
+
+Prints, before the last line, a `{"kernels": [...]}` JSON line and the
+card's name and power limit from nvidia-smi; the last line is
+`{"ok": true, "device": {...}}`.  Exits non-zero, printing no result, when
+there is no CUDA device, when the port's package is missing, or when any
+check fails.  Details go to chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# peak rates of one H100 SXM (NVIDIA data sheet, dense)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # f32 outside the tensor cores
+
+FLAGSHIP = "ablation-ca-scconv-sppfcspc"
+K1_SHAPES = [(8, 320, 320, 64, 64), (8, 80, 80, 128, 128),
+             (8, 40, 40, 256, 256), (8, 20, 20, 512, 512)]
+# ragged tiles, channel tails and C2 beyond one 64-channel block
+K1_RAGGED = [(2, 37, 53, 12, 70), (1, 5, 3, 3, 130), (3, 17, 16, 64, 64)]
+K1_TOL = {"f32": 1e-4, "bf16": 2e-2}
+# kernel-name marks that sort the serving profile into groups; first match wins
+PROFILE_GROUPS = [
+    ("nms_greedy (K2)", ("nms_greedy",)),
+    ("conv and matmul (cuDNN, cuBLAS)", ("xmma", "fprop", "cutlass", "nvjet", "gemm", "conv")),
+    ("top-k and sort", ("topk", "sort", "Radix", "radix")),
+    # the broadcast bias add after each of the 120 folded convs
+    ("conv bias add (non-vectorized elementwise)", ("elementwise_kernel<128, 4",)),
+    ("silu", ("silu",)),
+    ("sigmoid", ("sigmoid",)),
+    ("upsample", ("upsample",)),
+    ("max pool", ("max_pool",)),
+    ("concat", ("CatArray",)),
+]
+NATIVE_SIZES = [(1080, 1920), (375, 500), (480, 640), (720, 1280),
+                (640, 640), (100, 100), (1000, 300), (333, 777)]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def bound(nbytes, ops, kind):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, iters, warmup=1):
+    """Mean device time of fn() in ms, by CUDA events around `iters` runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# K2: greedy NMS
+# ---------------------------------------------------------------------------
+
+def nms_cases(device, b=128, k=512, seed=0):
+    """(name, boxes, scores, max_det, iou_thres) candidate sets."""
+    import torch
+
+    from dmayolo_tpu_torch.core.nms import MAX_WH, NEG_INF
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g)
+
+    cls = torch.randint(0, 10, (b, k), generator=g).float()
+    xy = rand(b, k, 2) * 600
+    boxes = torch.cat([xy, xy + 8 + rand(b, k, 2) * 150], -1) + cls[..., None] * MAX_WH
+    scores = rand(b, k)
+    scores[scores < 0.2] = NEG_INF
+    scores = scores.sort(dim=1, descending=True).values  # rank-sorted, as top-k gives
+    cases = [("random", boxes, scores, 300, 0.45)]
+
+    centres = rand(b, 8, 2) * 500
+    pick = torch.randint(0, 8, (b, k), generator=g)
+    c = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) + torch.randn(b, k, 2, generator=g) * 3
+    wh = 40 + rand(b, k, 2) * 20
+    cases.append(("clustered", torch.cat([c - wh / 2, c + wh / 2], -1),
+                  rand(b, k).sort(dim=1, descending=True).values, 300, 0.45))
+
+    ties = (rand(b, k) * 6).round() / 6
+    ties[ties < 0.1] = NEG_INF
+    cases.append(("ties", boxes, ties, 300, 0.45))
+
+    masked = scores.clone()
+    masked[::3] = NEG_INF  # every third image has no live candidate
+    cases.append(("masked_rows", boxes, masked, 300, 0.45))
+
+    i = torch.arange(k, dtype=torch.float32)
+    chain = torch.stack([i * 5, torch.zeros(k), i * 5 + 10, torch.full((k,), 10.0)], -1)
+    cases.append(("chain", chain[None].repeat(4, 1, 1),
+                  torch.linspace(1, 0.5, k)[None].repeat(4, 1), 300, 0.3))
+    cases.append(("k64", boxes[:, :64].contiguous(), scores[:, :64].contiguous(), 300, 0.45))
+    cases.append(("k77", boxes[:8, :77].contiguous(), scores[:8, :77].contiguous(), 100, 0.45))
+    # the most one block holds: more candidates than threads
+    big = torch.cat([boxes[:8], boxes[:8] + 3], 1)
+    cases.append(("k1024", big, torch.cat([scores[:8], scores[:8]], 1), 300, 0.45))
+    return [(n, bx.to(device).contiguous(), sc.to(device).contiguous(), md, t)
+            for n, bx, sc, md, t in cases]
+
+
+def check_nms(device):
+    import torch
+
+    from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_plain
+
+    out = {"cases": {}, "max_abs_err": 0.0}
+    cases = nms_cases(device)
+    for name, boxes, scores, max_det, thr in cases:
+        ki, kv = nms_greedy(boxes, scores, thr, max_det)
+        pi, pv = nms_greedy_plain(boxes, scores, thr, max_det)
+        same = torch.equal(ki, pi) and torch.equal(kv, pv)
+        out["cases"][name] = {"picks": int(kv.sum()), "equal": same}
+        # largest difference of keep_idx or keep_valid anywhere
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((ki.long() - pi.long()).abs().max()),
+                                 float((kv.long() - pv.long()).abs().max()))
+        check(same, f"K2 differs from its plain version on case '{name}'")
+    name, boxes, scores, max_det, thr = cases[0]
+    b, k, _ = boxes.shape
+    kv = nms_greedy(boxes, scores, thr, max_det)[1]
+    picks = int(kv.sum())
+    # data-dependent work: each pick is one argmax over K and one IoU
+    # against K candidates (~15 flops a candidate); each input read once
+    ops = picks * k * 15
+    nbytes = b * k * (16 + 4) + b * max_det * (4 + 1)
+    out.update(shape=[b, k, max_det], picks=picks, ops=ops, bytes=nbytes)
+    if device.type == "cuda":
+        out["ms"] = cuda_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 20)
+        out["plain_ms"] = cuda_ms(lambda: nms_greedy_plain(boxes, scores, thr, max_det), 3)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K1: 3x3 conv
+# ---------------------------------------------------------------------------
+
+def check_conv(device, shapes=K1_SHAPES, timed=True):
+    """K1 against its plain version at `shapes` (B, H, W, C1, C2); with
+    `timed`, f32 and bf16 timed beside cuDNN, else untimed checks that
+    include mixed input and output dtypes."""
+    import torch
+    import torch.nn.functional as F
+
+    from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1, conv3x3_s1_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    combos = [("f32", f32, f32), ("bf16", bf16, bf16)]
+    if not timed:
+        combos += [("bf16->f32", bf16, f32), ("f32->bf16", f32, bf16)]
+    g = torch.Generator().manual_seed(1)
+    cases = []
+    for b, h, w, c1, c2 in shapes:
+        x32 = torch.randn(b, h, w, c1, generator=g)
+        w32 = torch.randn(3, 3, c1, c2, generator=g) / (9 * c1) ** 0.5
+        for kind, dt, out_dt in combos:
+            x, wt = x32.to(device, dt), w32.to(device, dt)
+            got = conv3x3_s1(x, wt, out_dtype=out_dt)
+            want = conv3x3_s1_plain(x, wt, out_dt)
+            check(got.dtype == out_dt and got.shape == want.shape,
+                  f"K1 gave {got.dtype} {tuple(got.shape)} at {kind} {(b, h, w, c1, c2)}")
+            err = (got.float() - want.float()).abs()
+            # |kernel - plain| <= tol * (1 + |plain|): atol = rtol = tol,
+            # the tolerance of the output dtype
+            scaled = float((err / (1 + want.float().abs())).max())
+            tol = K1_TOL["bf16" if out_dt == bf16 else "f32"]
+            case = {"shape": [b, h, w, c1, c2], "dtype": kind,
+                    "max_abs_err": float(err.max()), "max_scaled_err": scaled, "tol": tol}
+            check(scaled <= tol, f"K1 differs from its plain version beyond {tol} at {case}")
+            if timed and device.type == "cuda":
+                item = x.element_size()
+                ops = 2 * b * h * w * 9 * c1 * c2
+                nbytes = (b * h * w * (c1 + c2) + 9 * c1 * c2) * item
+                xn = x.permute(0, 3, 1, 2)  # channels_last view for cuDNN
+                wo = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                case["ms"] = cuda_ms(lambda: conv3x3_s1(x, wt), 10)
+                case["plain_ms"] = cuda_ms(lambda: conv3x3_s1_plain(x, wt), 5)
+                case["library_ms"] = cuda_ms(lambda: F.conv2d(xn, wo, padding=1), 20)
+                case["bound_ms"], case["bound_by"] = bound(nbytes, ops, kind)
+                case["bytes"], case["ops"] = nbytes, ops
+                case["tflops"] = ops / case["ms"] / 1e9
+            cases.append(case)
+            del x, wt, got, want, err
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# serving main path
+# ---------------------------------------------------------------------------
+
+def native_image(h, w, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = (yy[..., None] * (seed + 1) + xx[..., None] * 3 + rng.integers(0, 40, (h, w, 3))) % 256
+    return img.astype(np.uint8)
+
+
+def serve_requests(batcher, sizes, nc):
+    """Submit one request per size from its own thread; check each answer."""
+    import numpy as np
+
+    imgs = [native_image(h, w, i) for i, (h, w) in enumerate(sizes)]
+    results = [None] * len(imgs)
+    errors = []
+
+    def client(i):
+        try:
+            results[i] = batcher.submit(imgs[i]).result(timeout=300)
+        except Exception as e:  # reported below, per request
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(imgs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "a serving request never returned")
+    check(not errors, f"serving requests failed: {errors}")
+    counts = []
+    for img, d in zip(imgs, results):
+        h, w = img.shape[:2]
+        check(d.ndim == 2 and d.shape[1] == 6, f"bad detections shape {d.shape}")
+        check(np.isfinite(d).all(), "non-finite detections")
+        check(((d[:, [0, 2]] >= 0) & (d[:, [0, 2]] <= w)).all()
+              and ((d[:, [1, 3]] >= 0) & (d[:, [1, 3]] <= h)).all(),
+              "detections outside the native image")
+        check(((d[:, 5] >= 0) & (d[:, 5] < nc)).all(), "class out of range")
+        counts.append(len(d))
+    return counts
+
+
+def calibrate_bn(model, x):
+    """Set every BN's running mean and variance to those of its input on
+    `x`, layer by layer.  With torch's default init alone the activations
+    shrink by ~3x a layer and the raw head is its bias to 1e-9, so every
+    candidate ties and a card-vs-CPU comparison of the head is empty."""
+    import torch
+
+    from dmayolo_tpu_torch.nn.primitives import BatchNorm2d
+
+    def hook(bn, args):
+        v = args[0].float()
+        bn.running_mean.copy_(v.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(v.var(dim=(0, 2, 3)))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm2d)]
+    try:
+        with torch.no_grad():
+            model.apply(x)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def serving(device, imgsz=640, max_batch=32, timed_batch=128, cfg=None, nc=10,
+            counters=None):
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel, model_config
+    from dmayolo_tpu_torch.serve.batcher import MicroBatcher
+
+    torch.backends.cudnn.allow_tf32 = False  # f32 card-vs-CPU check below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    t0 = time.perf_counter()
+    model = DetectionModel(cfg or model_config(FLAGSHIP), nc=nc, device=device)
+    g = torch.Generator().manual_seed(0)
+    model.init_with_priors(g)
+    calibrate_bn(model, torch.rand(2, imgsz, imgsz, 3, generator=g).to(device))
+    out["build_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+
+    # ---- the main path, counted
+    for c in counters or ():
+        c.launches = 0
+    batcher = MicroBatcher(model, imgsz=imgsz, max_batch=max_batch, dtype=dtype,
+                           nms_backend="pallas", device=device)
+    try:
+        batcher.warmup()
+        out["detections_per_request"] = serve_requests(batcher, NATIVE_SIZES, nc)
+    finally:
+        batcher.close()
+    out["launches"] = {c.__name__: c.launches for c in counters or ()}
+    out["stats_counters"] = {k: (dict(v) if isinstance(v, dict) else v)
+                             for k, v in batcher.stats_counters.items()}
+    check(out["stats_counters"]["requests"] == len(NATIVE_SIZES), "requests lost")
+    fused = batcher.model
+
+    # ---- conf 0.0: every candidate live; both NMS backends must agree
+    g.manual_seed(2)
+    x = torch.randint(0, 256, (max_batch, imgsz, imgsz, 3), generator=g,
+                      dtype=torch.uint8).to(device)
+    with torch.inference_mode():
+        raw = fused.apply(x.to(dtype) / 255.0, dtype=dtype, fused=True)
+        dp, vp = fused.serve_detections(raw, conf_thres=0.0, backend="pallas")
+        ds, vs = fused.serve_detections(raw, conf_thres=0.0, backend="scan")
+    out["conf0_valid"] = int(vp.sum())
+    check(torch.equal(vp, vs) and torch.equal(dp, ds),
+          "'pallas' and 'scan' serving tails differ at conf 0.0")
+    check(bool(torch.isfinite(dp).all()), "non-finite detections at conf 0.0")
+
+    # ---- the card against the CPU on a small f32 input
+    xs = torch.rand(1, 64, 64, 3, generator=g)
+    with torch.inference_mode():
+        want = [r.float() for r in fused.to("cpu").apply(xs, fused=True)]
+        fused.to(device)
+        got = [r.float().cpu() for r in fused.apply(xs.to(device), fused=True)]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.abs().max()) for b in want)
+    out["f32_card_vs_cpu_max_abs_err"], out["f32_raw_max_abs"] = err, scale
+    check(err <= 1e-3 * max(1.0, scale), f"raw head on the card differs from the CPU by {err}")
+
+    # ---- bs128 serving time: uint8 in, (B, 300, 6) out
+    if device.type == "cuda":
+        xb = torch.randint(0, 256, (timed_batch, imgsz, imgsz, 3), generator=g,
+                           dtype=torch.uint8).to(device)
+
+        def step():
+            with torch.inference_mode():
+                return batcher._serve(xb)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(step, 5, warmup=2)
+        out.update(serve_batch=timed_batch, serve_ms=ms,
+                   serve_img_per_s=timed_batch / ms * 1e3,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        d, v = step()
+        check(d.shape == (timed_batch, 300, 6) and bool(torch.isfinite(d).all()),
+              "bad bs128 serving output")
+        out["profile"] = profile_step(step)
+    return out
+
+
+def profile_step(step, top=12):
+    """Device time of one serving step by kernel name (torch.profiler),
+    and the device's busy share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    groups = {}
+    for k, ms, _ in rows:
+        group = next((g for g, marks in PROFILE_GROUPS if any(m in k for m in marks)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if rows else None,
+            "kernels": len(rows), "launches": sum(r[2] for r in rows),
+            "groups_ms": groups,
+            "top": [{"kernel": k[:90], "ms": ms, "count": n, "share": ms / device_ms}
+                    for k, ms, n in rows[:top]]}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from dmayolo_tpu_torch.core.nms_kernel import nms_greedy
+    from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
+    from dmayolo_tpu_torch.utils import cuda_build
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s ({', '.join(cuda_build.SOURCES)})", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    report = {"card": smi, "build_s": build_s}
+    report["k2"] = k2 = check_nms(device)
+    print("K2 nms_greedy: " + json.dumps(k2), flush=True)
+    report["k1"] = k1 = check_conv(device)
+    for c in k1:
+        print("K1 conv3x3_s1: " + json.dumps(c), flush=True)
+    report["k1_ragged"] = k1_ragged = check_conv(device, K1_RAGGED, timed=False)
+    print("K1 conv3x3_s1 ragged: " + json.dumps(
+        {"cases": len(k1_ragged), "max_scaled_err": max(c["max_scaled_err"] for c in k1_ragged)}),
+        flush=True)
+    report["serving"] = srv = serving(device, counters=(nms_greedy, conv3x3_s1))
+    print("serving: " + json.dumps(srv), flush=True)
+    check(srv["launches"]["nms_greedy"] > 0, "K2 did not launch on the serving path")
+    print(f"serving bs{srv['serve_batch']} 640px bf16: {srv['serve_img_per_s']:.1f} img/s "
+          f"({srv['serve_ms']:.2f} ms/batch) on {smi}")
+
+    # K1's headline: one bf16 call at each of the four shapes, summed; the
+    # bound of that sum is the larger of its summed byte and operation times
+    k1_bf16 = [c for c in k1 if c["dtype"] == "bf16"]
+    k1_bound, k1_bound_by = bound(sum(c["bytes"] for c in k1_bf16),
+                                  sum(c["ops"] for c in k1_bf16), "bf16")
+    kernels = [
+        {"name": "nms_greedy", "route": "cuda",
+         "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
+         "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
+         "launches": srv["launches"]["nms_greedy"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None,
+         "shape": k2["shape"]},
+        {"name": "conv3x3_s1", "route": "cuda",
+         "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",
+         "replaces": "dmayolo_tpu/nn/pallas_conv.py:75",
+         "launches": srv["launches"]["conv3x3_s1"],
+         "max_abs_err": max(c["max_abs_err"] for c in k1_bf16),
+         "ms": sum(c["ms"] for c in k1_bf16), "plain_ms": sum(c["plain_ms"] for c in k1_bf16),
+         "bound_ms": k1_bound, "bound_by": k1_bound_by,
+         "library_ms": sum(c["library_ms"] for c in k1_bf16),
+         "cases": [{k: c[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")} for c in k1]},
+    ]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,216 @@
+"""Model assembly from the YAML config format.
+
+Port of `dmayolo_tpu/graph/model.py::DetectionModel`: the same
+`[from, number, module, args]` rows, depth and width gains, channel rules
+and save list.  The stride probe is a forward on PyTorch's `meta` device
+(shapes only, no memory), the analogue of the JAX `eval_shape` probe.
+"""
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+import yaml
+
+from ..core.nms import nms_parts
+from ..nn.fuse import fuse_model
+from ..nn.heads import Detect
+from ..nn.primitives import BatchNorm2d, Conv2d, Sequential
+from ..utils.device import resolve_device
+from .registry import INSERT_N, REGISTRY, WIDTH_GAIN
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs" / "models"
+STRIDE_PROBE = 256  # input side of the shape-only forward that finds the strides
+
+
+def model_config(name: str) -> Path:
+    """Path of a model yaml shipped with the port, by bare name."""
+    path = CONFIG_DIR / (name if name.endswith(".yaml") else f"{name}.yaml")
+    if not path.exists():
+        raise FileNotFoundError(f"no model config {name!r} in {CONFIG_DIR}")
+    return path
+
+
+def make_divisible(x, divisor=8):
+    return math.ceil(x / divisor) * divisor
+
+
+def _eval_arg(a, scope: Dict[str, Any]):
+    """Safe stand-in for the reference parser's eval of string args."""
+    if not isinstance(a, str):
+        return a
+    if a in scope:
+        return scope[a]
+    if a in ("True", "False"):
+        return a == "True"
+    for conv in (int, float):
+        try:
+            return conv(a)
+        except ValueError:
+            pass
+    return a  # a plain string such as 'nearest'
+
+
+def check_anchor_order(anchors: np.ndarray, strides) -> np.ndarray:
+    """Flip anchors if their area order disagrees with the stride order."""
+    areas = anchors.prod(-1).mean(-1)
+    if np.sign(areas[-1] - areas[0]) != np.sign(strides[-1] - strides[0]):
+        return anchors[::-1].copy()
+    return anchors
+
+
+class DetectionModel(nn.Module):
+    """YAML-driven detector: backbone + head + Detect.
+
+    Takes images (B, H, W, 3) and returns the raw head, a list of
+    (B, ny, nx, na, no).  Built on `device` (None means CUDA, and raises
+    when CUDA is missing) with deterministic weights from seed 0; call
+    `init_with_priors(generator)` for seeded weights with the head priors,
+    or `load_state_dict` (see `utils/weights.py`)."""
+
+    def __init__(self, cfg: Union[str, Path, dict], ch: int = 3,
+                 nc: Optional[int] = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        if isinstance(cfg, (str, Path)):
+            with open(cfg, errors="ignore") as f:
+                self.yaml = yaml.safe_load(f)
+        else:
+            self.yaml = dict(cfg)
+        self.ch = self.yaml.get("ch", ch)
+        if nc and nc != self.yaml.get("nc"):
+            self.yaml["nc"] = nc
+        self.nc = self.yaml["nc"]
+        self.fused = False
+
+        with torch.device("meta"):
+            self.model = nn.ModuleList(self._parse())
+            # stride probe: shapes of the raw head for an s x s input
+            s = STRIDE_PROBE
+            shapes = [o.shape for o in self.forward(
+                torch.empty(1, s, s, self.ch), torch.float32)]
+        head = self.head
+        if isinstance(head, Detect):
+            self.stride = np.asarray([s / sh[1] for sh in shapes], np.float32)
+            head.stride = self.stride
+            anc = head.anchors / self.stride.reshape(-1, 1, 1)
+            head.anchors = check_anchor_order(anc, self.stride)
+        else:
+            self.stride = np.asarray([32.0], np.float32)
+        self.to_empty(device=dev)
+        self.to(memory_format=torch.channels_last)
+        self.reset_parameters(torch.Generator().manual_seed(0))
+        self.eval()
+
+    @property
+    def head(self) -> nn.Module:
+        return self.model[-1]
+
+    # -- config interpretation ----------------------------------------------
+    def _parse(self) -> List[nn.Module]:
+        d = self.yaml
+        anchors, nc = d["anchors"], d["nc"]
+        gd, gw = d["depth_multiple"], d["width_multiple"]
+        na = (len(anchors[0]) // 2) if isinstance(anchors, list) else anchors
+        no = na * (nc + 5)
+        scope = {"nc": nc, "anchors": anchors, "None": None}
+        layers: List[nn.Module] = []
+        save: List[int] = []
+        ch = [self.ch]
+        for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
+            cls = REGISTRY.get(name)
+            if cls is None:
+                raise KeyError(f"unknown module '{name}' in config (layer {i})")
+            args = [_eval_arg(a, scope) for a in args]
+            n = max(round(n * gd), 1) if n > 1 else n
+            if name in WIDTH_GAIN:
+                c1, c2 = ch[f], args[0]
+                if c2 != no:
+                    c2 = make_divisible(c2 * gw, 8)
+                args = [c1, c2, *args[1:]]
+                if name in INSERT_N:
+                    args.insert(2, n)
+                    n = 1
+            elif name == "Concat":
+                c2 = sum(ch[x] for x in f)
+            elif name == "Detect":
+                args.append([ch[x] for x in f])
+                if isinstance(args[1], int):  # 'anchors: N' auto-anchor mode
+                    args[1] = [list(range(args[1] * 2))] * len(f)
+            else:
+                c2 = ch[f] if isinstance(f, int) else ch[f[0]]
+            mod = Sequential(*[cls(*args) for _ in range(n)]) if n > 1 else cls(*args)
+            mod.f, mod.i = f, i
+            layers.append(mod)
+            save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
+            if i == 0:
+                ch = []
+            ch.append(c2)
+        self.save = sorted(set(save))
+        return layers
+
+    # -- execution -------------------------------------------------------------
+    def forward(self, x: torch.Tensor, dtype=torch.float32):
+        """Save-list graph execution on images (B, H, W, C); returns the raw
+        head.  `dtype` is the compute dtype of every conv."""
+        x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last if x is NHWC-contiguous
+        y: Dict[int, torch.Tensor] = {}
+        for mod in self.model:
+            f = mod.f
+            if f != -1:
+                x = (y[f % mod.i] if isinstance(f, int)
+                     else [x if j == -1 else y[j % mod.i] for j in f])
+            x = mod(x, dtype)
+            if mod.i in self.save:
+                y[mod.i] = x
+        return x
+
+    def apply(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False):
+        """Forward, as the JAX `apply`: `fused=True` asks for the folded
+        weights, so the model must have been through `fuse()`."""
+        if fused and not self.fused:
+            raise ValueError("fused=True needs the BN-folded model: call fuse() first")
+        return self(x, dtype)
+
+    # -- weights ---------------------------------------------------------------
+    def reset_parameters(self, generator: torch.Generator):
+        for m in self.modules():
+            if isinstance(m, (Conv2d, BatchNorm2d)):
+                m.reset_parameters(generator)
+
+    def init_with_priors(self, generator: torch.Generator):
+        """Fresh weights from `generator` plus the detection-head bias
+        priors; returns self."""
+        self.reset_parameters(generator)
+        if isinstance(self.head, Detect):
+            self.head.bias_init()
+        return self
+
+    def fuse(self):
+        """Fold every BN into its conv, in place; returns self."""
+        fuse_model(self)
+        self.fused = True
+        return self
+
+    # -- decode and serving tail ---------------------------------------------
+    def decode_parts(self, raw, class_mask=None, ref_order: bool = True):
+        return self.head.decode_parts(raw, class_mask, ref_order=ref_order)
+
+    def serve_detections(self, raw, conf_thres: float = 0.25,
+                         iou_thres: float = 0.45, max_det: int = 300,
+                         max_nms: int = 512, backend: str = "pallas",
+                         agnostic: bool = False, class_mask=None,
+                         ref_order: bool = True):
+        """Raw head -> (dets (B, max_det, 6), valid (B, max_det)): decode
+        in reference order, top-`max_nms` candidates, greedy class-offset
+        NMS.  backend "pallas" is the CUDA kernel K2 (core/nms_kernel.py)."""
+        boxes, scores, cls = self.decode_parts(raw, class_mask=class_mask,
+                                               ref_order=ref_order)
+        return nms_parts(boxes, scores, cls, conf_thres=conf_thres,
+                         iou_thres=iou_thres, agnostic=agnostic,
+                         max_det=max_det, max_nms=min(max_nms, boxes.shape[1]),
+                         backend=backend)

@@ -1,0 +1,36 @@
+"""Module registry for the YAML config system.
+
+Port of `dmayolo_tpu/graph/registry.py`, for the modules the port has.
+`CA` is an alias of `CoorAttention`: published configs use it though the
+reference never defines it.  A name missing here raises KeyError when a
+config is parsed.
+"""
+from __future__ import annotations
+
+from ..nn import blocks as B
+from ..nn import heads as H
+
+# name in yaml -> module class
+REGISTRY = {
+    "Conv": B.ConvBN,
+    "Bottleneck": B.Bottleneck,
+    "C3": B.C3,
+    "SPPF": B.SPPF,
+    "Concat": B.Concat,
+    "CoorAttention": B.CoorAttention,
+    "CA": B.CoorAttention,  # alias, see the module docstring
+    "SPPFCSPC": B.SPPFCSPC,
+    "SCConv": B.SCConv,
+    "nn.Upsample": B.Upsample,
+    "Detect": H.Detect,
+}
+
+# parse_model's channel-rule groups, copied from the JAX registry
+WIDTH_GAIN = {
+    "Conv", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP", "SPPF", "DWConv",
+    "MixConv2d", "Focus", "CrossConv", "BottleneckCSP", "C3", "C3TR", "C3STR",
+    "C3SPP", "C3Ghost", "ASPP", "CBAM", "CoorAttention", "CA", "CABottleneck",
+    "C3CA", "SPPCSPC", "SPPFCSPC", "SCConv", "HorBlock", "C3HB", "GnConv",
+    "BAM",
+}
+INSERT_N = {"BottleneckCSP", "C3", "C3TR", "C3STR", "C3Ghost", "C3CA", "C3HB", "BAM"}

@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source in `dmayolo_tpu_torch/csrc/` has a plain C interface and
+builds into its own shared library for `sm_90a`, at first use, under
+`build/torch_kernels/` at the root of the checkout (listed in
+`.gitignore`).  A library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+`build()` starts one nvcc per source, all at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# per-source nvcc flags beyond the common ones
+SOURCES = {
+    # bit-exact IoU: no FMA contraction, so every product and sum rounds
+    # as in the plain PyTorch version and the JAX reference
+    "nms_greedy": ["-fmad=false"],
+    "conv3x3_s1": [],
+}
+_COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    # torch's lookup: $CUDA_HOME, $CUDA_PATH, nvcc on PATH, /usr/local/cuda
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _flags(name: str):
+    return _COMMON + SOURCES[name]
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile every listed source that has no library yet, one nvcc each,
+    all started together.  Returns {name: compiler output}; raises with the
+    compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use and cached."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

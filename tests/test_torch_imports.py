@@ -1,0 +1,36 @@
+"""The port stands alone: no file of dmayolo_tpu_torch/ and not
+chip_smoke.py imports jax or the JAX package, by an AST walk."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "dmayolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_import(path):
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_has_its_own_configs():
+    cfgs = ROOT / "dmayolo_tpu_torch" / "configs" / "models"
+    for name in ("ablation-ca-scconv-sppfcspc", "yolov5n", "yolov5s"):
+        ours = (cfgs / f"{name}.yaml").read_bytes()
+        assert ours == (ROOT / "dmayolo_tpu" / "configs" / "models" / f"{name}.yaml").read_bytes()

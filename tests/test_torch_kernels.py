@@ -1,0 +1,136 @@
+"""The plain versions of the port's two kernels against the JAX package's
+Pallas kernels (interpret mode) on the CPU.
+
+K2, greedy NMS: `nms_greedy` on CPU tensors must give exactly what
+`pallas_batched_nms_core` gives, `keep_idx` in every slot (picks, then the
+unpicked indices ascending, then padding) and `keep_valid`, and the same
+picks as the scan reference `nms_single`.
+
+K1, 3x3 conv: `conv3x3_s1` on CPU tensors against `conv3x3_s1(...,
+interpret=True)` at the shapes of tests/test_pallas_conv.py: f32 within
+1e-5 (summation order), bf16 outputs within 2e-2 (one bf16 rounding).
+
+The CUDA kernels themselves are held against these plain versions on the
+card by chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmayolo_tpu.core.nms import nms_single as jax_nms_single
+from dmayolo_tpu.core.pallas_nms import pallas_batched_nms_core
+from dmayolo_tpu.nn.pallas_conv import conv3x3_s1 as jax_conv3x3
+from dmayolo_tpu_torch.core.nms import NEG_INF, nms_single
+from dmayolo_tpu_torch.core.nms_kernel import MAX_K, nms_greedy
+from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
+
+
+def _candidates(kind: str, b: int, k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":
+        # near-duplicates around a few centres: deep suppression chains
+        centres = rng.uniform(50, 400, (b, 6, 2))
+        pick = rng.integers(0, 6, (b, k))
+        c = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 4, (b, k, 2))
+        wh = rng.uniform(30, 60, (b, k, 2))
+        boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
+    else:
+        xy1 = rng.uniform(0, 500, (b, k, 2))
+        boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 150, (b, k, 2))], -1)
+    scores = rng.uniform(0.001, 1.0, (b, k))
+    if kind == "ties":
+        scores = np.round(scores * 8) / 8  # many equal scores: lowest index wins
+    scores[scores < 0.3] = NEG_INF
+    if kind == "masked_rows":
+        scores[1:3] = NEG_INF
+    if kind == "chain":
+        boxes = np.zeros((b, k, 4))
+        for i in range(k):
+            boxes[:, i] = [i * 5, 0, i * 5 + 10, 10]  # 1/3 overlap chain
+        scores = np.tile(np.linspace(1, 0.5, k), (b, 1))
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,b,k,max_det,thr,seed", [
+    ("random", 4, 128, 64, 0.45, 0),
+    ("clustered", 3, 128, 64, 0.45, 1),
+    ("ties", 3, 96, 48, 0.5, 2),
+    ("masked_rows", 4, 64, 32, 0.45, 3),
+    ("chain", 1, 64, 64, 0.3, 4),
+    ("random", 2, 40, 64, 0.45, 5),  # K < max_det: padded slots
+])
+def test_nms_plain_matches_pallas_and_scan(kind, b, k, max_det, thr, seed):
+    boxes, scores = _candidates(kind, b, k, seed)
+    want_idx, want_valid = pallas_batched_nms_core(
+        jnp.asarray(boxes), jnp.asarray(scores), iou_thres=thr, max_det=max_det,
+        interpret=True)
+    got_idx, got_valid = nms_greedy(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                    thr, max_det)
+    assert got_idx.dtype == torch.int32 and got_valid.dtype == torch.bool
+    np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    for i in range(b):
+        ri, rv = jax_nms_single(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), thr, max_det)
+        si, sv = nms_single(torch.from_numpy(boxes[i]), torch.from_numpy(scores[i]),
+                            thr, max_det)
+        np.testing.assert_array_equal(sv.numpy(), np.asarray(rv))
+        np.testing.assert_array_equal(si.numpy()[sv.numpy()], np.asarray(ri)[np.asarray(rv)])
+
+
+def test_nms_all_masked_picks_nothing():
+    boxes = np.random.default_rng(0).uniform(0, 100, (2, 128, 4)).astype(np.float32)
+    scores = np.full((2, 128), NEG_INF, np.float32)
+    idx, valid = nms_greedy(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5, 16)
+    assert not valid.any()
+    np.testing.assert_array_equal(idx.numpy(), np.tile(np.arange(16), (2, 1)))
+
+
+def test_nms_wrapper_rejects_bad_input():
+    with pytest.raises(ValueError):
+        nms_greedy(torch.zeros(2, 8, 3), torch.zeros(2, 8))
+    with pytest.raises(ValueError):
+        nms_greedy(torch.zeros(2, 8, 4, device="meta"), torch.zeros(2, 8, device="meta"))
+    assert MAX_K >= 512  # the serving candidate budget fits one block
+
+
+@pytest.mark.parametrize("variant", ["im2col", "sum9"])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 16, 24),
+    (1, 64, 32, 8, 8),
+    (2, 96, 96, 32, 32),
+])
+def test_conv3x3_plain_matches_pallas_f32(shape, variant):
+    b, h, w, c1, c2 = shape
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(b, h, w, c1)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, c1, c2)) * 0.1).astype(np.float32)
+    want = np.asarray(jax_conv3x3(jnp.asarray(x), jnp.asarray(wt), rh=8, variant=variant,
+                                  interpret=True))
+    got = conv3x3_s1(torch.from_numpy(x), torch.from_numpy(wt))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, w, c2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv3x3_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(1)
+    b, h, w, c = 1, 32, 32, 16
+    x = jnp.asarray(rng.normal(size=(b, h, w, c)).astype(np.float32)).astype(jnp.bfloat16)
+    wt = jnp.asarray((rng.normal(size=(3, 3, c, c)) * 0.1).astype(np.float32)).astype(jnp.bfloat16)
+    want = np.asarray(jax_conv3x3(x, wt, rh=16, interpret=True).astype(jnp.float32))
+    got = conv3x3_s1(torch.tensor(np.asarray(x.astype(jnp.float32))).bfloat16(),
+                     torch.tensor(np.asarray(wt.astype(jnp.float32))).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_conv3x3_ragged_shape_and_out_dtype():
+    """Any H, W is taken (the TPU kernel asserted tile divisibility)."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(1, 7, 11, 5)).astype(np.float32))
+    wt = torch.from_numpy(rng.normal(size=(3, 3, 5, 6)).astype(np.float32))
+    got = conv3x3_s1(x, wt, out_dtype=torch.bfloat16)
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), padding=1)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.permute(0, 2, 3, 1).numpy(),
+                               rtol=2e-2, atol=2e-2)
