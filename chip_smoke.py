@@ -10,20 +10,39 @@ source, all at once), then:
    the serving shape (128, 512) and on edge cases: clustered near-duplicates,
    equal-score ties, all-masked rows, a deep chain, K = 64 < max_det.
    keep_idx and keep_valid must be equal everywhere.
-2. K1 (3x3 conv, csrc/conv3x3_s1.cu) against its plain version at the
+2. K3 (fixpoint keep flags, csrc/nms_fixpoint.cu) against its plain
+   version on the same candidate sets (K <= 512), in both comparison
+   forms (inter / union > t and inter > t * union): the keep flags must be
+   equal.  Timed at (128, 512).
+3. K2's streaming variant (K > 1024) against the plain version at (32, K)
+   for K = 1025, 4096 and 30,000, max_det 300, IoU 0.6: equal everywhere.
+4. K1 (3x3 conv, csrc/conv3x3_s1.cu) against its plain version at the
    flagship's C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 +
    |plain|), TF32 off) and bf16 (2e-2), timed beside cuDNN (`F.conv2d`, the
    library yardstick only).
-3. The serving main path: the full-width flagship (nc 10, seeded random
+5. The serving main path: the full-width flagship (nc 10, seeded random
    weights with the head priors, BN statistics calibrated on two random
-   images) behind `MicroBatcher` (640 px, bf16, NMS backend "pallas"), 8
-   requests of different native sizes from several threads.  Launch
-   counters are zeroed just before and read just after; K2 must have
+   images) behind `MicroBatcher` (640 px, bf16), 8 requests of different
+   native sizes from several threads, once with NMS backend "pallas" (K2)
+   and once with the default backend, "matrix" (K3).  Launch counters are
+   zeroed just before each and read just after; K2, then K3, must have
    launched.  Then one batch of 32 at conf 0.0, where all 512 candidates
-   per image are live, through both NMS backends: the detections must be
-   identical.  A small f32 input must give the same raw head on the card
-   as on the CPU.  Last, bs128 640 px serving is timed with CUDA events,
-   and one step is profiled by kernel.
+   per image are live, through the three NMS backends: the detections must
+   be identical.  A small f32 input must give the same raw head on the
+   card as on the CPU.  Last, bs128 640 px serving is timed with CUDA
+   events for "pallas" and "matrix", and one step of each is profiled by
+   kernel.
+6. The eval protocol: the same weights (unfolded), a batch of 32 640 px
+   images of filled rectangles drawn from a numpy seed, with their labels
+   as targets, through `make_infer_fn` (bf16, conf 0.001, IoU 0.6,
+   multi-label, max_det 300, max_nms 30,000) on the backends "pallas"
+   (K2 streaming), "matrix" (K3 on every 512-candidate block) and "scan".
+   Counters are zeroed before each and read after; the valid detections
+   must be identical across the three.  The detections go through the
+   validator's host helpers to P, R, mAP@.5 and mAP@.5:.95 (near zero
+   with random weights: the plumbing is what is checked).  The step is
+   timed by part (forward, candidate top-k, NMS per backend), and one TTA
+   batch of 8 runs.
 
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
@@ -55,6 +74,7 @@ K1_TOL = {"f32": 1e-4, "bf16": 2e-2}
 # kernel-name marks that sort the serving profile into groups; first match wins
 PROFILE_GROUPS = [
     ("nms_greedy (K2)", ("nms_greedy",)),
+    ("nms_fixpoint (K3)", ("nms_fixpoint",)),
     ("conv and matmul (cuDNN, cuBLAS)", ("xmma", "fprop", "cutlass", "nvjet", "gemm", "conv")),
     ("top-k and sort", ("topk", "sort", "Radix", "radix")),
     # the broadcast bias add after each of the 120 folded convs
@@ -67,6 +87,10 @@ PROFILE_GROUPS = [
 ]
 NATIVE_SIZES = [(1080, 1920), (375, 500), (480, 640), (720, 1280),
                 (640, 640), (100, 100), (1000, 300), (333, 777)]
+STREAM_KS = (1025, 4096, 30000)  # K2 streaming: just past one block, to the eval's max_nms
+# the eval protocol's defaults (dmayolo_tpu_torch/eval/validator.py)
+PROTOCOL = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000)
+EVAL_BACKENDS = ("pallas", "matrix", "scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -180,6 +204,120 @@ def check_nms(device):
     if device.type == "cuda":
         out["ms"] = cuda_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 20)
         out["plain_ms"] = cuda_ms(lambda: nms_greedy_plain(boxes, scores, thr, max_det), 3)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: fixpoint keep flags
+# ---------------------------------------------------------------------------
+
+def check_fixpoint(device, b=128):
+    """K3 against its plain version in both comparison forms, on the K2
+    candidate sets that fit one block; timed at (b, 512)."""
+    import torch
+
+    from dmayolo_tpu_torch.core.fixpoint_kernel import (MAX_K, fixpoint_keep,
+                                                        fixpoint_keep_plain)
+    from dmayolo_tpu_torch.core.nms import NEG_INF
+
+    out = {"cases": {}, "max_abs_err": 0.0}
+    cases = [c for c in nms_cases(device, b=b) if c[1].shape[1] <= MAX_K]
+    for name, boxes, scores, _, thr in cases:
+        valid = scores > NEG_INF / 2
+        for form, divide in (("divide-free", False), ("divide", True)):
+            got = fixpoint_keep(boxes, valid, thr, divide=divide)
+            want = fixpoint_keep_plain(boxes, valid, thr, divide)
+            same = torch.equal(got, want)
+            out["cases"][f"{name}/{form}"] = {"keep": int(got.sum()), "equal": same}
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     float((got.int() - want.int()).abs().max()))
+            check(same, f"K3 differs from its plain version on case '{name}' ({form})")
+    name, boxes, scores, _, thr = cases[0]
+    bb, k, _ = boxes.shape
+    valid = scores > NEG_INF / 2
+    # data-dependent work: one IoU test (~15 flops) for each pair i < j
+    # whose suppressor i is valid; 17 bytes in and 1 out per candidate
+    pairs = int(((k - 1 - torch.arange(k, device=device)) * valid).sum())
+    ops = pairs * 15
+    nbytes = bb * k * (16 + 1 + 1)
+    out.update(shape=[bb, k], pairs=pairs, ops=ops, bytes=nbytes)
+    if device.type == "cuda":
+        for form, divide in (("", False), ("_divide", True)):
+            out["ms" + form] = cuda_ms(lambda: fixpoint_keep(boxes, valid, thr, divide), 20)
+            out["plain_ms" + form] = cuda_ms(
+                lambda: fixpoint_keep_plain(boxes, valid, thr, divide), 3)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 streaming: greedy NMS above one block's candidates
+# ---------------------------------------------------------------------------
+
+def stream_cases(device, b=32, ks=STREAM_KS, seed=3):
+    """(name, boxes, scores) eval-like candidate sets at (b, K), K > 1024:
+    10 classes, rank-sorted scores, most of them live."""
+    import torch
+
+    from dmayolo_tpu_torch.core.nms import MAX_WH, NEG_INF
+
+    g = torch.Generator().manual_seed(seed)
+    cases = []
+    for k in ks:
+        cls = torch.randint(0, 10, (b, k), generator=g).float()
+        xy = torch.rand(b, k, 2, generator=g) * 600
+        boxes = torch.cat([xy, xy + 8 + torch.rand(b, k, 2, generator=g) * 150], -1)
+        boxes = boxes + cls[..., None] * MAX_WH
+        scores = torch.rand(b, k, generator=g)
+        scores[scores < 0.02] = NEG_INF
+        cases.append((f"random{k}", boxes, scores.sort(dim=1, descending=True).values))
+    k = ks[1]
+    centres = torch.rand(b, 8, 2, generator=g) * 500
+    pick = torch.randint(0, 8, (b, k), generator=g)
+    c = (torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
+         + torch.randn(b, k, 2, generator=g) * 3)
+    wh = 40 + torch.rand(b, k, 2, generator=g) * 20
+    clustered = torch.cat([c - wh / 2, c + wh / 2], -1)
+    cases.append((f"clustered{k}", clustered,
+                  torch.rand(b, k, generator=g).sort(dim=1, descending=True).values))
+    ties = (torch.rand(b, k, generator=g) * 6).round() / 6
+    ties[ties < 0.1] = NEG_INF
+    cases.append((f"ties{k}", cases[1][1], ties))
+    masked = cases[0][2].clone()
+    masked[::3] = NEG_INF  # every third image has no live candidate
+    cases.append((f"masked_rows{ks[0]}", cases[0][1], masked))
+    return [(n, bx.to(device).contiguous(), sc.to(device).contiguous()) for n, bx, sc in cases]
+
+
+def check_nms_stream(device, b=32, ks=STREAM_KS, max_det=300, thr=0.6):
+    """K2's streaming variant (through the `nms_greedy` router) against
+    the plain version; timed at the largest K."""
+    import torch
+
+    from dmayolo_tpu_torch.core.nms_kernel import MAX_K, nms_greedy, nms_greedy_plain
+
+    out = {"cases": {}, "max_abs_err": 0.0}
+    cases = stream_cases(device, b, ks)
+    for name, boxes, scores in cases:
+        check(boxes.shape[1] > MAX_K, f"case '{name}' does not reach the streaming variant")
+        ki, kv = nms_greedy(boxes, scores, thr, max_det)
+        pi, pv = nms_greedy_plain(boxes, scores, thr, max_det)
+        same = torch.equal(ki, pi) and torch.equal(kv, pv)
+        out["cases"][name] = {"picks": int(kv.sum()), "equal": same}
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((ki.long() - pi.long()).abs().max()),
+                                 float((kv.long() - pv.long()).abs().max()))
+        check(same, f"K2 streaming differs from its plain version on case '{name}'")
+    name, boxes, scores = next(c for c in cases if c[0] == f"random{max(ks)}")
+    bb, k, _ = boxes.shape
+    picks = int(nms_greedy(boxes, scores, thr, max_det)[1].sum())
+    ops = picks * k * 15  # as K2: one argmax and one IoU pass over K a pick
+    nbytes = bb * k * (16 + 4) + bb * max_det * (4 + 1)
+    out.update(shape=[bb, k, max_det], picks=picks, ops=ops, bytes=nbytes)
+    if device.type == "cuda":
+        out["ms"] = cuda_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 10)
+        out["plain_ms"] = cuda_ms(lambda: nms_greedy_plain(boxes, scores, thr, max_det), 2)
         out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
     return out
 
@@ -310,53 +448,71 @@ def calibrate_bn(model, x):
             h.remove()
 
 
-def serving(device, imgsz=640, max_batch=32, timed_batch=128, cfg=None, nc=10,
-            counters=None):
-    import numpy as np
+def build_model(device, imgsz=640, cfg=None, nc=10):
+    """The flagship from a seed, head priors set, BN statistics calibrated
+    on two random images; unfolded."""
     import torch
 
     from dmayolo_tpu_torch.graph import DetectionModel, model_config
-    from dmayolo_tpu_torch.serve.batcher import MicroBatcher
 
-    torch.backends.cudnn.allow_tf32 = False  # f32 card-vs-CPU check below
-    torch.backends.cuda.matmul.allow_tf32 = False
-    out = {}
-    t0 = time.perf_counter()
     model = DetectionModel(cfg or model_config(FLAGSHIP), nc=nc, device=device)
     g = torch.Generator().manual_seed(0)
     model.init_with_priors(g)
     calibrate_bn(model, torch.rand(2, imgsz, imgsz, 3, generator=g).to(device))
-    out["build_s"] = time.perf_counter() - t0
-    out["params"] = sum(p.numel() for p in model.parameters())
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return model
 
-    # ---- the main path, counted
-    for c in counters or ():
+
+def drive_batcher(model, device, imgsz, max_batch, dtype, nc, counters, **kw):
+    """A `MicroBatcher` (NMS backend from `kw`, else its default) answers
+    the requests; the launch counters are zeroed just before and read just
+    after.  Returns the closed batcher, whose serve step still works."""
+    from dmayolo_tpu_torch.serve.batcher import MicroBatcher
+
+    for c in counters:
         c.launches = 0
     batcher = MicroBatcher(model, imgsz=imgsz, max_batch=max_batch, dtype=dtype,
-                           nms_backend="pallas", device=device)
+                           device=device, **kw)
     try:
         batcher.warmup()
-        out["detections_per_request"] = serve_requests(batcher, NATIVE_SIZES, nc)
+        dets = serve_requests(batcher, NATIVE_SIZES, nc)
     finally:
         batcher.close()
-    out["launches"] = {c.__name__: c.launches for c in counters or ()}
-    out["stats_counters"] = {k: (dict(v) if isinstance(v, dict) else v)
-                             for k, v in batcher.stats_counters.items()}
+    out = {"backend": batcher._serve_kw["backend"], "detections_per_request": dets,
+           "launches": {c.__name__: c.launches for c in counters},
+           "stats_counters": {k: (dict(v) if isinstance(v, dict) else v)
+                              for k, v in batcher.stats_counters.items()}}
     check(out["stats_counters"]["requests"] == len(NATIVE_SIZES), "requests lost")
-    fused = batcher.model
+    return batcher, out
 
-    # ---- conf 0.0: every candidate live; both NMS backends must agree
-    g.manual_seed(2)
+
+def serving(device, model, imgsz=640, max_batch=32, timed_batch=128, nc=10,
+            counters=()):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False  # f32 card-vs-CPU check below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"params": sum(p.numel() for p in model.parameters())}
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+
+    # ---- the main paths, counted: K2 by name, then the default backend
+    batchers = {}
+    for name, kw in (("pallas", {"nms_backend": "pallas"}), ("default", {})):
+        batchers[name], out[f"batcher_{name}"] = drive_batcher(
+            model, device, imgsz, max_batch, dtype, nc, counters, **kw)
+    fused = batchers["pallas"].model
+
+    # ---- conf 0.0: every candidate live; the three NMS backends must agree
+    g = torch.Generator().manual_seed(2)
     x = torch.randint(0, 256, (max_batch, imgsz, imgsz, 3), generator=g,
                       dtype=torch.uint8).to(device)
     with torch.inference_mode():
         raw = fused.apply(x.to(dtype) / 255.0, dtype=dtype, fused=True)
         dp, vp = fused.serve_detections(raw, conf_thres=0.0, backend="pallas")
-        ds, vs = fused.serve_detections(raw, conf_thres=0.0, backend="scan")
+        for backend in ("scan", "matrix"):
+            d, v = fused.serve_detections(raw, conf_thres=0.0, backend=backend)
+            check(torch.equal(vp, v) and torch.equal(dp, d),
+                  f"'pallas' and '{backend}' serving tails differ at conf 0.0")
     out["conf0_valid"] = int(vp.sum())
-    check(torch.equal(vp, vs) and torch.equal(dp, ds),
-          "'pallas' and 'scan' serving tails differ at conf 0.0")
     check(bool(torch.isfinite(dp).all()), "non-finite detections at conf 0.0")
 
     # ---- the card against the CPU on a small f32 input
@@ -370,25 +526,41 @@ def serving(device, imgsz=640, max_batch=32, timed_batch=128, cfg=None, nc=10,
     out["f32_card_vs_cpu_max_abs_err"], out["f32_raw_max_abs"] = err, scale
     check(err <= 1e-3 * max(1.0, scale), f"raw head on the card differs from the CPU by {err}")
 
-    # ---- bs128 serving time: uint8 in, (B, 300, 6) out
+    # ---- bs128 serving time: uint8 in, (B, 300, 6) out, per backend, in
+    # turns (pallas, matrix, matrix, pallas) with the card's clocks beside
     if device.type == "cuda":
         xb = torch.randint(0, 256, (timed_batch, imgsz, imgsz, 3), generator=g,
                            dtype=torch.uint8).to(device)
+        out["serve_batch"] = timed_batch
+        steps = {}
+        for name, batcher in batchers.items():
+            def step(batcher=batcher):
+                with torch.inference_mode():
+                    return batcher._serve(xb)
 
-        def step():
-            with torch.inference_mode():
-                return batcher._serve(xb)
-
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(step, 5, warmup=2)
-        out.update(serve_batch=timed_batch, serve_ms=ms,
-                   serve_img_per_s=timed_batch / ms * 1e3,
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-        d, v = step()
-        check(d.shape == (timed_batch, 300, 6) and bool(torch.isfinite(d).all()),
-              "bad bs128 serving output")
-        out["profile"] = profile_step(step)
+            d, v = step()
+            check(d.shape == (timed_batch, 300, 6) and bool(torch.isfinite(d).all()),
+                  f"bad bs128 serving output ({name})")
+            steps["" if name == "pallas" else "_" + out[f"batcher_{name}"]["backend"]] = step
+        windows = {sfx: [] for sfx in steps}
+        for sfx in list(steps) + list(steps)[::-1]:
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(steps[sfx], 5, warmup=2)
+            windows[sfx].append({"ms": ms, "card": card_state()})
+            out[f"peak_mem_gib{sfx}"] = torch.cuda.max_memory_allocated() / 2**30
+        for sfx, ws in windows.items():
+            ms = sum(w["ms"] for w in ws) / len(ws)
+            out.update({f"serve_ms{sfx}": ms, f"serve_img_per_s{sfx}": timed_batch / ms * 1e3,
+                        f"serve_windows{sfx}": ws})
+            out[f"profile{sfx}"] = profile_step(steps[sfx])
     return out
+
+
+def card_state():
+    """SM clock, power draw and temperature, as nvidia-smi reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def profile_step(step, top=12):
@@ -419,6 +591,133 @@ def profile_step(step, top=12):
                     for k, ms, n in rows[:top]]}
 
 
+# ---------------------------------------------------------------------------
+# the eval protocol
+# ---------------------------------------------------------------------------
+
+def rectangles(b, imgsz, nc, seed, max_objects=8):
+    """Images of filled rectangles on grey, drawn from a numpy seed, and
+    their labels as targets: cls (b, M), box xywhn (b, M, 4), mask (b, M)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    imgs = np.full((b, imgsz, imgsz, 3), 114, np.uint8)
+    cls = np.zeros((b, max_objects), np.float32)
+    box = np.zeros((b, max_objects, 4), np.float32)
+    mask = np.zeros((b, max_objects), bool)
+    for i in range(b):
+        for j in range(int(rng.integers(1, max_objects + 1))):
+            w, h = (rng.uniform(0.05, 0.4, 2) * imgsz).astype(int)
+            x1, y1 = int(rng.integers(0, imgsz - w)), int(rng.integers(0, imgsz - h))
+            imgs[i, y1:y1 + h, x1:x1 + w] = rng.integers(0, 256, 3)
+            cls[i, j] = rng.integers(0, nc)
+            box[i, j] = np.array([x1 + w / 2, y1 + h / 2, w, h]) / imgsz
+            mask[i, j] = True
+    return imgs, (cls, box, mask)
+
+
+def evaluate(device, model, imgsz=640, batch=32, tta_batch=8, nc=10, counters=(),
+             iters=3, seed=5):
+    """The eval protocol through `make_infer_fn` on each backend (counted),
+    the host mAP of its detections, the step's time by part, one TTA batch."""
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.core.nms import MAX_WH, NEG_INF, _nms_idx, select_candidates
+    from dmayolo_tpu_torch.eval.validator import _match_batch, _summarize, make_infer_fn
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    imgs, (t_cls, t_box, t_mask) = rectangles(batch, imgsz, nc, seed)
+    x = torch.from_numpy(imgs).to(device)
+    out = {"batch": batch, "imgsz": imgsz, "labels": int(t_mask.sum()), "backends": {}}
+    first = None
+    for backend in EVAL_BACKENDS:
+        infer = make_infer_fn(model, dtype=dtype, nms_backend=backend, **PROTOCOL)
+        for c in counters:
+            c.launches = 0
+        dets, valid = infer(x)
+        dets, valid = dets.cpu(), valid.cpu()
+        res = {"launches": {c.__name__: c.launches for c in counters},
+               "detections": int(valid.sum())}
+        check(dets.shape == (batch, PROTOCOL["max_det"], 6)
+              and bool(torch.isfinite(dets).all()), f"bad eval output ({backend})")
+        if first is None:
+            first = (backend, dets, valid)
+        else:
+            check(torch.equal(valid, first[2]) and torch.equal(dets, first[1]),
+                  f"eval detections differ between '{first[0]}' and '{backend}'")
+        if device.type == "cuda":
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                infer(x)[0].cpu()
+            res["step_ms"] = (time.perf_counter() - t0) / iters * 1e3
+            res["img_per_s"] = batch / res["step_ms"] * 1e3
+        out["backends"][backend] = res
+
+    # ---- the host half: match at 10 IoU thresholds, P, R and mAP
+    stats, _ = _match_batch(first[1].numpy(), first[2].numpy(), (imgsz, imgsz),
+                            t_cls, t_box, t_mask)
+    res = _summarize(stats, nc)
+    metrics = {k: getattr(res, k) for k in ("mp", "mr", "map50", "map75", "map")}
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()) and res.nt
+          == out["labels"], f"bad eval metrics {metrics} ({res.nt} labels)")
+    out["metrics"] = metrics
+    # the helpers on a known answer: the labels as conf-1.0 detections
+    xywh = t_box * imgsz
+    lab = np.concatenate([xywh[..., :2] - xywh[..., 2:] / 2, xywh[..., :2] + xywh[..., 2:] / 2,
+                          np.ones_like(t_cls)[..., None], t_cls[..., None]], -1)
+    stats, _ = _match_batch(lab, t_mask, (imgsz, imgsz), t_cls, t_box, t_mask)
+    res = _summarize(stats, nc)
+    out["metrics_labels_as_detections"] = {k: getattr(res, k) for k in metrics}
+    check(res.mp == res.mr == 1.0 and res.map50 > 0.99 and res.map > 0.99,
+          f"the labels as detections do not score 1: {out['metrics_labels_as_detections']}")
+    # the reference's --save-hybrid: the labels join the candidates as
+    # conf-1.0 rows; reported, not checked, since random weights can
+    # saturate scores at 1.0 too
+    infer = make_infer_fn(model, dtype=dtype, hybrid=True, nms_backend="pallas", **PROTOCOL)
+    dets, valid = infer(x, *(torch.from_numpy(t).to(device) for t in (t_cls, t_box, t_mask)))
+    dets, valid = dets.cpu(), valid.cpu()
+    check(dets.shape == (batch, PROTOCOL["max_det"], 6) and bool(torch.isfinite(dets).all()),
+          "bad hybrid eval output")
+    stats, _ = _match_batch(dets.numpy(), valid.numpy(), (imgsz, imgsz), t_cls, t_box, t_mask)
+    res = _summarize(stats, nc)
+    out["metrics_hybrid"] = {k: getattr(res, k) for k in metrics}
+
+    # ---- the step by part: forward + decode, candidates (top-k), NMS
+    with torch.inference_mode():
+        xf = x.to(dtype) / 255.0
+        dec = model.decode(model.apply(xf, dtype=dtype))
+        cand = select_candidates(dec, PROTOCOL["conf_thres"], True, PROTOCOL["max_nms"])
+        top_boxes, top_scores, top_cls, _ = cand
+        nms_boxes = top_boxes + (top_cls * MAX_WH)[..., None]
+        live = (top_scores > NEG_INF / 2).sum(1)
+        out.update(candidates=dec.shape[1] * (dec.shape[2] - 5), k=top_scores.shape[1],
+                   live_min=int(live.min()), live_mean=float(live.float().mean()),
+                   conf1_mean=float((top_scores >= 1.0).sum(1).float().mean()))
+        if device.type == "cuda":
+            parts = {"forward+decode": cuda_ms(
+                lambda: model.decode(model.apply(xf, dtype=dtype)), iters),
+                "candidates (conf gate, top-k)": cuda_ms(
+                lambda: select_candidates(dec, PROTOCOL["conf_thres"], True,
+                                          PROTOCOL["max_nms"]), iters)}
+            for backend in EVAL_BACKENDS:
+                parts[f"nms {backend}"] = cuda_ms(lambda: _nms_idx(
+                    nms_boxes, top_scores, PROTOCOL["iou_thres"], PROTOCOL["max_det"],
+                    backend), iters)
+            out["parts_ms"] = parts
+
+    # ---- one TTA batch
+    infer = make_infer_fn(model, dtype=dtype, augment=True, nms_backend="matrix", **PROTOCOL)
+    t0 = time.perf_counter()
+    dets, valid = infer(x[:tta_batch])
+    dets = dets.cpu()
+    out["tta"] = {"batch": tta_batch, "ms": (time.perf_counter() - t0) * 1e3,
+                  "detections": int(valid.sum())}
+    check(dets.shape == (tta_batch, PROTOCOL["max_det"], 6) and bool(torch.isfinite(dets).all())
+          and int(valid.sum()) > 0, "bad TTA eval output")
+    return out
+
+
 def main():
     import torch
 
@@ -426,7 +725,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from dmayolo_tpu_torch.core.nms_kernel import nms_greedy
+    from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep
+    from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_stream
     from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
     from dmayolo_tpu_torch.utils import cuda_build
 
@@ -449,6 +749,10 @@ def main():
     report = {"card": smi, "build_s": build_s}
     report["k2"] = k2 = check_nms(device)
     print("K2 nms_greedy: " + json.dumps(k2), flush=True)
+    report["k3"] = k3 = check_fixpoint(device)
+    print("K3 nms_fixpoint: " + json.dumps(k3), flush=True)
+    report["k2_stream"] = k2s = check_nms_stream(device)
+    print("K2 nms_greedy_stream: " + json.dumps(k2s), flush=True)
     report["k1"] = k1 = check_conv(device)
     for c in k1:
         print("K1 conv3x3_s1: " + json.dumps(c), flush=True)
@@ -456,29 +760,69 @@ def main():
     print("K1 conv3x3_s1 ragged: " + json.dumps(
         {"cases": len(k1_ragged), "max_scaled_err": max(c["max_scaled_err"] for c in k1_ragged)}),
         flush=True)
-    report["serving"] = srv = serving(device, counters=(nms_greedy, conv3x3_s1))
+
+    counters = (nms_greedy, nms_greedy_stream, fixpoint_keep, conv3x3_s1)
+    t0 = time.perf_counter()
+    model = build_model(device)
+    report["model_build_s"] = time.perf_counter() - t0
+    report["serving"] = srv = serving(device, model, counters=counters)
     print("serving: " + json.dumps(srv), flush=True)
-    check(srv["launches"]["nms_greedy"] > 0, "K2 did not launch on the serving path")
-    print(f"serving bs{srv['serve_batch']} 640px bf16: {srv['serve_img_per_s']:.1f} img/s "
-          f"({srv['serve_ms']:.2f} ms/batch) on {smi}")
+    check(srv["batcher_pallas"]["launches"]["nms_greedy"] > 0,
+          "K2 did not launch on the serving path with backend 'pallas'")
+    check(srv["batcher_default"]["backend"] == "matrix"
+          and srv["batcher_default"]["launches"]["fixpoint_keep"] > 0,
+          "K3 did not launch on the serving path with the default backend")
+    for sfx, name in (("", "pallas"), ("_matrix", "matrix")):
+        print(f"serving bs{srv['serve_batch']} 640px bf16 NMS '{name}': "
+              f"{srv['serve_img_per_s' + sfx]:.1f} img/s ({srv['serve_ms' + sfx]:.2f} ms/batch) "
+              f"on {smi}")
+    report["eval"] = ev = evaluate(device, model, counters=counters)
+    print("eval: " + json.dumps(ev), flush=True)
+    check(ev["backends"]["pallas"]["launches"]["nms_greedy_stream"] > 0,
+          "K2 streaming did not launch on the eval path")
+    check(ev["backends"]["matrix"]["launches"]["fixpoint_keep"] > 0,
+          "K3 did not launch on the eval path")
+    for name, res in ev["backends"].items():
+        print(f"eval bs{ev['batch']} 640px bf16 max_nms 30000 NMS '{name}': "
+              f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch) on {smi}")
 
     # K1's headline: one bf16 call at each of the four shapes, summed; the
     # bound of that sum is the larger of its summed byte and operation times
     k1_bf16 = [c for c in k1 if c["dtype"] == "bf16"]
     k1_bound, k1_bound_by = bound(sum(c["bytes"] for c in k1_bf16),
                                   sum(c["ops"] for c in k1_bf16), "bf16")
+    # launches on each main path: the two serving batchers and the eval
+    # protocol's three backends
+    paths = {f"serving {r['backend']}": r["launches"]
+             for r in (srv["batcher_pallas"], srv["batcher_default"])}
+    paths.update({f"eval {b}": r["launches"] for b, r in ev["backends"].items()})
+
+    def launches(counter):
+        by_path = {p: n[counter.__name__] for p, n in paths.items() if n[counter.__name__]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    def timed(res):
+        return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
     kernels = [
         {"name": "nms_greedy", "route": "cuda",
          "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
-         "launches": srv["launches"]["nms_greedy"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None,
-         "shape": k2["shape"]},
+         **launches(nms_greedy), **timed(k2), "library_ms": None, "shape": k2["shape"]},
+        {"name": "nms_greedy_stream", "route": "cuda",
+         "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
+         "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
+         **launches(nms_greedy_stream), **timed(k2s), "library_ms": None,
+         "shape": k2s["shape"]},
+        {"name": "nms_fixpoint", "route": "cuda",
+         "source": "dmayolo_tpu_torch/csrc/nms_fixpoint.cu",
+         "replaces": "experiments/exp_pallas_fixpoint.py:87",
+         **launches(fixpoint_keep), **timed(k3), "library_ms": None, "shape": k3["shape"],
+         "ms_divide": k3["ms_divide"], "plain_ms_divide": k3["plain_ms_divide"]},
         {"name": "conv3x3_s1", "route": "cuda",
          "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",
          "replaces": "dmayolo_tpu/nn/pallas_conv.py:75",
-         "launches": srv["launches"]["conv3x3_s1"],
+         **launches(conv3x3_s1),
          "max_abs_err": max(c["max_abs_err"] for c in k1_bf16),
          "ms": sum(c["ms"] for c in k1_bf16), "plain_ms": sum(c["plain_ms"] for c in k1_bf16),
          "bound_ms": k1_bound, "bound_by": k1_bound_by,

@@ -1,15 +1,17 @@
 """Greedy NMS per image: the CUDA kernel K2 and its plain version.
 
-Port of `dmayolo_tpu/core/pallas_nms.py::pallas_batched_nms_core`.  The
-kernel (`csrc/nms_greedy.cu`) holds one image's candidates in shared memory
-and runs the whole pick/suppress loop in one thread block; its source note
-says what bounds it on the card and what the design does about that.
+Port of `dmayolo_tpu/core/pallas_nms.py::pallas_batched_nms_core`.  Two
+kernels in `csrc/nms_greedy.cu` run the whole pick/suppress loop of one
+image in one thread block: for K <= 1024 (serving) the candidates sit in
+shared memory; above that (the eval protocol's K = 30,000) the streaming
+variant, `nms_greedy_stream`, reads them from global memory.  The source
+note says what bounds them on the card and what the designs do about it.
 
-`nms_greedy` launches the kernel for CUDA tensors and takes the plain
-version, `nms_greedy_plain`, only for CPU tensors.  Both return what the
-JAX function returns: `keep_idx` holds the picks in pick order, then the
-unpicked indices in ascending order, then zeros when K < max_det;
-`keep_valid` marks the picks.
+`nms_greedy` launches a kernel for CUDA tensors, the streaming one above
+`MAX_K`, and takes the plain version, `nms_greedy_plain`, only for CPU
+tensors.  All return what the JAX function returns: `keep_idx` holds the
+picks in pick order, then the unpicked indices in ascending order, then
+zeros when K < max_det; `keep_valid` marks the picks.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from ..utils.cuda_build import load_library
 
 NEG_INF = -1e10
 # candidates that fit one block's shared memory (28 bytes each); larger
-# candidate sets need the streaming variant (ROADMAP.md, Queue 2, K2)
+# candidate sets go to the streaming variant
 MAX_K = 1024
 
 
@@ -66,13 +68,58 @@ def nms_greedy_plain(boxes: torch.Tensor, scores: torch.Tensor,
 
 def _lib():
     lib = load_library("nms_greedy")
-    fn = lib.nms_greedy_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.nms_greedy_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.nms_greedy_launch.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float,
+                                          ptr, ptr, ptr]
+        lib.nms_greedy_stream_launch.argtypes = [ptr, ptr, i32, i32, i32,
+                                                 ctypes.c_float, ptr, ptr, ptr, ptr]
+        lib.nms_greedy_launch.restype = lib.nms_greedy_stream_launch.restype = i32
+    return lib
+
+
+def _check(name, boxes, scores):
+    """Shape and device checks; True when the plain version should run."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
+        raise ValueError(f"expected boxes (B, K, 4) and scores (B, K), got "
+                         f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
+    if boxes.device != scores.device:
+        raise ValueError("boxes and scores must be on one device")
+    if boxes.device.type == "cpu":
+        return True
+    if boxes.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {boxes.device}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 boxes and scores")
+    if boxes.shape[1] == 0:
+        raise ValueError(f"{name} needs at least one candidate per image")
+    return False
+
+
+def _launch(name, boxes, scores, iou_thres, max_det, scratch):
+    b, k, _ = boxes.shape
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    if boxes.data_ptr() % 16:  # the streaming kernel reads a box as one float4
+        boxes = boxes.clone()
+    keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
+    keep_valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
+    if b == 0 or max_det == 0:
+        return keep_idx, keep_valid, False
+    lib = _lib()
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        if scratch:
+            live = torch.empty((b, k), dtype=torch.float32, device=boxes.device)
+            rc = lib.nms_greedy_stream_launch(
+                boxes.data_ptr(), scores.data_ptr(), b, k, max_det, float(iou_thres),
+                live.data_ptr(), keep_idx.data_ptr(), keep_valid.data_ptr(), stream)
+        else:
+            rc = lib.nms_greedy_launch(
+                boxes.data_ptr(), scores.data_ptr(), b, k, max_det, float(iou_thres),
+                keep_idx.data_ptr(), keep_valid.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return keep_idx, keep_valid, True
 
 
 def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
@@ -80,39 +127,31 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
     """Greedy NMS per image (see the module docstring for the outputs).
 
     A CPU tensor goes through `nms_greedy_plain`; a CUDA tensor launches
-    the kernel, or raises."""
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
-        raise ValueError(f"expected boxes (B, K, 4) and scores (B, K), got "
-                         f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
-    if boxes.device != scores.device:
-        raise ValueError("boxes and scores must be on one device")
-    if boxes.device.type == "cpu":
+    the shared-memory kernel, or `nms_greedy_stream` above MAX_K
+    candidates, or raises."""
+    if _check("nms_greedy", boxes, scores):
         return nms_greedy_plain(boxes, scores, iou_thres, max_det)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"nms_greedy runs on cuda or cpu, not {boxes.device}")
-    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
-        raise TypeError("nms_greedy takes float32 boxes and scores")
-    b, k, _ = boxes.shape
-    if not 0 < k <= MAX_K:
-        raise ValueError(
-            f"nms_greedy holds at most {MAX_K} candidates per image in shared "
-            f"memory, got K={k}; the streaming variant for larger K is "
-            "ROADMAP.md Queue 2, K2")
-    boxes, scores = boxes.contiguous(), scores.contiguous()
-    keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
-    keep_valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
-    if b == 0 or max_det == 0:
-        return keep_idx, keep_valid
-    fn = _lib()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        rc = fn(boxes.data_ptr(), scores.data_ptr(), b, k, max_det,
-                float(iou_thres), keep_idx.data_ptr(), keep_valid.data_ptr(),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"nms_greedy kernel launch failed: CUDA error {rc}")
-    nms_greedy.launches += 1
+    if boxes.shape[1] > MAX_K:
+        return nms_greedy_stream(boxes, scores, iou_thres, max_det)
+    keep_idx, keep_valid, launched = _launch("nms_greedy", boxes, scores,
+                                             iou_thres, max_det, scratch=False)
+    nms_greedy.launches += launched
+    return keep_idx, keep_valid
+
+
+def nms_greedy_stream(boxes: torch.Tensor, scores: torch.Tensor,
+                      iou_thres: float = 0.45, max_det: int = 300):
+    """Greedy NMS per image through the streaming kernel, for any K.
+
+    A CPU tensor goes through `nms_greedy_plain`; a CUDA tensor launches
+    the kernel, or raises."""
+    if _check("nms_greedy_stream", boxes, scores):
+        return nms_greedy_plain(boxes, scores, iou_thres, max_det)
+    keep_idx, keep_valid, launched = _launch("nms_greedy_stream", boxes, scores,
+                                             iou_thres, max_det, scratch=True)
+    nms_greedy_stream.launches += launched
     return keep_idx, keep_valid
 
 
 nms_greedy.launches = 0
+nms_greedy_stream.launches = 0

@@ -1,0 +1,175 @@
+"""The eval protocol: the device program and the host mAP.
+
+Port of `dmayolo_tpu/eval/validator.py`.  The device program
+(`make_infer_fn`) is the forward, decode and multi-label `batched_nms` of a
+whole batch, optionally with TTA; the host side scales boxes back to the
+native image, matches them to the labels at 10 IoU thresholds and
+aggregates AP (`eval/metrics.py`).  The protocol's defaults are the
+reference's: conf 0.001, NMS IoU 0.6, multi-label, max_det 300, and 30,000
+candidates before NMS.
+
+`_match_batch` and `_summarize` are the body and the summary of the JAX
+`run_validation` loop, on arrays shaped like its `Batch`: images
+(B, H, W, 3) uint8, targets cls (B, M), box xywhn (B, M, 4), mask (B, M).
+The loop itself, which reads the dataset from disk, comes with the data
+slice of the port (ROADMAP.md, Queue 1 item 10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.nms import batched_nms
+from .metrics import ap_per_class, process_batch
+from .tta import forward_augment
+
+IOUV = np.linspace(0.5, 0.95, 10)  # the 10 IoU thresholds of mAP@.5:.95
+
+
+@dataclass
+class ValResult:
+    mp: float = 0.0
+    mr: float = 0.0
+    map50: float = 0.0
+    map75: float = 0.0
+    map: float = 0.0
+    maps: Optional[np.ndarray] = None  # per-class AP
+    per_class: Optional[Dict[str, np.ndarray]] = None  # cls/p/r/ap50/ap/nt
+    speed_ms: Dict[str, float] = field(default_factory=dict)
+    nt: int = 0
+    # image ids the --save-json writer used, for COCOeval imgIds scoping
+    used_image_ids: Optional[list] = None
+
+    def summary(self) -> str:
+        return (
+            f"P={self.mp:.4f} R={self.mr:.4f} mAP@.5={self.map50:.4f} "
+            f"mAP@.75={self.map75:.4f} mAP@.5:.95={self.map:.4f} ({self.nt} labels)"
+        )
+
+
+def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
+                  dtype=torch.bfloat16, fused: bool = False, augment: bool = False,
+                  max_nms: int = 30000, nms_backend: str = "scan", mesh=None,
+                  spatial: bool = False, hybrid: bool = False, quant=None):
+    """The whole-batch forward, decode and NMS (optionally TTA) of `model`,
+    on the model's device.
+
+    Returns `infer(images, *targets) -> (dets (B, max_det, 6), valid
+    (B, max_det))`: images (B, H, W, 3) uint8; with `hybrid`, the targets
+    (cls (B, M), box xywhn (B, M, 4), mask (B, M)) join the predictions
+    before NMS as conf-1.0 candidates (the reference's --save-hybrid)."""
+    if mesh is not None or spatial:
+        raise NotImplementedError("multi-GPU eval is not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 13)")
+    if quant is not None:
+        raise NotImplementedError("int8 eval is not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 14)")
+    device = next(model.parameters()).device
+
+    def infer(x, *tgt):
+        with torch.inference_mode():
+            x = torch.as_tensor(x, device=device)
+            xf = x.to(dtype) / 255.0
+            if augment:
+                dec = forward_augment(model, xf, dtype=dtype, fused=fused)
+            else:
+                dec = model.decode(model.apply(xf, dtype=dtype, fused=fused))
+            if hybrid:
+                t_cls, t_box, t_mask = (torch.as_tensor(t, device=device) for t in tgt)
+                h, w = x.shape[1], x.shape[2]
+                scale = torch.tensor([w, h, w, h], dtype=dec.dtype, device=device)
+                obj = t_mask.to(dec.dtype)[..., None]
+                onehot = F.one_hot(t_cls.long(), model.nc).to(dec.dtype) * obj
+                rows = torch.cat([t_box.to(dec.dtype) * scale, obj, onehot], -1)
+                dec = torch.cat([dec, rows], 1)
+            return batched_nms(dec, conf_thres=conf_thres, iou_thres=iou_thres,
+                               multi_label=True, max_det=max_det, max_nms=max_nms,
+                               backend=nms_backend)
+
+    return infer
+
+
+def _scale_to_native(boxes: np.ndarray, lb_shape, native_shape):
+    """Letterbox inverse (the reference's scale_coords), numpy."""
+    gain = min(lb_shape[0] / native_shape[0], lb_shape[1] / native_shape[1])
+    pad_x = (lb_shape[1] - native_shape[1] * gain) / 2
+    pad_y = (lb_shape[0] - native_shape[0] * gain) / 2
+    out = boxes.copy()
+    out[:, [0, 2]] = (out[:, [0, 2]] - pad_x) / gain
+    out[:, [1, 3]] = (out[:, [1, 3]] - pad_y) / gain
+    out[:, [0, 2]] = out[:, [0, 2]].clip(0, native_shape[1])
+    out[:, [1, 3]] = out[:, [1, 3]].clip(0, native_shape[0])
+    return out
+
+
+def _save_txt(dets_native, native_shape, path: Path, save_conf: bool):
+    """xywhn txt rows (the reference's save_one_txt)."""
+    h, w = native_shape
+    lines = []
+    for x1, y1, x2, y2, conf, cls in dets_native:
+        cx, cy = (x1 + x2) / 2 / w, (y1 + y2) / 2 / h
+        bw, bh = (x2 - x1) / w, (y2 - y1) / h
+        row = [int(cls), cx, cy, bw, bh] + ([conf] if save_conf else [])
+        lines.append(" ".join(f"{v:.6g}" if i else str(v) for i, v in enumerate(row)))
+    path.write_text("\n".join(lines) + ("\n" if lines else ""))
+
+
+def _match_batch(dets: np.ndarray, valid: np.ndarray, hw, t_cls: np.ndarray,
+                 t_box: np.ndarray, t_mask: np.ndarray, single_cls: bool = False):
+    """One batch of the validation loop on the host.
+
+    dets (>= n, max_det, 6) and valid from `infer` (as numpy; rows past the
+    n images of the targets are padding); hw the letterbox (H, W); targets
+    (n, M) cls, (n, M, 4) xywhn box, (n, M) mask.  Returns the per-image
+    stats (correct (k, 10), conf, pred cls, target cls) and detections
+    (k, 6) in letterbox pixels."""
+    h, w = hw
+    stats, kept = [], []
+    for i in range(len(t_cls)):
+        d = dets[i][valid[i]]  # (k, 6) xyxy conf cls in letterbox space
+        if single_cls:
+            d[:, 5] = 0  # the predictions join the labels' class 0
+        m = np.asarray(t_mask[i])
+        cls = np.asarray(t_cls[i])[m]
+        box = np.asarray(t_box[i])[m]  # xywhn
+        if len(box):
+            lx = box * np.array([w, h, w, h])
+            xyxy = np.stack([lx[:, 0] - lx[:, 2] / 2, lx[:, 1] - lx[:, 3] / 2,
+                             lx[:, 0] + lx[:, 2] / 2, lx[:, 1] + lx[:, 3] / 2], 1)
+            labels = np.concatenate([cls[:, None], xyxy], 1)
+        else:
+            labels = np.zeros((0, 5), np.float32)
+        stats.append((process_batch(d, labels, IOUV), d[:, 4], d[:, 5], cls))
+        kept.append(d)
+    return stats, kept
+
+
+def _summarize(stats: List[tuple], nc: int,
+               speed_ms: Optional[Dict[str, float]] = None) -> ValResult:
+    """P, R, mAP@.5, mAP@.75 and mAP@.5:.95 at the max-F1 operating point
+    from the per-image stats of `_match_batch`."""
+    if not stats:
+        return ValResult()
+    tp = np.concatenate([s[0] for s in stats])
+    conf = np.concatenate([s[1] for s in stats])
+    pred_cls = np.concatenate([s[2] for s in stats])
+    tcls = np.concatenate([s[3] for s in stats])
+    res = ValResult(nt=len(tcls), speed_ms=dict(speed_ms or {}))
+    if tp.size and tcls.size:
+        p, r, ap, f1, classes = ap_per_class(tp, conf, pred_cls, tcls)
+        ap50, ap75, ap_mean = ap[:, 0], ap[:, 5], ap.mean(1)
+        res.mp, res.mr = float(p.mean()), float(r.mean())
+        res.map50, res.map75 = float(ap50.mean()), float(ap75.mean())
+        res.map = float(ap_mean.mean())
+        maps = np.zeros(nc)
+        maps[classes] = ap_mean
+        res.maps = maps
+        nt_cls = np.bincount(tcls.astype(int), minlength=nc)[classes]
+        res.per_class = {"cls": classes, "p": p, "r": r, "ap50": ap50,
+                         "ap": ap_mean, "nt": nt_cls}
+    return res

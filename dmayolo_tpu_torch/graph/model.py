@@ -197,17 +197,22 @@ class DetectionModel(nn.Module):
         return self
 
     # -- decode and serving tail ---------------------------------------------
+    def decode(self, raw):
+        """Raw head -> (B, N, 5 + nc) decoded predictions, the eval path."""
+        return self.head.decode(raw)
+
     def decode_parts(self, raw, class_mask=None, ref_order: bool = True):
         return self.head.decode_parts(raw, class_mask, ref_order=ref_order)
 
     def serve_detections(self, raw, conf_thres: float = 0.25,
                          iou_thres: float = 0.45, max_det: int = 300,
-                         max_nms: int = 512, backend: str = "pallas",
+                         max_nms: int = 512, backend: str = "matrix",
                          agnostic: bool = False, class_mask=None,
                          ref_order: bool = True):
         """Raw head -> (dets (B, max_det, 6), valid (B, max_det)): decode
         in reference order, top-`max_nms` candidates, greedy class-offset
-        NMS.  backend "pallas" is the CUDA kernel K2 (core/nms_kernel.py)."""
+        NMS.  backend "matrix" goes through the CUDA kernel K3, "pallas"
+        through K2 (see core/nms.py)."""
         boxes, scores, cls = self.decode_parts(raw, class_mask=class_mask,
                                                ref_order=ref_order)
         return nms_parts(boxes, scores, cls, conf_thres=conf_thres,

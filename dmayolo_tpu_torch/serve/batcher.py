@@ -9,7 +9,8 @@ thread drains the request queue:
   square;
 - the batch is padded up to a power-of-two bucket (1, 2, 4, ..., max_batch);
 - the serve step is the bench path: uint8 / 255 in the compute dtype, the
-  BN-folded forward, `decode_parts` and `nms_parts` (K2 by default);
+  BN-folded forward, `decode_parts` and `nms_parts` (the "matrix" backend,
+  kernel K3, by default);
 - results are letterbox-inverted to each request's native pixel space on
   the host.
 
@@ -29,22 +30,10 @@ import numpy as np
 import torch
 
 from ..data.letterbox import letterbox
+from ..eval.validator import _scale_to_native
 from ..utils.device import resolve_device
 
 _STOP = object()
-
-
-def _scale_to_native(boxes: np.ndarray, lb_shape, native_shape):
-    """Letterbox inverse (the reference's scale_coords), numpy."""
-    gain = min(lb_shape[0] / native_shape[0], lb_shape[1] / native_shape[1])
-    pad_x = (lb_shape[1] - native_shape[1] * gain) / 2
-    pad_y = (lb_shape[0] - native_shape[0] * gain) / 2
-    out = boxes.copy()
-    out[:, [0, 2]] = (out[:, [0, 2]] - pad_x) / gain
-    out[:, [1, 3]] = (out[:, [1, 3]] - pad_y) / gain
-    out[:, [0, 2]] = out[:, [0, 2]].clip(0, native_shape[1])
-    out[:, [1, 3]] = out[:, [1, 3]].clip(0, native_shape[0])
-    return out
 
 
 class _Request:
@@ -86,14 +75,15 @@ class MicroBatcher:
         max_batch: device batch ceiling.
         max_wait_ms: how long the first request of a batch waits for
             co-riders; 0 still drains whatever is already queued.
-        nms_backend: "pallas" (the CUDA kernel K2) or "scan" (plain loop).
+        nms_backend: "matrix" (the CUDA kernel K3), "pallas" (K2) or "scan"
+            (the plain loop).
     """
 
     def __init__(self, model, *, imgsz: int = 640, max_batch: int = 32,
                  max_wait_ms: float = 5.0, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
                  max_nms: int = 512, dtype=torch.bfloat16,
-                 nms_backend: str = "pallas", device=None):
+                 nms_backend: str = "matrix", device=None):
         self.device = resolve_device(device)
         self.model = copy.deepcopy(model).to(self.device).fuse().eval()
         self.imgsz = int(imgsz)

@@ -25,6 +25,7 @@ SOURCES = {
     # bit-exact IoU: no FMA contraction, so every product and sum rounds
     # as in the plain PyTorch version and the JAX reference
     "nms_greedy": ["-fmad=false"],
+    "nms_fixpoint": ["-fmad=false"],
     "conv3x3_s1": [],
 }
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

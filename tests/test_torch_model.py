@@ -107,7 +107,7 @@ def _match_rows(want: np.ndarray, got: np.ndarray):
         free.remove(hits[0])
 
 
-@pytest.mark.parametrize("backend", ["pallas", "scan"])
+@pytest.mark.parametrize("backend", ["pallas", "scan", "matrix"])
 def test_serve_detections_matches_jax(pair, backend):
     """End to end at conf 0.0: all 252 candidates of a 64 px image are live,
     fewer than max_det = 300, so the padded slots run too."""
@@ -126,13 +126,6 @@ def test_serve_detections_matches_jax(pair, backend):
     assert not got_d[~got_v].any()  # invalid slots are zeroed
     for b in range(2):
         _match_rows(want_d[b][want_v[b]], got_d[b][got_v[b]].numpy())
-
-
-def test_matrix_backend_is_not_ported(pair):
-    pm = pair[3]
-    raw = pm.apply(torch.from_numpy(_images(64)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.serve_detections(raw, backend="matrix")
 
 
 def test_full_width_flagship_builds_like_jax():
