@@ -13,13 +13,19 @@ source, all at once), then:
 2. K3 (fixpoint keep flags, csrc/nms_fixpoint.cu) against its plain
    version on the same candidate sets (K <= 512), in both comparison
    forms (inter / union > t and inter > t * union): the keep flags must be
-   equal.  Timed at (128, 512).
+   equal.  Timed at (128, 512), and in the divide form at (32, 512), the
+   shape at which the eval's "matrix" backend launches it.
 3. K2's streaming variant (K > 1024) against the plain version at (32, K)
    for K = 1025, 4096 and 30,000, max_det 300, IoU 0.6: equal everywhere.
-4. K1 (3x3 conv, csrc/conv3x3_s1.cu) against its plain version at the
-   flagship's C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 +
-   |plain|), TF32 off) and bf16 (2e-2), timed beside cuDNN (`F.conv2d`, the
-   library yardstick only).
+4. K1 (3x3 conv, csrc/conv3x3_s1.cu: wgmma and TMA for bf16 inputs, the
+   CUDA cores for f32) against its plain version at four of the flagship's
+   C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 + |plain|), TF32
+   off) and bf16 (2e-2), timed beside cuDNN (`F.conv2d`, the library
+   yardstick only); untimed on ragged shapes in all four dtype pairs.
+   Then at every 3x3 stride-1 conv shape of the flagship, found by forward
+   hooks at bs128 640 px, at batch 128 in bf16: images 0-1 against the
+   plain version, K1 and cuDNN timed, and both summed over one step's
+   convs, each shape weighted by its count.
 5. The serving main path: the full-width flagship (nc 10, seeded random
    weights with the head priors, BN statistics calibrated on two random
    images) behind `MicroBatcher` (640 px, bf16), 8 requests of different
@@ -248,6 +254,13 @@ def check_fixpoint(device, b=128):
             out["plain_ms" + form] = cuda_ms(
                 lambda: fixpoint_keep_plain(boxes, valid, thr, divide), 3)
         out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
+        # the eval's "matrix" backend launches the divide form at (32, 512)
+        bs, vs = boxes[:32].contiguous(), valid[:32].contiguous()
+        pairs = int(((k - 1 - torch.arange(k, device=device)) * vs).sum())
+        out["eval_shape"] = [bs.shape[0], k]
+        out["eval_ms_divide"] = cuda_ms(lambda: fixpoint_keep(bs, vs, thr, True), 50)
+        out["eval_plain_ms_divide"] = cuda_ms(lambda: fixpoint_keep_plain(bs, vs, thr, True), 3)
+        out["eval_bound_ms"], out["eval_bound_by"] = bound(bs.shape[0] * k * 18, pairs * 15, "f32")
     return out
 
 
@@ -366,15 +379,101 @@ def check_conv(device, shapes=K1_SHAPES, timed=True):
                 nbytes = (b * h * w * (c1 + c2) + 9 * c1 * c2) * item
                 xn = x.permute(0, 3, 1, 2)  # channels_last view for cuDNN
                 wo = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                case["ms"] = cuda_ms(lambda: conv3x3_s1(x, wt), 10)
+                case["ms"] = cuda_ms(lambda: conv3x3_s1(x, wt), 50)
+                if dt == bf16:
+                    case["kernel_ms"] = kernel_ms(x, wt, 50)
                 case["plain_ms"] = cuda_ms(lambda: conv3x3_s1_plain(x, wt), 5)
-                case["library_ms"] = cuda_ms(lambda: F.conv2d(xn, wo, padding=1), 20)
+                case["library_ms"] = cuda_ms(lambda: F.conv2d(xn, wo, padding=1), 50)
                 case["bound_ms"], case["bound_by"] = bound(nbytes, ops, kind)
                 case["bytes"], case["ops"] = nbytes, ops
                 case["tflops"] = ops / case["ms"] / 1e9
             cases.append(case)
             del x, wt, got, want, err
     return cases
+
+
+def kernel_ms(x, wt, iters):
+    """K1's bf16 kernel alone: `conv3x3_s1` less its per-call host side
+    (channel padding, the K-major weight copy), timed on prepared inputs."""
+    import torch
+
+    from dmayolo_tpu_torch.nn.conv3x3 import launch_tc, prepare_tc
+
+    prep = prepare_tc(x, wt)
+    out = torch.empty(*x.shape[:3], wt.shape[3], dtype=x.dtype, device=x.device)
+    return cuda_ms(lambda: check(launch_tc(*prep, out) == 0, "K1 launch failed"), iters)
+
+
+def conv3x3_sites(model, x, dtype):
+    """{(H, W, C1, C2): count} of the model's 3x3 stride-1 convs (k 3, s 1,
+    g 1, d 1) in one forward of x, read by forward hooks."""
+    import collections
+
+    import torch
+
+    from dmayolo_tpu_torch.nn.primitives import Conv2d
+
+    sites = collections.Counter()
+
+    def hook(conv, args, _):
+        _, c, h, w = args[0].shape  # NCHW (channels_last memory) inside the model
+        sites[(h, w, c, conv.weight.shape[0])] += 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d) and m.k == (3, 3) and m.s == (1, 1)
+               and m.g == 1 and m.d == (1, 1)]
+    try:
+        with torch.inference_mode():
+            model.apply(x, dtype=dtype)
+    finally:
+        for h in handles:
+            h.remove()
+    return dict(sorted(sites.items(), key=lambda kv: (-kv[0][0], kv[0][2], kv[0][3])))
+
+
+def check_conv_flagship(device, sites, batch=128, iters=10):
+    """K1 at each of the flagship's 3x3 stride-1 conv shapes (`sites`) at
+    the serving batch in bf16.  Images 0-1 of the full-batch call are held
+    against the plain version on those two images (it cannot run the whole
+    batch: its unfold alone is 30 GB at 320x320x64).  Timed beside cuDNN
+    (`F.conv2d` on the channels_last view, the yardstick only) and the
+    bound; the sums weight each shape by its count in one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1, conv3x3_s1_plain
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(4)
+    rows = []
+    for (h, w, c1, c2), count in sites.items():
+        x = torch.randn(batch, h, w, c1, device=device, generator=g).to(bf16)
+        wt = (torch.randn(3, 3, c1, c2, device=device, generator=g) / (9 * c1) ** 0.5).to(bf16)
+        got = conv3x3_s1(x, wt)
+        want = conv3x3_s1_plain(x[:2], wt).float()
+        err = (got[:2].float() - want).abs()
+        row = {"shape": [batch, h, w, c1, c2], "count": count, "max_abs_err": float(err.max()),
+               "max_scaled_err": float((err / (1 + want.abs())).max()), "tol": K1_TOL["bf16"]}
+        check(got.shape == (batch, h, w, c2) and row["max_scaled_err"] <= row["tol"],
+              f"K1 differs from its plain version on images 0-1 at {row}")
+        if device.type == "cuda":
+            xn = x.permute(0, 3, 1, 2)  # channels_last view for cuDNN
+            wo = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            row["ms"] = cuda_ms(lambda: conv3x3_s1(x, wt), iters)
+            row["kernel_ms"] = kernel_ms(x, wt, iters)
+            row["library_ms"] = cuda_ms(lambda: F.conv2d(xn, wo, padding=1), iters)
+            row["ops"] = 2 * batch * h * w * 9 * c1 * c2
+            row["bytes"] = (batch * h * w * (c1 + c2) + 9 * c1 * c2) * 2
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], "bf16")
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            del xn, wo
+        rows.append(row)
+        del x, wt, got, want, err
+    out = {"batch": batch, "convs": sum(sites.values()), "shapes": rows}
+    if device.type == "cuda":
+        for key in ("ms", "kernel_ms", "library_ms", "bound_ms"):
+            out[f"step_{key}"] = sum(r["count"] * r[key] for r in rows)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +842,8 @@ def main():
     print(f"build: {build_s:.1f} s ({', '.join(cuda_build.SOURCES)})", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
+            if "entry function" in line:
+                print(f"  {name}: {line.strip()[:150]}")
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
@@ -765,6 +866,24 @@ def main():
     t0 = time.perf_counter()
     model = build_model(device)
     report["model_build_s"] = time.perf_counter() - t0
+    # the flagship's 3x3 stride-1 convs at the serving batch, for the
+    # question whether K1 should replace cuDNN inside the port's Conv2d
+    xs = torch.rand(128, 640, 640, 3, device=device, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=device).manual_seed(6))
+    sites = conv3x3_sites(model, xs, torch.bfloat16)
+    del xs
+    report["k1_flagship"] = k1f = check_conv_flagship(device, sites)
+    for r in k1f["shapes"]:
+        b, h, w, c1, c2 = r["shape"]
+        print(f"K1 flagship bs{b} {h}x{w} {c1}->{c2} x{r['count']}: K1 {r['ms']:.4f} ms "
+              f"(kernel {r['kernel_ms']:.4f}), cuDNN {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['share_of_bound']:.3f} of bound, max scaled err {r['max_scaled_err']:.2e}",
+              flush=True)
+    print(f"K1 over the step's {k1f['convs']} 3x3 convs ({len(sites)} shapes, count-weighted): "
+          f"{k1f['step_ms']:.3f} ms (kernel {k1f['step_kernel_ms']:.3f}); "
+          f"cuDNN over the same: {k1f['step_library_ms']:.3f} ms; "
+          f"bound {k1f['step_bound_ms']:.3f} ms; on {smi}", flush=True)
     report["serving"] = srv = serving(device, model, counters=counters)
     print("serving: " + json.dumps(srv), flush=True)
     check(srv["batcher_pallas"]["launches"]["nms_greedy"] > 0,
@@ -818,8 +937,10 @@ def main():
          "source": "dmayolo_tpu_torch/csrc/nms_fixpoint.cu",
          "replaces": "experiments/exp_pallas_fixpoint.py:87",
          **launches(fixpoint_keep), **timed(k3), "library_ms": None, "shape": k3["shape"],
-         "ms_divide": k3["ms_divide"], "plain_ms_divide": k3["plain_ms_divide"]},
-        {"name": "conv3x3_s1", "route": "cuda",
+         "ms_divide": k3["ms_divide"], "plain_ms_divide": k3["plain_ms_divide"],
+         **{k: k3[k] for k in ("eval_shape", "eval_ms_divide", "eval_plain_ms_divide",
+                               "eval_bound_ms", "eval_bound_by")}},
+        {"name": "conv3x3_s1", "route": "cuda", "design": "wgmma+tma",
          "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",
          "replaces": "dmayolo_tpu/nn/pallas_conv.py:75",
          **launches(conv3x3_s1),
@@ -827,8 +948,12 @@ def main():
          "ms": sum(c["ms"] for c in k1_bf16), "plain_ms": sum(c["plain_ms"] for c in k1_bf16),
          "bound_ms": k1_bound, "bound_by": k1_bound_by,
          "library_ms": sum(c["library_ms"] for c in k1_bf16),
-         "cases": [{k: c[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")} for c in k1]},
+         "cases": [{k: c.get(k) for k in ("shape", "dtype", "max_abs_err", "ms", "kernel_ms",
+                                          "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                   for c in k1],
+         "kernel_ms": sum(c["kernel_ms"] for c in k1_bf16),
+         "flagship_bs128": {k: k1f[k] for k in ("convs", "step_ms", "step_kernel_ms",
+                                                 "step_library_ms", "step_bound_ms")}},
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -2,11 +2,18 @@
 
 Port of `dmayolo_tpu/nn/pallas_conv.py::conv3x3_s1`, as the standalone
 function it is there: no model path calls it, and the port's `Conv2d` does
-not either.  The kernel (`csrc/conv3x3_s1.cu`) is a tiled direct
-convolution with f32 sums; its source note says what bounds it on the card
-and what the design does about that.
+not either.  The kernels live in `csrc/conv3x3_s1.cu`, whose source note
+says what bounds them on the card:
 
-`conv3x3_s1` launches the kernel for CUDA tensors and takes the plain
+* bf16 inputs: an implicit GEMM on the tensor cores (`wgmma`, TMA loads).
+  `prepare_tc` does its host side: the input's channels, and the weights'
+  C1, zero-padded to a multiple of 8 (TMA needs 16-byte strides; zero
+  channels add nothing to the sums), the weights reordered to K-major
+  (C2, 9, C1p), and the tile plan (`plan_tc`).
+* f32 inputs: a tiled direct convolution on the CUDA cores, f32 exact
+  enough for the 1e-4 tolerance against the f32 reference.
+
+`conv3x3_s1` launches a kernel for CUDA tensors and takes the plain
 version, `conv3x3_s1_plain` (unfold + one f32 matmul, the `im2col` form),
 only for CPU tensors.  Layouts are the JAX ones: x (B, H, W, C1), w HWIO
 (3, 3, C1, C2), out (B, H, W, C2).  Unlike the TPU kernel, any H and W is
@@ -15,6 +22,8 @@ taken: ragged tiles are masked, not asserted away.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Iterator, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +31,14 @@ import torch.nn.functional as F
 from ..utils.cuda_build import load_library
 
 _DTYPES = (torch.float32, torch.bfloat16)
+TILE_ROWS = (128, 256)  # rows of a tensor-core tile: two or four m64 wgmma blocks
+MAX_HALO_W = 56  # widest haloed patch (TW + 2): the largest tile's buffers fit 227 KB
+_SMS = 132  # an H100 SXM's SMs, for the tile-size choice only
+# what the wgmma launcher returns when it cannot make a TMA tensor map
+_TC_ERRORS = {10001: "cuTensorMapEncodeTiled not found in the driver",
+              10002: "cannot make the input's tensor map",
+              10003: "cannot make the weights' tensor map",
+              10004: "cannot make the output's tensor map"}
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, out_dtype):
@@ -46,20 +63,101 @@ def conv3x3_s1_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=None):
     return y.reshape(b, h, wd, c2).to(out_dtype)
 
 
-def _lib():
-    lib = load_library("conv3x3_s1")
-    fn = lib.conv3x3_s1_launch
+class TcPlan(NamedTuple):
+    """Tiles of the tensor-core kernel: a th x tw patch of one image for bn
+    output channels.  The kernel computes the patch as th rows of tw + 2
+    (two junk columns, so that every tap is one shift of the haloed tile):
+    th * (tw + 2) <= bm, the tile's rows."""
+    batch: int
+    h: int
+    w: int
+    c2: int
+    th: int
+    tw: int
+    tiles_h: int
+    tiles_w: int
+    bm: int
+    bn: int
+    n_tiles: int
+
+    def tiles(self) -> Iterator[Tuple[int, int, int, int]]:
+        """(b, h0, w0, n0) of every tile, in the kernel's order: the C2
+        slices of one patch are neighbours."""
+        for bid in range(self.batch * self.tiles_h * self.tiles_w * self.n_tiles):
+            mt, nt = divmod(bid, self.n_tiles)
+            mt, tw_i = divmod(mt, self.tiles_w)
+            b, th_i = divmod(mt, self.tiles_h)
+            yield b, th_i * self.th, tw_i * self.tw, nt * self.bn
+
+
+@functools.lru_cache(maxsize=256)
+def plan_tc(b: int, h: int, w: int, c2: int) -> TcPlan:
+    """The patch that covers an image with the fewest tiles (the widest
+    among equals, for longer runs of stores).  BN = 64 for C2 <= 64, else
+    128; 256-row tiles at BN 128, which halve the weight reads an output,
+    where they compute at most 10% more rows than 128-row tiles and still
+    give the card's SMs half a tile each or more."""
+    def patch(rows):
+        best = None
+        for tw in range(min(w, MAX_HALO_W - 2), 0, -1):
+            th = min(h, rows // (tw + 2))
+            n = -(-h // th) * -(-w // tw)
+            if best is None or n < best[0]:
+                best = (n, th, tw)
+        return best
+
+    bm, bn = TILE_ROWS[0], 64 if c2 <= 64 else 128
+    small, big = (patch(rows)[0] for rows in TILE_ROWS)
+    if (bn == 128 and big * TILE_ROWS[1] <= 1.1 * small * TILE_ROWS[0]
+            and b * big * -(-c2 // bn) >= _SMS // 2):
+        bm = TILE_ROWS[1]
+    _, th, tw = patch(bm)
+    return TcPlan(b, h, w, c2, th, tw, -(-h // th), -(-w // tw), bm, bn, -(-c2 // bn))
+
+
+def prepare_tc(x: torch.Tensor, w: torch.Tensor):
+    """Host side of the tensor-core route, in x's dtype: x (B, H, W, C1p)
+    and the weights as K-major wk (C2, 9, C1p), K ordered (tap, c1) with
+    tap = 3*dy + dx, C1p = C1 rounded up to a multiple of 8 (zero-filled),
+    both contiguous and 16-byte aligned; and the tile plan."""
+    b, h, wd, c1 = x.shape
+    c2 = w.shape[3]
+    pad = -c1 % 8
+    wk = w.to(x.dtype).permute(3, 0, 1, 2).reshape(c2, 9, c1)
+    if pad:
+        x = F.pad(x, (0, pad))
+        wk = F.pad(wk, (0, pad))
+    x, wk = x.contiguous(), wk.contiguous()
+    if x.data_ptr() % 16:  # a view at an odd offset: TMA needs 16-byte alignment
+        x = x.clone()
+    return x, wk, plan_tc(b, h, wd, c2)
+
+
+def _fn(name: str, n_int: int):
+    fn = getattr(load_library("conv3x3_s1"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_tc(xp: torch.Tensor, wk: torch.Tensor, plan: TcPlan, out: torch.Tensor) -> int:
+    """The tensor-core kernel on `prepare_tc`'s output, into `out` (f32 or
+    bf16) on the current stream; returns the launcher's code (0: launched).
+    No launch count: `conv3x3_s1` keeps it."""
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    return _fn("conv3x3_s1_wgmma_launch", 12)(
+        xp.data_ptr(), wk.data_ptr(), out.data_ptr(), plan.batch, plan.h, plan.w, xp.shape[3],
+        plan.c2, plan.th, plan.tw, plan.tiles_h, plan.tiles_w, plan.bm, plan.bn,
+        int(out.dtype == torch.bfloat16), stream)
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None):
     """3x3 / stride-1 / pad-1 NHWC conv, HWIO weights, f32 accumulation.
 
     Output dtype defaults to x.dtype.  A CPU tensor goes through
-    `conv3x3_s1_plain`; a CUDA tensor launches the kernel, or raises."""
+    `conv3x3_s1_plain`; a CUDA tensor launches the kernel of its input
+    dtype (bf16: tensor cores; f32: CUDA cores), or raises."""
     out_dtype = _check(x, w, out_dtype)
     if x.device != w.device:
         raise ValueError("x and w must be on one device")
@@ -69,19 +167,21 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None):
         raise ValueError(f"conv3x3_s1 runs on cuda or cpu, not {x.device}")
     b, h, wd, c1 = x.shape
     c2 = w.shape[3]
-    x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
     out = torch.empty((b, h, wd, c2), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c1, c2,
-                int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-                stream)
+        if x.dtype == torch.bfloat16:
+            rc = launch_tc(*prepare_tc(x, w), out)
+        else:
+            x, w = x.contiguous(), w.to(x.dtype).contiguous()
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = _fn("conv3x3_s1_launch", 6)(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c1, c2,
+                int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"conv3x3_s1 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"conv3x3_s1 kernel launch failed: "
+                           f"{_TC_ERRORS.get(rc, f'CUDA error {rc}')}")
     conv3x3_s1.launches += 1
     return out
 

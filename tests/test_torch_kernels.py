@@ -9,6 +9,8 @@ picks as the scan reference `nms_single`.
 K1, 3x3 conv: `conv3x3_s1` on CPU tensors against `conv3x3_s1(...,
 interpret=True)` at the shapes of tests/test_pallas_conv.py: f32 within
 1e-5 (summation order), bf16 outputs within 2e-2 (one bf16 rounding).
+The host side of K1's tensor-core route (channel padding, K-major weight
+reorder, tile plan) against the plain conv, f32 within 1e-5.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
@@ -23,7 +25,8 @@ from dmayolo_tpu.core.pallas_nms import pallas_batched_nms_core
 from dmayolo_tpu.nn.pallas_conv import conv3x3_s1 as jax_conv3x3
 from dmayolo_tpu_torch.core.nms import NEG_INF, nms_single
 from dmayolo_tpu_torch.core.nms_kernel import MAX_K, nms_greedy
-from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
+from dmayolo_tpu_torch.nn.conv3x3 import (MAX_HALO_W, TILE_ROWS, conv3x3_s1, conv3x3_s1_plain,
+                                          prepare_tc)
 
 
 def _candidates(kind: str, b: int, k: int, seed: int):
@@ -134,3 +137,34 @@ def test_conv3x3_ragged_shape_and_out_dtype():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.permute(0, 2, 3, 1).numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 11, 5, 6), (2, 37, 53, 12, 70),
+                                   (1, 5, 3, 3, 130), (2, 20, 20, 64, 64)])
+def test_conv3x3_tensor_core_preparation(shape):
+    """The tensor-core route's host side: the channel-padded input and the
+    K-major (C2, 9, C1p) weights, through an im2col product in the kernel's
+    (tap, c1) K order, give the plain conv on the original tensors; and the
+    planned tiles cover every output pixel and channel exactly once."""
+    b, h, w, c1, c2 = shape
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c1)).astype(np.float32))
+    wt = torch.from_numpy((rng.normal(size=(3, 3, c1, c2)) * 0.2).astype(np.float32))
+    xp, wk, plan = prepare_tc(x, wt)
+    c1p = xp.shape[3]
+    assert c1p % 8 == 0 and c1p - c1 < 8 and tuple(wk.shape) == (c2, 9, c1p)
+    assert xp.is_contiguous() and wk.is_contiguous()
+    xpad = torch.nn.functional.pad(xp, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xpad[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)], 3)
+    got = (cols.reshape(b * h * w, 9 * c1p) @ wk.reshape(c2, 9 * c1p).T).reshape(b, h, w, c2)
+    np.testing.assert_allclose(got.numpy(), conv3x3_s1_plain(x, wt).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+    assert plan.bm in TILE_ROWS and plan.bn in (64, 128)
+    assert plan.th * (plan.tw + 2) <= plan.bm and plan.tw + 2 <= MAX_HALO_W
+    cover = np.zeros((b, h, w, c2), np.int32)
+    for bi, h0, w0, n0 in plan.tiles():
+        cover[bi, h0:h0 + plan.th, w0:w0 + plan.tw, n0:n0 + plan.bn] += 1
+    assert (cover == 1).all()
+    # never more tiles an image than a fixed 8x16 patch would take
+    assert plan.tiles_h * plan.tiles_w <= -(-h // 8) * -(-w // 16)
