@@ -11,12 +11,26 @@ source, all at once), then:
    equal-score ties, all-masked rows, a deep chain, K = 64 < max_det.
    keep_idx and keep_valid must be equal everywhere.
 2. K3 (fixpoint keep flags, csrc/nms_fixpoint.cu) against its plain
-   version on the same candidate sets (K <= 512), in both comparison
-   forms (inter / union > t and inter > t * union): the keep flags must be
-   equal.  Timed at (128, 512), and in the divide form at (32, 512), the
-   shape at which the eval's "matrix" backend launches it.
-3. K2's streaming variant (K > 1024) against the plain version at (32, K)
-   for K = 1025, 4096 and 30,000, max_det 300, IoU 0.6: equal everywhere.
+   version on the same candidate sets (K <= 512) and on a near-threshold
+   set (pairs whose IoU falls within a few ulps of the threshold), in both
+   comparison forms (inter / union > t and inter > t * union): the keep
+   flags must be equal.  Timed at (128, 512), and in the divide form at
+   (32, 512).  NMS kernels are timed as calls (`cuda_ms`) and alone
+   (`graph_ms`: one call captured in a CUDA graph and replayed), since at
+   these sizes a call's host work can take as long as its kernel.
+3. K3's blocked entry (`fixpoint_keep_blocked`, the whole of
+   `nms_matrix_blocked` in one launch) against its plain version on the
+   K2-streaming sets at K = 1025, 4000 and 30,000 with max_det 20 and 300,
+   and on a near-threshold set split across two blocks: keep flags, blocks
+   walked, keep_idx and keep_valid equal.  `nms_matrix_blocked` runs once
+   under `torch.cuda.set_sync_debug_mode("error")`: no host sync.  Timed at
+   (32, 30000, 300), the bound counted from the blocks, pairs and cross
+   tests that run's data needs.
+   Then K2's streaming variant against the plain version: the cluster
+   kernel on every streaming set (K = 1025, 4096 and 30,000, max_det 300,
+   IoU 0.6), the global-memory kernel above the cluster's capacity (B = 2,
+   K = 100,000), equal everywhere.  Timed at (32, 30000) on both kernels
+   and on every cluster size that fits.
 4. K1 (3x3 conv, csrc/conv3x3_s1.cu: wgmma and TMA for bf16 inputs, the
    CUDA cores for f32) against its plain version at four of the flagship's
    C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 + |plain|), TF32
@@ -42,9 +56,9 @@ source, all at once), then:
    images of filled rectangles drawn from a numpy seed, with their labels
    as targets, through `make_infer_fn` (bf16, conf 0.001, IoU 0.6,
    multi-label, max_det 300, max_nms 30,000) on the backends "pallas"
-   (K2 streaming), "matrix" (K3 on every 512-candidate block) and "scan".
-   Counters are zeroed before each and read after; the valid detections
-   must be identical across the three.  The detections go through the
+   (K2 streaming on a cluster), "matrix" (K3's blocked entry, one launch)
+   and "scan".  Counters are zeroed before each and read after; the valid
+   detections must be identical across the three.  The detections go through the
    validator's host helpers to P, R, mAP@.5 and mAP@.5:.95 (near zero
    with random weights: the plumbing is what is checked).  The step is
    timed by part (forward, candidate top-k, NMS per backend), and one TTA
@@ -94,6 +108,9 @@ PROFILE_GROUPS = [
 NATIVE_SIZES = [(1080, 1920), (375, 500), (480, 640), (720, 1280),
                 (640, 640), (100, 100), (1000, 300), (333, 777)]
 STREAM_KS = (1025, 4096, 30000)  # K2 streaming: just past one block, to the eval's max_nms
+STREAM_BIG = (2, 100000)  # above what a cluster of 8 blocks holds: the global kernel
+BLOCKED_KS = (1025, 4000, 30000)  # K3's blocked entry: two blocks, eight, the eval's 59
+BLOCKED_MAX_DETS = (20, 300)  # a stop in the first block or two, and the eval's
 # the eval protocol's defaults (dmayolo_tpu_torch/eval/validator.py)
 PROTOCOL = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000)
 EVAL_BACKENDS = ("pallas", "matrix", "scan")
@@ -106,6 +123,22 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+class Counter:
+    """A launch count kept on a kernel wrapper under another attribute
+    than `launches`, read and zeroed as the wrappers' own counts are."""
+
+    def __init__(self, fn, attr, name):
+        self.fn, self.attr, self.__name__ = fn, attr, name
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
 
 
 def bound(nbytes, ops, kind):
@@ -128,6 +161,20 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Device time of fn() in ms without the host's share: one call
+    captured in a CUDA graph, the graph replayed `iters` times between
+    events (the calls of `cuda_ms` at small sizes time the host)."""
+    import torch
+
+    fn()  # builds, plans and allocator pools before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +256,7 @@ def check_nms(device):
     out.update(shape=[b, k, max_det], picks=picks, ops=ops, bytes=nbytes)
     if device.type == "cuda":
         out["ms"] = cuda_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 20)
+        out["kernel_ms"] = graph_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 20)
         out["plain_ms"] = cuda_ms(lambda: nms_greedy_plain(boxes, scores, thr, max_det), 3)
         out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
     return out
@@ -218,9 +266,44 @@ def check_nms(device):
 # K3: fixpoint keep flags
 # ---------------------------------------------------------------------------
 
+def near_threshold_pairs(n, thr, phase=0):
+    """n pairs (A_p, B_p) of 10 x 10 boxes, B_p shifted along x so that
+    their IoU in f32 falls within a few ulps of `thr`: the shift steps
+    through consecutive f32 values around 10 (1 - t) / (1 + t), +-16 ulps
+    for half the pairs (IoU within ~16 ulps of t, some exactly at it) and
+    +-80 for the rest (past the band in which K3's divide form divides).
+    The pairs sit 20 px apart in y: no two overlap.  Returns A, B (n, 4)."""
+    import numpy as np
+    import torch
+
+    i = np.arange(n)
+    step = np.where(i < n // 2, (i + phase) % 33 - 16, (i + phase) % 161 - 80)
+    base = np.array([10 * (1 - thr) / (1 + thr)], np.float32).view(np.int32)
+    d = (base.astype(np.int64) + step).astype(np.int32).view(np.float32)
+    y = (20 * i).astype(np.float32)
+    a = np.stack([np.zeros(n, np.float32), y, np.full(n, 10, np.float32), y + 10], -1)
+    b = np.stack([d, y, d + np.float32(10), y + 10], -1)
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def near_threshold_case(device, thr, b=4, k=512, split=False):
+    """(boxes, scores) of b images of k // 2 near-threshold pairs, rank
+    order A_0, B_0, A_1, ... (each pair within one block), or with `split`
+    all A then all B, so that each pair straddles two blocks of k // 2."""
+    import torch
+
+    rows = []
+    for i in range(b):
+        a, bb = near_threshold_pairs(k // 2, thr, phase=5 * i)
+        rows.append(torch.cat([a, bb]) if split else torch.stack([a, bb], 1).reshape(k, 4))
+    scores = torch.linspace(1, 0.5, k).expand(b, k)
+    return torch.stack(rows).to(device).contiguous(), scores.to(device).contiguous()
+
+
 def check_fixpoint(device, b=128):
     """K3 against its plain version in both comparison forms, on the K2
-    candidate sets that fit one block; timed at (b, 512)."""
+    candidate sets that fit one block and a near-threshold set; timed at
+    (b, 512)."""
     import torch
 
     from dmayolo_tpu_torch.core.fixpoint_kernel import (MAX_K, fixpoint_keep,
@@ -229,6 +312,7 @@ def check_fixpoint(device, b=128):
 
     out = {"cases": {}, "max_abs_err": 0.0}
     cases = [c for c in nms_cases(device, b=b) if c[1].shape[1] <= MAX_K]
+    cases.append(("near_threshold", *near_threshold_case(device, 0.45), 300, 0.45))
     for name, boxes, scores, _, thr in cases:
         valid = scores > NEG_INF / 2
         for form, divide in (("divide-free", False), ("divide", True)):
@@ -251,6 +335,8 @@ def check_fixpoint(device, b=128):
     if device.type == "cuda":
         for form, divide in (("", False), ("_divide", True)):
             out["ms" + form] = cuda_ms(lambda: fixpoint_keep(boxes, valid, thr, divide), 20)
+            out["kernel_ms" + form] = graph_ms(lambda: fixpoint_keep(boxes, valid, thr, divide),
+                                               20)
             out["plain_ms" + form] = cuda_ms(
                 lambda: fixpoint_keep_plain(boxes, valid, thr, divide), 3)
         out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
@@ -259,6 +345,7 @@ def check_fixpoint(device, b=128):
         pairs = int(((k - 1 - torch.arange(k, device=device)) * vs).sum())
         out["eval_shape"] = [bs.shape[0], k]
         out["eval_ms_divide"] = cuda_ms(lambda: fixpoint_keep(bs, vs, thr, True), 50)
+        out["eval_kernel_ms_divide"] = graph_ms(lambda: fixpoint_keep(bs, vs, thr, True), 50)
         out["eval_plain_ms_divide"] = cuda_ms(lambda: fixpoint_keep_plain(bs, vs, thr, True), 3)
         out["eval_bound_ms"], out["eval_bound_by"] = bound(bs.shape[0] * k * 18, pairs * 15, "f32")
     return out
@@ -303,35 +390,193 @@ def stream_cases(device, b=32, ks=STREAM_KS, seed=3):
     return [(n, bx.to(device).contiguous(), sc.to(device).contiguous()) for n, bx, sc in cases]
 
 
-def check_nms_stream(device, b=32, ks=STREAM_KS, max_det=300, thr=0.6):
-    """K2's streaming variant (through the `nms_greedy` router) against
-    the plain version; timed at the largest K."""
+def blocked_work(keep, walked, alive, valid, block):
+    """What K3's blocked entry must do for these inputs, from its plain
+    version's outputs: (blocks walked, pairs i < j of alive candidates
+    within a walked block, cross tests: each alive candidate of a walked
+    block against every earlier keeper, each valid but suppressed one
+    against at least one)."""
     import torch
 
-    from dmayolo_tpu_torch.core.nms_kernel import MAX_K, nms_greedy, nms_greedy_plain
+    b, k = keep.shape
+    before = torch.cat([torch.zeros(b, 1, dtype=torch.long, device=keep.device),
+                        keep.cumsum(1)], 1)
+    pairs = cross = 0
+    for m, start in enumerate(range(0, k, block)):
+        end = min(start + block, k)
+        on = walked > m
+        n_alive = alive[:, start:end].sum(1)
+        n_sup = (valid[:, start:end] & ~alive[:, start:end]).sum(1)
+        kb = before[:, start]
+        pairs += int((on * n_alive * (n_alive - 1) // 2).sum())
+        cross += int((on * (kb * n_alive + (kb > 0) * n_sup)).sum())
+    return int(walked.sum()), pairs, cross
+
+
+def check_fixpoint_blocked(device, b=32, ks=BLOCKED_KS, max_dets=BLOCKED_MAX_DETS, thr=0.6,
+                           block=512):
+    """K3's blocked entry against its plain version: keep flags, blocks
+    walked, and the `nms_matrix_blocked` outputs built from them; one
+    `nms_matrix_blocked` call with host syncs made errors; timed at
+    (b, max(ks), max(max_dets))."""
+    import torch
+
+    from dmayolo_tpu_torch.core.fixpoint_kernel import (_blocked_plain, fixpoint_keep_blocked,
+                                                        fixpoint_keep_blocked_plain)
+    from dmayolo_tpu_torch.core.nms import NEG_INF, _keep_to_idx, nms_matrix_blocked
+
+    out = {"cases": {}, "max_abs_err": 0.0}
+    # rank-sorted, as top-k hands them over (the ties set comes unsorted)
+    sets = [(name, bx, sc.sort(dim=1, descending=True).values, md)
+            for name, bx, sc in stream_cases(device, b, ks) for md in max_dets]
+    sets.append(("near_threshold_split", *near_threshold_case(device, thr, k=1024, split=True),
+                 1024))
+    for name, boxes, scores, max_det in sets:
+        valid = scores > NEG_INF / 2
+        got = fixpoint_keep_blocked(boxes, valid, thr, max_det, block)
+        want = fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block)
+        # keep_idx, keep_valid as the stable sort by score orders them
+        by_score = _keep_to_idx(want[0], scores, max_det)
+        pairs = list(zip(got, want)) + list(zip(got[2:], by_score))
+        same = all(torch.equal(x, y) for x, y in pairs)
+        out["cases"][f"{name}/max_det{max_det}"] = {
+            "keep": int(got[0].sum()), "walked_mean": float(got[1].float().mean()),
+            "equal": same}
+        out["max_abs_err"] = max(out["max_abs_err"], *(
+            float((x.long() - y.long()).abs().max()) for x, y in pairs))
+        check(same, f"K3 blocked differs from its plain version on case '{name}' "
+                    f"(max_det {max_det})")
+    name, boxes, scores = next(c for c in stream_cases(device, b, ks) if c[0] == f"random{max(ks)}")
+    max_det = max(max_dets)
+    valid = scores > NEG_INF / 2
+    if device.type == "cuda":
+        # the whole of nms_matrix_blocked, with any host sync an error
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ki, kv = nms_matrix_blocked(boxes, scores, thr, max_det, block)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block)
+        check(torch.equal(ki, want[2]) and torch.equal(kv, want[3]),
+              "nms_matrix_blocked differs from its plain version under sync debug mode")
+        out["no_host_sync"] = True
+    # timed on the eval's shape (a random set: the stop comes in the first
+    # block) and on the clustered set, which walks every block
+    timed = [(name, boxes, scores)] + [c for c in stream_cases(device, b, ks)
+                                       if c[0] == f"clustered{ks[1]}"]
+    for name, boxes, scores in timed:
+        valid = scores > NEG_INF / 2
+        keep, walked, alive = _blocked_plain(boxes, valid, thr, max_det, block)
+        bb, k, _ = boxes.shape
+        blocks, pairs, cross = blocked_work(keep, walked, alive, valid, block)
+        # each IoU test ~15 flops; the walked blocks' boxes and flags read
+        # once, every keep flag and the walked counts written once
+        ops = (pairs + cross) * 15
+        nbytes = int(sum(min(block, k - m * block) * 17 for w in walked.tolist()
+                         for m in range(w))) + bb * k + bb * 4
+        res = dict(case=name, shape=[bb, k, max_det], blocks_walked=blocks, pairs=pairs,
+                   cross_tests=cross, keepers=int(keep.sum()), ops=ops, bytes=nbytes)
+        if device.type == "cuda":
+            res["ms"] = cuda_ms(lambda: fixpoint_keep_blocked(boxes, valid, thr, max_det, block),
+                                20)
+            res["kernel_ms"] = graph_ms(
+                lambda: fixpoint_keep_blocked(boxes, valid, thr, max_det, block), 20)
+            res["nms_ms"] = cuda_ms(lambda: nms_matrix_blocked(boxes, scores, thr, max_det,
+                                                               block), 20)
+            res["plain_ms"] = cuda_ms(
+                lambda: fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block), 3)
+            res["bound_ms"], res["bound_by"] = bound(nbytes, ops, "f32")
+        if name == timed[0][0]:
+            out.update(res)
+        else:
+            out["walk_all"] = res
+    return out
+
+
+def check_nms_stream(device, b=32, ks=STREAM_KS, max_det=300, thr=0.6, big=STREAM_BIG):
+    """K2's streaming variants (through the `nms_greedy` router) against
+    the plain version: the cluster kernel on every streaming set, the
+    global-memory kernel above the cluster's capacity; timed at the
+    largest K on both kernels and on every cluster size that fits."""
+    import torch
+
+    from dmayolo_tpu_torch.core.nms import MAX_WH
+    from dmayolo_tpu_torch.core.nms_kernel import (MAX_K, _device_limits, _launch, _stream_plan,
+                                                   cluster_occupancy, cluster_sizes, nms_greedy,
+                                                   nms_greedy_plain)
+
+    def compare(name, boxes, scores, route):
+        ki, kv = nms_greedy(boxes, scores, thr, max_det)
+        pi, pv = nms_greedy_plain(boxes, scores, thr, max_det)
+        same = torch.equal(ki, pi) and torch.equal(kv, pv)
+        out["cases"][name] = {"picks": int(kv.sum()), "route": route, "equal": same}
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((ki.long() - pi.long()).abs().max()),
+                                 float((kv.long() - pv.long()).abs().max()))
+        check(same, f"K2 streaming differs from its plain version on case '{name}' ({route})")
+
+    def route_of(boxes):
+        if device.type != "cuda":
+            return "plain"
+        plan = _stream_plan(boxes.device, *boxes.shape[:2])
+        return "global" if plan is None else f"cluster of {plan[0]}"
 
     out = {"cases": {}, "max_abs_err": 0.0}
     cases = stream_cases(device, b, ks)
     for name, boxes, scores in cases:
         check(boxes.shape[1] > MAX_K, f"case '{name}' does not reach the streaming variant")
-        ki, kv = nms_greedy(boxes, scores, thr, max_det)
-        pi, pv = nms_greedy_plain(boxes, scores, thr, max_det)
-        same = torch.equal(ki, pi) and torch.equal(kv, pv)
-        out["cases"][name] = {"picks": int(kv.sum()), "equal": same}
-        out["max_abs_err"] = max(out["max_abs_err"],
-                                 float((ki.long() - pi.long()).abs().max()),
-                                 float((kv.long() - pv.long()).abs().max()))
-        check(same, f"K2 streaming differs from its plain version on case '{name}'")
+        route = route_of(boxes)
+        check(route != "global", f"case '{name}' is not on the cluster route")
+        compare(name, boxes, scores, route)
+    # above the cluster's capacity: the global-memory kernel
+    nb, nk = big
+    g = torch.Generator().manual_seed(7)
+    cls = torch.randint(0, 10, (nb, nk), generator=g).float()
+    xy = torch.rand(nb, nk, 2, generator=g) * 600
+    big_boxes = (torch.cat([xy, xy + 8 + torch.rand(nb, nk, 2, generator=g) * 150], -1)
+                 + cls[..., None] * MAX_WH).to(device)
+    big_scores = torch.rand(nb, nk, generator=g).sort(dim=1, descending=True).values.to(device)
+    route = route_of(big_boxes)
+    check(route in ("global", "plain"), f"K = {nk} is not on the global route ({route})")
+    compare(f"random{nk}_b{nb}", big_boxes, big_scores, route)
+
     name, boxes, scores = next(c for c in cases if c[0] == f"random{max(ks)}")
     bb, k, _ = boxes.shape
     picks = int(nms_greedy(boxes, scores, thr, max_det)[1].sum())
     ops = picks * k * 15  # as K2: one argmax and one IoU pass over K a pick
     nbytes = bb * k * (16 + 4) + bb * max_det * (4 + 1)
-    out.update(shape=[bb, k, max_det], picks=picks, ops=ops, bytes=nbytes)
+    out.update(shape=[bb, k, max_det], route=route_of(boxes), picks=picks, ops=ops, bytes=nbytes)
     if device.type == "cuda":
         out["ms"] = cuda_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 10)
+        out["kernel_ms"] = graph_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 10)
         out["plain_ms"] = cuda_ms(lambda: nms_greedy_plain(boxes, scores, thr, max_det), 2)
         out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
+        # the global-memory kernel on the same inputs, and each
+        # cluster size that fits: the plan against the alternatives
+        want = nms_greedy_plain(boxes, scores, thr, max_det)
+        out["ms_by_route"] = {}
+        for r in ("global", *cluster_sizes(k, _device_limits(device)[1])):
+            got = _launch("nms_greedy_stream", boxes, scores, thr, max_det, r)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"K2 streaming route {r} differs from its plain version")
+            out["ms_by_route"][str(r)] = cuda_ms(
+                lambda r=r: _launch("nms_greedy_stream", boxes, scores, thr, max_det, r), 10)
+        out["global_ms"] = out["ms_by_route"]["global"]
+        # one image by cluster size: a step's fixed part and its cost a
+        # candidate, to which `plan_stream`'s cost model is fitted
+        out["max_clusters"] = {str(c): n for c, n in cluster_occupancy(device, k).items()}
+        b1, s1 = boxes[:1].contiguous(), scores[:1].contiguous()
+        out["one_image_ms_by_cluster"] = {
+            str(c): cuda_ms(lambda c=c: _launch("nms_greedy_stream", b1, s1, thr, max_det, c), 5)
+            for c in cluster_sizes(k, _device_limits(device)[1])}
+        bpicks = int(nms_greedy(big_boxes, big_scores, thr, max_det)[1].sum())
+        out["global_big"] = {
+            "shape": [nb, nk, max_det], "picks": bpicks,
+            "ms": cuda_ms(lambda: nms_greedy(big_boxes, big_scores, thr, max_det), 3),
+            "plain_ms": cuda_ms(lambda: nms_greedy_plain(big_boxes, big_scores, thr, max_det), 1)}
+        out["global_big"]["bound_ms"], out["global_big"]["bound_by"] = bound(
+            nb * nk * 20 + nb * max_det * 5, bpicks * nk * 15, "f32")
     return out
 
 
@@ -824,7 +1069,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep
+    from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep, fixpoint_keep_blocked
     from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_stream
     from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
     from dmayolo_tpu_torch.utils import cuda_build
@@ -852,8 +1097,21 @@ def main():
     print("K2 nms_greedy: " + json.dumps(k2), flush=True)
     report["k3"] = k3 = check_fixpoint(device)
     print("K3 nms_fixpoint: " + json.dumps(k3), flush=True)
+    report["k3_blocked"] = k3b = check_fixpoint_blocked(device)
+    print("K3 nms_fixpoint blocked: " + json.dumps(k3b), flush=True)
     report["k2_stream"] = k2s = check_nms_stream(device)
     print("K2 nms_greedy_stream: " + json.dumps(k2s), flush=True)
+    for label, ms, kms, res in (
+            ("K3 (128, 512) divide-free", k3["ms"], k3["kernel_ms"], k3),
+            ("K3 (128, 512) divide", k3["ms_divide"], k3["kernel_ms_divide"], k3),
+            ("K3 (32, 512) divide", k3["eval_ms_divide"], k3["eval_kernel_ms_divide"],
+             {"bound_ms": k3["eval_bound_ms"]}),
+            (f"K3 blocked {tuple(k3b['shape'])}, {k3b['blocks_walked']} blocks walked",
+             k3b["ms"], k3b["kernel_ms"], k3b),
+            (f"K2 streaming {tuple(k2s['shape'])}, {k2s['route']}", k2s["ms"],
+             k2s["kernel_ms"], k2s)):
+        print(f"{label}: call {ms:.4f} ms, kernel {kms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"on {smi}", flush=True)
     report["k1"] = k1 = check_conv(device)
     for c in k1:
         print("K1 conv3x3_s1: " + json.dumps(c), flush=True)
@@ -862,7 +1120,9 @@ def main():
         {"cases": len(k1_ragged), "max_scaled_err": max(c["max_scaled_err"] for c in k1_ragged)}),
         flush=True)
 
-    counters = (nms_greedy, nms_greedy_stream, fixpoint_keep, conv3x3_s1)
+    stream_cluster = Counter(nms_greedy_stream, "cluster_launches", "nms_greedy_stream_cluster")
+    counters = (nms_greedy, nms_greedy_stream, stream_cluster, fixpoint_keep,
+                fixpoint_keep_blocked, conv3x3_s1)
     t0 = time.perf_counter()
     model = build_model(device)
     report["model_build_s"] = time.perf_counter() - t0
@@ -897,10 +1157,12 @@ def main():
               f"on {smi}")
     report["eval"] = ev = evaluate(device, model, counters=counters)
     print("eval: " + json.dumps(ev), flush=True)
-    check(ev["backends"]["pallas"]["launches"]["nms_greedy_stream"] > 0,
-          "K2 streaming did not launch on the eval path")
-    check(ev["backends"]["matrix"]["launches"]["fixpoint_keep"] > 0,
-          "K3 did not launch on the eval path")
+    check(ev["backends"]["pallas"]["launches"]["nms_greedy_stream_cluster"] > 0,
+          "K2 streaming did not launch its cluster kernel on the eval path")
+    matrix = ev["backends"]["matrix"]["launches"]
+    check(matrix["fixpoint_keep_blocked"] == 1 and matrix["fixpoint_keep"] == 0,
+          f"the eval on 'matrix' should launch K3's blocked entry once a batch, and its "
+          f"one-block entry never: {matrix}")
     for name, res in ev["backends"].items():
         print(f"eval bs{ev['batch']} 640px bf16 max_nms 30000 NMS '{name}': "
               f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch) on {smi}")
@@ -927,19 +1189,31 @@ def main():
         {"name": "nms_greedy", "route": "cuda",
          "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
-         **launches(nms_greedy), **timed(k2), "library_ms": None, "shape": k2["shape"]},
-        {"name": "nms_greedy_stream", "route": "cuda",
+         **launches(nms_greedy), **timed(k2), "library_ms": None, "shape": k2["shape"],
+         "kernel_ms": k2["kernel_ms"]},
+        # the cluster kernel, the eval's route; the global-memory kernel
+        # (K above the cluster's capacity) in "global_route"
+        {"name": "nms_greedy_stream", "route": "cuda", "design": "cluster",
          "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
-         **launches(nms_greedy_stream), **timed(k2s), "library_ms": None,
-         "shape": k2s["shape"]},
+         **launches(stream_cluster), **timed(k2s), "library_ms": None,
+         "shape": k2s["shape"], "kernel_ms": k2s["kernel_ms"], "cluster": k2s["route"],
+         "ms_by_route": k2s["ms_by_route"],
+         "global_route": {"ms_at_shape": k2s["global_ms"], **k2s["global_big"]}},
         {"name": "nms_fixpoint", "route": "cuda",
          "source": "dmayolo_tpu_torch/csrc/nms_fixpoint.cu",
          "replaces": "experiments/exp_pallas_fixpoint.py:87",
          **launches(fixpoint_keep), **timed(k3), "library_ms": None, "shape": k3["shape"],
-         "ms_divide": k3["ms_divide"], "plain_ms_divide": k3["plain_ms_divide"],
-         **{k: k3[k] for k in ("eval_shape", "eval_ms_divide", "eval_plain_ms_divide",
-                               "eval_bound_ms", "eval_bound_by")}},
+         **{k: k3[k] for k in ("kernel_ms", "ms_divide", "kernel_ms_divide", "plain_ms_divide",
+                               "eval_shape", "eval_ms_divide", "eval_kernel_ms_divide",
+                               "eval_plain_ms_divide", "eval_bound_ms", "eval_bound_by")}},
+        {"name": "nms_fixpoint_blocked", "route": "cuda",
+         "source": "dmayolo_tpu_torch/csrc/nms_fixpoint.cu",
+         "replaces": "experiments/exp_pallas_fixpoint.py:87",
+         **launches(fixpoint_keep_blocked), **timed(k3b), "library_ms": None,
+         "shape": k3b["shape"], "kernel_ms": k3b["kernel_ms"],
+         "nms_matrix_blocked_ms": k3b["nms_ms"],
+         **{k: k3b[k] for k in ("blocks_walked", "pairs", "cross_tests", "walk_all")}},
         {"name": "conv3x3_s1", "route": "cuda", "design": "wgmma+tma",
          "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",
          "replaces": "dmayolo_tpu/nn/pallas_conv.py:75",

@@ -1,5 +1,5 @@
-"""Greedy-NMS keep flags by the suppression-DAG fixpoint: the CUDA kernel
-K3 and its plain versions.
+"""Greedy-NMS keep flags by the suppression DAG: the CUDA kernel K3, its
+blocked entry, and their plain versions.
 
 Port of `experiments/exp_pallas_fixpoint.py::pallas_fixpoint_keep`, the
 kernel form of the "matrix" NMS backend (`core/nms.py::nms_matrix`).  For
@@ -16,8 +16,12 @@ Two comparison forms, as in the JAX package:
 They agree except on pairs exactly at the threshold; each call site keeps
 its own form, so both stay exact against the JAX package.
 
-`fixpoint_keep` launches the kernel (`csrc/nms_fixpoint.cu`) for CUDA
-tensors and takes the plain version only for CPU tensors.
+Two entries of one kernel source (`csrc/nms_fixpoint.cu`), each launching
+it for CUDA tensors and taking its plain version only for CPU tensors:
+  * `fixpoint_keep`: one block of K <= 512 candidates an image;
+  * `fixpoint_keep_blocked`: any K, `nms_matrix_blocked`'s block loop in
+    one launch (the per-block keep flags, then the keepers' suppression
+    of later blocks), stopping at `max_det` keepers.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ import ctypes
 import torch
 
 from ..utils.cuda_build import load_library
+from .nms_kernel import NEG_INF
 
-MAX_K = 512  # the block size of both "matrix" forms; one thread a candidate
+MAX_K = 512  # the kernel's block of candidates, the block size of both "matrix" forms
 
 
 def _pairwise_iou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -105,15 +110,122 @@ def fixpoint_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
     return _fixpoint_keep_boxes(boxes, valid, iou_thres)
 
 
+def _suppressed_by(bboxes, keep_blk, tail, iou_thres: float):
+    """(B, T) bool: tail candidates whose IoU with a kept box of the block
+    is above the threshold.  The kept boxes are gathered to the front
+    (the rest masked), so the IoU has max-keepers rows, not C."""
+    n = int(keep_blk.sum(1).max())
+    if n == 0:
+        return torch.zeros(tail.shape[:2], dtype=torch.bool, device=tail.device)
+    order = torch.sort(keep_blk.to(torch.uint8), dim=1, descending=True, stable=True)
+    rows = order.indices[:, :n]
+    kept = torch.gather(bboxes, 1, rows[..., None].expand(-1, -1, 4))
+    kmask = order.values[:, :n].bool()
+    return ((_pairwise_iou(kept, tail) > iou_thres) & kmask[..., None]).any(1)
+
+
+def _blocked_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                   max_det: int, block: int):
+    """`fixpoint_keep_blocked_plain`, plus the candidates found alive
+    (valid, not suppressed by an earlier block's keeper) in the blocks
+    walked: what the kernel tests, for counting its work."""
+    b, k, _ = boxes.shape
+    keep = torch.zeros((b, k), dtype=torch.bool, device=boxes.device)
+    alive_all = torch.zeros_like(keep)
+    suppressed = torch.zeros_like(keep)
+    count = torch.zeros(b, dtype=torch.long, device=boxes.device)
+    walked = torch.zeros(b, dtype=torch.int32, device=boxes.device)
+    for start in range(0, k, block):
+        active = count < max_det
+        if not bool(active.any()):
+            break
+        end = min(start + block, k)
+        bboxes = boxes[:, start:end]
+        alive = valid[:, start:end] & ~suppressed[:, start:end] & active[:, None]
+        keep_blk = fixpoint_keep_plain(bboxes, alive, iou_thres, divide=True)
+        # only the first max_det keepers of an image count; later ones drop
+        keep_blk &= keep_blk.cumsum(1) <= (max_det - count)[:, None]
+        keep[:, start:end] = keep_blk
+        alive_all[:, start:end] = alive
+        walked += active.to(torch.int32)
+        count += keep_blk.sum(1)
+        if end < k:
+            suppressed[:, end:] |= _suppressed_by(bboxes, keep_blk, boxes[:, end:], iou_thres)
+    return keep, walked, alive_all
+
+
+def _keep_to_idx(keep: torch.Tensor, scores: torch.Tensor, max_det: int):
+    """Keep flags -> (keep_idx, keep_valid) of width max_det: the kept
+    candidates by descending score, the lowest index first among equal
+    scores (as `lax.top_k`; `torch.topk` promises no order among ties),
+    then the others in ascending order, then 0 past K."""
+    keep_scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
+    kk = min(max_det, keep_scores.shape[1])
+    top_scores, keep_idx = torch.sort(keep_scores, dim=1, descending=True, stable=True)
+    top_scores, keep_idx = top_scores[:, :kk], keep_idx[:, :kk]
+    if kk < max_det:  # K < max_det: pad to the fixed width
+        pad = max_det - kk
+        keep_idx = torch.nn.functional.pad(keep_idx, (0, pad))
+        top_scores = torch.nn.functional.pad(top_scores, (0, pad), value=NEG_INF)
+    return keep_idx.to(torch.int32), top_scores > NEG_INF / 2
+
+
+def fixpoint_keep_blocked_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                                iou_thres: float, max_det: int, block: int = MAX_K):
+    """The blocked kernel's function in tensor ops: `nms_matrix_blocked`'s
+    loop (per block, the divide-form fixpoint of the candidates still
+    alive, then the block's keepers suppress later blocks), truncated at
+    max_det keepers an image.  Returns (keep (B, K) bool, walked (B,)
+    int32, the blocks walked before max_det keepers, keep_idx (B, max_det)
+    int32, keep_valid (B, max_det) bool), as `fixpoint_keep_blocked`."""
+    keep, walked, _ = _blocked_plain(boxes, valid, iou_thres, max_det, block)
+    # the keepers in index order: _keep_to_idx with every keeper at one score
+    return (keep, walked, *_keep_to_idx(keep, torch.ones_like(keep, dtype=torch.float32),
+                                        max_det))
+
+
 def _lib():
     lib = load_library("nms_fixpoint")
-    fn = lib.nms_fixpoint_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.nms_fixpoint_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.nms_fixpoint_launch.argtypes = [ptr, ptr, i32, i32, ctypes.c_float, i32,
+                                            ptr, ptr]
+        lib.nms_fixpoint_blocked_launch.argtypes = [ptr, ptr, i32, i32, i32, i32,
+                                                    ctypes.c_float, ptr, ptr, ptr, ptr, ptr,
+                                                    ptr, ptr]
+        lib.nms_fixpoint_launch.restype = lib.nms_fixpoint_blocked_launch.restype = i32
+        lib.nms_fixpoint_shared_list_max.argtypes = []
+        lib.nms_fixpoint_shared_list_max.restype = i32
+        lib.shared_list_max = lib.nms_fixpoint_shared_list_max()
+    return lib
+
+
+def _check(name: str, boxes: torch.Tensor, valid: torch.Tensor) -> bool:
+    """Shape, type and device checks; True when the plain version should
+    run (a CPU tensor)."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"expected boxes (B, K, 4) and valid (B, K), got "
+                         f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{name} takes a bool valid mask")
+    if boxes.device != valid.device:
+        raise ValueError("boxes and valid must be on one device")
+    if boxes.device.type == "cpu":
+        return True
+    if boxes.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {boxes.device}")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 boxes")
+    return False
+
+
+def _aligned(boxes: torch.Tensor) -> torch.Tensor:
+    boxes = boxes.contiguous()
+    return boxes.clone() if boxes.data_ptr() % 16 else boxes  # one float4 a box
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def fixpoint_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
@@ -126,36 +238,73 @@ def fixpoint_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
         divide: compare inter / union > t (True) or inter > t * union.
     Returns keep (B, K) bool.  A CPU tensor goes through
     `fixpoint_keep_plain`; a CUDA tensor launches the kernel, or raises."""
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
-        raise ValueError(f"expected boxes (B, K, 4) and valid (B, K), got "
-                         f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
-    if valid.dtype != torch.bool:
-        raise TypeError("fixpoint_keep takes a bool valid mask")
-    if boxes.device != valid.device:
-        raise ValueError("boxes and valid must be on one device")
-    if boxes.device.type == "cpu":
+    if _check("fixpoint_keep", boxes, valid):
         return fixpoint_keep_plain(boxes, valid, iou_thres, divide)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"fixpoint_keep runs on cuda or cpu, not {boxes.device}")
-    if boxes.dtype != torch.float32:
-        raise TypeError("fixpoint_keep takes float32 boxes")
     b, k, _ = boxes.shape
     if not 0 < k <= MAX_K:
         raise ValueError(f"fixpoint_keep takes 1 to {MAX_K} candidates per "
                          f"image, got K={k}")
-    boxes, valid = boxes.contiguous(), valid.contiguous()
+    boxes, valid = _aligned(boxes), valid.contiguous()
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0:
         return keep
-    fn = _lib()
+    fn = _lib().nms_fixpoint_launch
     with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
         rc = fn(boxes.data_ptr(), valid.data_ptr(), b, k, float(iou_thres),
-                int(divide), keep.data_ptr(), stream)
+                int(divide), keep.data_ptr(), _stream(boxes.device))
     if rc != 0:
         raise RuntimeError(f"fixpoint_keep kernel launch failed: CUDA error {rc}")
     fixpoint_keep.launches += 1
     return keep
 
 
+def fixpoint_keep_blocked(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                          max_det: int, block: int = MAX_K):
+    """Greedy-NMS keep flags of any number of rank-sorted candidates, in
+    blocks of `block` (1 to 512), divide form, up to the first `max_det`
+    keepers an image; later flags are False.
+
+    Args as `fixpoint_keep`, plus `max_det` >= 0.  Returns (keep (B, K)
+    bool, walked (B,) int32, the blocks walked an image, keep_idx (B,
+    max_det) int32, keep_valid (B, max_det) bool): the keepers in index
+    order, then the other indices ascending, which for rank-sorted
+    candidates is `nms_matrix_blocked`'s output.  A CPU tensor goes through
+    `fixpoint_keep_blocked_plain`; a CUDA tensor launches the kernel once,
+    with no host sync, or raises."""
+    if not 0 < block <= MAX_K:
+        raise ValueError(f"fixpoint_keep_blocked takes blocks of 1 to {MAX_K} "
+                         f"candidates, got {block}")
+    if max_det < 0:
+        raise ValueError(f"max_det must be >= 0, got {max_det}")
+    if _check("fixpoint_keep_blocked", boxes, valid):
+        return fixpoint_keep_blocked_plain(boxes, valid, iou_thres, max_det, block)
+    b, k, _ = boxes.shape
+    dev = boxes.device
+    if b == 0 or k == 0:
+        return fixpoint_keep_blocked_plain(boxes, valid, iou_thres, max_det, block)
+    # the kernel writes every flag and slot
+    keep = torch.empty((b, k), dtype=torch.bool, device=dev)
+    walked = torch.empty(b, dtype=torch.int32, device=dev)
+    keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=dev)
+    keep_valid = torch.empty((b, max_det), dtype=torch.bool, device=dev)
+    boxes, valid = _aligned(boxes), valid.contiguous()
+    lib = _lib()
+    list_box = list_area = None
+    if max_det > lib.shared_list_max:  # the keeper list in global memory
+        list_box = torch.empty((b, max_det, 4), dtype=torch.float32, device=dev)
+        list_area = torch.empty((b, max_det), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.nms_fixpoint_blocked_launch(
+            boxes.data_ptr(), valid.data_ptr(), b, k, block, max_det, float(iou_thres),
+            None if list_box is None else list_box.data_ptr(),
+            None if list_area is None else list_area.data_ptr(),
+            keep.data_ptr(), walked.data_ptr(), keep_idx.data_ptr(), keep_valid.data_ptr(),
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fixpoint_keep_blocked kernel launch failed: CUDA error {rc}")
+    fixpoint_keep_blocked.launches += 1
+    return keep, walked, keep_idx, keep_valid
+
+
 fixpoint_keep.launches = 0
+fixpoint_keep_blocked.launches = 0

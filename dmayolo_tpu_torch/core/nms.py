@@ -7,7 +7,8 @@ image, with fixed (B, max_det, 6) outputs and a validity mask.
 NMS backends (`nms_from_topk`, `batched_nms`):
   * "matrix": the suppression-DAG fixpoint through the CUDA kernel K3
     (`core/fixpoint_kernel.py`); one (K, K) fixpoint for K <= 512, else
-    block-sequential (`nms_matrix_blocked`);
+    block-sequential (`nms_matrix_blocked`, one launch of K3's blocked
+    entry);
   * "pallas": greedy NMS through the CUDA kernel K2 (`core/nms_kernel.py`),
     its streaming variant above 1024 candidates; the name is the JAX
     package's, where this backend is its Pallas kernel;
@@ -20,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from .boxes import xywh2xyxy
-from .fixpoint_kernel import (_fixpoint_keep, _fixpoint_keep_boxes,  # noqa: F401
-                              _pairwise_iou, _suppression_matrix, fixpoint_keep)
+from .fixpoint_kernel import (MAX_K, _fixpoint_keep, _fixpoint_keep_boxes,  # noqa: F401
+                              _keep_to_idx, _pairwise_iou, _suppression_matrix,
+                              fixpoint_keep, fixpoint_keep_blocked)
 from .nms_kernel import NEG_INF, nms_greedy, nms_greedy_plain
 
 MAX_WH = 4096.0  # class-offset stride, the reference's max_wh
@@ -48,64 +50,21 @@ def _top_k_candidates(scores: torch.Tensor, k: int):
     return torch.topk(scores, k, dim=1, largest=True, sorted=True)
 
 
-def _keep_to_idx(keep: torch.Tensor, scores: torch.Tensor, max_det: int):
-    """Keep flags -> (keep_idx, keep_valid) of width max_det: the kept
-    candidates by descending score, the lowest index first among equal
-    scores (as `lax.top_k`; `torch.topk` promises no order among ties)."""
-    keep_scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
-    kk = min(max_det, keep_scores.shape[1])
-    top_scores, keep_idx = torch.sort(keep_scores, dim=1, descending=True, stable=True)
-    top_scores, keep_idx = top_scores[:, :kk], keep_idx[:, :kk]
-    if kk < max_det:  # K < max_det: pad to the fixed width
-        pad = max_det - kk
-        keep_idx = torch.nn.functional.pad(keep_idx, (0, pad))
-        top_scores = torch.nn.functional.pad(top_scores, (0, pad), value=NEG_INF)
-    return keep_idx.to(torch.int32), top_scores > NEG_INF / 2
-
-
 def nms_matrix_blocked(boxes: torch.Tensor, scores: torch.Tensor,
                        iou_thres: float, max_det: int = 300, block: int = 256):
     """Exact greedy NMS, block-sequential: rank-sorted candidates in blocks
-    of C.  Per block, (1) the C x C fixpoint (K3, divide form) resolves the
-    keeps given earlier suppression, (2) the block's keepers suppress the
-    lower-ranked candidates of later blocks (tensor ops, as the JAX package
-    leaves this step to XLA).  Only keeper rows enter step 2, so its
-    (B, keepers, tail) IoU is a fraction of the (B, C, K) one."""
-    b, k, _ = boxes.shape
-    c = min(block, k)
-    m = -(-k // c)
-    pad = m * c - k
-    if pad:
-        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
-        scores = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF)
-    valid_all = scores > NEG_INF / 2
-    suppressed = torch.zeros_like(valid_all)
-    keeps = []
-    for bi in range(m):
-        start, end = bi * c, (bi + 1) * c
-        bboxes = boxes[:, start:end]
-        alive = valid_all[:, start:end] & ~suppressed[:, start:end]
-        keep_blk = fixpoint_keep(bboxes, alive, iou_thres, divide=True)
-        keeps.append(keep_blk)
-        if end < boxes.shape[1]:
-            suppressed[:, end:] |= _suppressed_by(bboxes, keep_blk, boxes[:, end:],
-                                                  iou_thres)
-    keep = torch.cat(keeps, 1)[:, :k]
-    return _keep_to_idx(keep, scores[:, :k], max_det)
-
-
-def _suppressed_by(bboxes, keep_blk, tail, iou_thres: float):
-    """(B, T) bool: tail candidates whose IoU with a kept box of the block
-    is above the threshold.  The kept boxes are gathered to the front
-    (the rest masked), so the IoU has max-keepers rows, not C."""
-    n = int(keep_blk.sum(1).max())
-    if n == 0:
-        return torch.zeros(tail.shape[:2], dtype=torch.bool, device=tail.device)
-    order = torch.sort(keep_blk.to(torch.uint8), dim=1, descending=True, stable=True)
-    rows = order.indices[:, :n]
-    kept = torch.gather(bboxes, 1, rows[..., None].expand(-1, -1, 4))
-    kmask = order.values[:, :n].bool()
-    return ((_pairwise_iou(kept, tail) > iou_thres) & kmask[..., None]).any(1)
+    of `block` (a larger block runs as 512: the keeps are the same).  Per
+    block, (1) the fixpoint (divide form) resolves the keeps given earlier
+    suppression, (2) the block's keepers suppress the lower-ranked
+    candidates of later blocks.  Both steps of every block run in one
+    launch of K3's blocked entry (`fixpoint_keep_blocked`), with no host
+    sync, and stop at `max_det` keepers: the outputs hold only the first
+    `max_det` keepers, as the JAX function's `lax.top_k` does.  The kernel
+    writes the outputs too: for rank-sorted candidates, descending score
+    with the lowest index first among ties is index order."""
+    *_, keep_idx, keep_valid = fixpoint_keep_blocked(boxes, scores > NEG_INF / 2, iou_thres,
+                                                     max_det, min(block, MAX_K))
+    return keep_idx, keep_valid
 
 
 def nms_matrix(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,

@@ -19,16 +19,23 @@
 // The remaining slots then get the unpicked indices in ascending order,
 // so keep_idx equals the JAX function everywhere, padding included.
 //
-// Two kernels: nms_greedy_kernel holds the candidates in shared memory
-// (K <= 1024, the serving path); nms_greedy_stream_kernel streams them
-// from global memory for any K (the eval protocol's 30,000).  Both give
-// the same output.
+// Three kernels, routed by K: nms_greedy_kernel holds the candidates in
+// one block's shared memory (K <= 1024, the serving path);
+// nms_greedy_cluster_kernel spreads them over the shared memory of a
+// thread-block cluster (up to about 90,000; the eval protocol's 30,000);
+// nms_greedy_stream_kernel streams them from global memory for any K.
+// All three give the same output.
 //
 // Built with -fmad=false: the IoU must round exactly as the CPU reference
 // does, or near-threshold pairs flip and keep sets stop being exact.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+
+#include "iou_test.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -158,11 +165,11 @@ __global__ void nms_greedy_kernel(const float* __restrict__ boxes,
   }
 }
 
-// The streaming variant, for candidate sets larger than one block's shared
-// memory (the eval protocol's K = 30,000: 600 KB of boxes and scores an
-// image).  The boxes stay in global memory, where the L2 cache holds a
-// whole batch (19 MB at B = 32); the live scores go in a (B, K) scratch
-// buffer; shared memory keeps only a picked bitmap (K bits).  Each step is
+// The global-memory variant, for candidate sets larger than a cluster's
+// shared memory holds (above about 90,000; 20 bytes of box and score a
+// candidate).  The boxes stay in global memory, where the L2 cache holds
+// a whole batch (19 MB at B = 32, K = 30,000); the live scores go in a
+// (B, K) scratch buffer; shared memory keeps only a picked bitmap (K bits).  Each step is
 // one strided pass over the candidates: the suppress test of the current
 // pick, fused with the argmax for the next one, and the IoU is computed
 // only for candidates still live.
@@ -276,6 +283,261 @@ nms_greedy_stream_kernel(const float* __restrict__ boxes,
   }
 }
 
+// The cluster variant: one cluster of C blocks an image (C = 1-8, picked
+// by the host from B, K and the card's occupancy).  Block r holds the
+// contiguous slice [r * slice, (r + 1) * slice) of the candidates in its
+// shared memory, 20 bytes each (the float4 box and the live score), plus
+// a picked bitmap; nothing is written to global memory until the picks.
+// Each step, every block runs the fused suppress pass and argmax over its
+// slice, then pushes its winner (box, score, index) into an inbox in the
+// shared memory of every block of the cluster, itself included, by
+// `st.async`, which completes the bytes on the receiver's mbarrier.  A
+// block waits on its own mbarrier for the C winners and takes the same
+// best as every other block.  So a step costs one block barrier and one
+// remote store's latency; a `barrier.cluster` a step, with the winners
+// read remotely after it, cost more than the pass over 7,500 candidates.
+// At B = 32 and K = 30,000 the host picks C = 3 (10,000 candidates,
+// 200 KB, a block; 96 SMs in one wave).
+constexpr int kClusterThreads = 1024;
+constexpr int kMaxCluster = 8;
+constexpr int kWinnerBytes = 24;  // the box (16) and score, index (8) of a winner
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the address `addr` of this block's shared memory has in block `rank`'s
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// this block's one arrival a phase, expecting `bytes` of remote stores
+__device__ __forceinline__ void mbar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// a winner into the inbox entry `dst` of another block (cluster address),
+// completing its 24 bytes on that block's mbarrier `bar`
+__device__ __forceinline__ void push_winner(unsigned dst, unsigned bar, float4 box, float score,
+                                            int index) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(dst), "f"(box.x), "f"(box.y), "f"(box.z), "f"(box.w), "r"(bar)
+      : "memory");
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+               ::"r"(dst + 16), "r"(__float_as_uint(score)), "r"(index), "r"(bar)
+               : "memory");
+}
+
+struct __align__(16) Winner {
+  float4 box;
+  float score;
+  int index;
+  int pad[2];
+};
+
+// every lane ends with the best of the warp's (s, i)
+__device__ __forceinline__ void warp_argmax_all(float& s, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float s2 = __shfl_xor_sync(kFull, s, off);
+    const int i2 = __shfl_xor_sync(kFull, i, off);
+    take_better(s, i, s2, i2);
+  }
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 1)
+nms_greedy_cluster_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
+                          int K, int slice, int max_det, float iou_thres,
+                          int* __restrict__ keep_idx, unsigned char* __restrict__ keep_valid) {
+  extern __shared__ float4 sbox[];  // [slice], then the scores, then the bitmap
+  float* sscore = reinterpret_cast<float*>(sbox + slice);
+  unsigned* spicked = reinterpret_cast<unsigned*>(sscore + slice);
+  __shared__ float red_s[32];
+  __shared__ int red_i[32];
+  __shared__ Winner inbox[2][kMaxCluster];  // [step & 1][sender's rank]
+  __shared__ __align__(8) unsigned long long full[2];  // the inboxes' mbarriers
+  __shared__ int s_unpicked;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int lo = rank * slice;
+  const int n = max(0, min(slice, K - lo));
+  const int nbits = (n + 31) >> 5;
+  const float4* bx = boxes + static_cast<size_t>(b) * K + lo;
+  const float* sc = scores + static_cast<size_t>(b) * K + lo;
+  int* out_idx = keep_idx + static_cast<size_t>(b) * max_det;
+  unsigned char* out_valid = keep_valid + static_cast<size_t>(b) * max_det;
+  const iou_test::Thres th = iou_test::make_thres(iou_thres);
+
+  if (tid == 0) {
+    mbar_init(smem_addr(&full[0]), 1);
+    mbar_init(smem_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int w = tid; w < nbits; w += kClusterThreads) spicked[w] = 0u;
+  float bs = -INFINITY;
+  int bi = INT_MAX;
+  for (int i = tid; i < n; i += kClusterThreads) {
+    sbox[i] = bx[i];
+    const float s = sc[i];
+    sscore[i] = s;
+    take_better(bs, bi, s, lo + i);
+  }
+  cluster.sync();  // every block's mbarriers are ready before the first push
+
+  int n_picked = 0;
+  for (int t = 0; t < max_det; ++t) {
+    const int buf = t & 1;
+    // this block's winner, pushed to every block's inbox[buf][rank]
+    warp_argmax(bs, bi);
+    if (lane == 0) {
+      red_s[warp] = bs;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      bs = red_s[lane];
+      bi = red_i[lane];
+      warp_argmax_all(bs, bi);
+      if (lane == 0) mbar_expect(smem_addr(&full[buf]), C * kWinnerBytes);
+      if (lane < C) {
+        const float4 wb = bi >= lo && bi < lo + n ? sbox[bi - lo] : make_float4(0.f, 0.f, 0.f, 0.f);
+        push_winner(map_rank(smem_addr(&inbox[buf][rank]), lane),
+                    map_rank(smem_addr(&full[buf]), lane), wb, bs, bi);
+      }
+    }
+    // the C winners of step t; the inbox of step t - 1 was read by every
+    // thread of every block before any push of step t + 1 could land
+    mbar_wait(smem_addr(&full[buf]), (t >> 1) & 1);
+    float cs = -INFINITY;
+    int ci = INT_MAX;
+    if (lane < C) {
+      cs = inbox[buf][lane].score;
+      ci = inbox[buf][lane].index;
+    }
+    float bs2 = cs;
+    int bi2 = ci;
+    warp_argmax_all(bs2, bi2);
+    if (!(bs2 > kNegInf * 0.5f)) break;  // no live score left in the image
+    const int best = bi2;
+    const int from = __ffs(__ballot_sync(kFull, ci == best && lane < C)) - 1;
+    const float4 p = inbox[buf][from].box;
+    if (tid == 0) {
+      if (rank == 0) {
+        out_idx[t] = best;
+        out_valid[t] = 1;
+      }
+      if (best >= lo && best < lo + n) spicked[(best - lo) >> 5] |= 1u << ((best - lo) & 31);
+    }
+    n_picked = t + 1;
+    const float parea = iou_test::area(p);
+    bs = -INFINITY;
+    bi = INT_MAX;
+    for (int i = tid; i < n; i += kClusterThreads) {
+      float s = sscore[i];
+      if (s > kNegInf) {  // a dropped candidate stays dropped: skip its IoU
+        const float4 q = sbox[i];
+        if (lo + i == best || iou_test::suppresses<true>(p, parea, q, iou_test::area(q), th)) {
+          s = kNegInf;
+          sscore[i] = s;
+        }
+      }
+      take_better(bs, bi, s, lo + i);
+    }
+  }
+  __syncthreads();  // the picked bitmap is complete
+
+  // slots after the picks: the unpicked indices in ascending order, block
+  // by block, then (when K < max_det) index 0, all invalid
+  if (warp == 0) {
+    int count = 0;
+    for (int w = lane; w < nbits; w += 32) {
+      const unsigned in_slice = w * 32 + 32 <= n ? kFull : (1u << (n & 31)) - 1u;
+      count += __popc(~spicked[w] & in_slice);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
+    if (lane == 0) s_unpicked = count;
+  }
+  cluster.sync();
+  if (warp == 0) {
+    int count = n_picked;
+    for (int r = 0; r < rank; ++r) count += *cluster.map_shared_rank(&s_unpicked, r);
+    for (int base = 0; base < n && count < max_det; base += 32) {
+      const int i = base + lane;
+      const bool unpicked = i < n && !((spicked[i >> 5] >> (i & 31)) & 1u);
+      const unsigned mask = __ballot_sync(kFull, unpicked);
+      const int pos = count + __popc(mask & ((1u << lane) - 1u));
+      if (unpicked && pos < max_det) {
+        out_idx[pos] = lo + i;
+        out_valid[pos] = 0;
+      }
+      count += __popc(mask);
+    }
+  }
+  if (rank == C - 1 && warp == 1)
+    for (int p = K + lane; p < max_det; p += 32) {
+      out_idx[p] = 0;
+      out_valid[p] = 0;
+    }
+  cluster.sync();  // no block leaves while another may read its s_unpicked
+}
+
+size_t cluster_smem(int slice) {
+  return static_cast<size_t>(slice) * (sizeof(float4) + sizeof(float)) +
+         static_cast<size_t>((slice + 31) / 32) * sizeof(unsigned);
+}
+
+cudaLaunchConfig_t cluster_config(int B, int cluster, size_t shmem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cluster);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// A refused size leaves no error behind for the next launch's check.
+cudaError_t set_cluster_smem(size_t shmem) {
+  const cudaError_t err = cudaFuncSetAttribute(nms_greedy_cluster_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(shmem));
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 }  // namespace
 
 // boxes (B, K, 4) f32 xyxy, class offset applied; scores (B, K) f32 with
@@ -309,4 +571,53 @@ extern "C" int nms_greedy_stream_launch(const float* boxes, const float* scores,
   nms_greedy_stream_kernel<<<B, kStreamThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       boxes, scores, K, max_det, iou_thres, live, keep_idx, keep_valid);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster variant: as nms_greedy_launch, with clusters of `cluster`
+// (1-8) blocks an image, each holding ceil(K / cluster) candidates in
+// shared memory; boxes 16-byte aligned.  A refused launch returns its
+// error; nothing gives way to another kernel.
+extern "C" int nms_greedy_cluster_launch(const float* boxes, const float* scores, int B, int K,
+                                         int max_det, float iou_thres, int cluster,
+                                         int* keep_idx, unsigned char* keep_valid,
+                                         void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slice = (K + cluster - 1) / cluster;
+  const size_t shmem = cluster_smem(slice);
+  cudaError_t err = set_cluster_smem(shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(B, cluster, shmem, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, nms_greedy_cluster_kernel, reinterpret_cast<const float4*>(boxes),
+                           scores, K, slice, max_det, iou_thres, keep_idx, keep_valid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `cluster` blocks, each with the shared memory of
+// ceil(K / cluster) candidates, the card holds at once
+// (cudaOccupancyMaxActiveClusters); 0 when none fits.
+extern "C" int nms_greedy_cluster_occupancy(int K, int cluster, int* max_clusters) {
+  if (cluster < 1 || cluster > kMaxCluster || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shmem = cluster_smem((K + cluster - 1) / cluster);
+  cudaError_t err = set_cluster_smem(shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, cluster, shmem, nullptr, &attr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(max_clusters, nms_greedy_cluster_kernel, &cfg));
+}
+
+// The current device's SM count and the shared memory a block may opt
+// into, in bytes.
+extern "C" int nms_greedy_device_limits(int* n_sm, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
 }

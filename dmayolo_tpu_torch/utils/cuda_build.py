@@ -3,8 +3,9 @@
 Each source in `dmayolo_tpu_torch/csrc/` has a plain C interface and
 builds into its own shared library for `sm_90a`, at first use, under
 `build/torch_kernels/` at the root of the checkout (listed in
-`.gitignore`).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+`.gitignore`).  A library's file name carries a hash of its source, the
+headers beside it (`*.cuh`) and its flags, so an edited source is rebuilt
+and an unchanged one is reused.
 `build()` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
@@ -49,7 +50,8 @@ def _flags(name: str):
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers in csrc/ count as part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
