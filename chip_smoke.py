@@ -8,8 +8,10 @@ source, all at once), then:
 
 1. K2 (greedy NMS, csrc/nms_greedy.cu) against its plain PyTorch version at
    the serving shape (128, 512) and on edge cases: clustered near-duplicates,
-   equal-score ties, all-masked rows, a deep chain, K = 64 < max_det.
-   keep_idx and keep_valid must be equal everywhere.
+   equal-score ties, all-masked rows, a deep chain, K = 64 < max_det,
+   K = 200 and 1024, the serving set shuffled (scores unsorted) and
+   near-threshold pairs: keep_idx and keep_valid must be equal everywhere.
+   Timed at (128, 512), and alone at (8, 1024).
 2. K3 (fixpoint keep flags, csrc/nms_fixpoint.cu) against its plain
    version on the same candidate sets (K <= 512) and on a near-threshold
    set (pairs whose IoU falls within a few ulps of the threshold), in both
@@ -31,15 +33,17 @@ source, all at once), then:
    IoU 0.6), the global-memory kernel above the cluster's capacity (B = 2,
    K = 100,000), equal everywhere.  Timed at (32, 30000) on both kernels
    and on every cluster size that fits.
-4. K1 (3x3 conv, csrc/conv3x3_s1.cu: wgmma and TMA for bf16 inputs, the
-   CUDA cores for f32) against its plain version at four of the flagship's
-   C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 + |plain|), TF32
-   off) and bf16 (2e-2), timed beside cuDNN (`F.conv2d`, the library
+4. K1 (3x3 conv, csrc/conv3x3_s1.cu: wgmma and TMA, bf16 inputs as they
+   are, f32 inputs as 3xTF32) against its plain version at four of the
+   flagship's C3/SCConv shapes in f32 (|kernel - plain| <= 1e-4 (1 +
+   |plain|), TF32 off; bound on the 3xTF32 rate) and bf16 (2e-2), the call
+   and the kernel alone timed beside cuDNN (`F.conv2d`, the library
    yardstick only); untimed on ragged shapes in all four dtype pairs.
    Then at every 3x3 stride-1 conv shape of the flagship, found by forward
    hooks at bs128 640 px, at batch 128 in bf16: images 0-1 against the
    plain version, K1 and cuDNN timed, and both summed over one step's
-   convs, each shape weighted by its count.
+   convs, each shape weighted by its count; and at batch 2 in f32,
+   untimed.
 5. The serving main path: the full-width flagship (nc 10, seeded random
    weights with the head priors, BN statistics calibrated on two random
    images) behind `MicroBatcher` (640 px, bf16), 8 requests of different
@@ -83,7 +87,9 @@ ROOT = Path(__file__).resolve().parent
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # f32 outside the tensor cores
+# f32 outside the tensor cores; "tf32x3": f32 products as three TF32
+# products each (K1's f32 route), a third of the dense TF32 rate
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
 
 FLAGSHIP = "ablation-ca-scconv-sppfcspc"
 K1_SHAPES = [(8, 320, 320, 64, 64), (8, 80, 80, 128, 128),
@@ -221,6 +227,7 @@ def nms_cases(device, b=128, k=512, seed=0):
                   torch.linspace(1, 0.5, k)[None].repeat(4, 1), 300, 0.3))
     cases.append(("k64", boxes[:, :64].contiguous(), scores[:, :64].contiguous(), 300, 0.45))
     cases.append(("k77", boxes[:8, :77].contiguous(), scores[:8, :77].contiguous(), 100, 0.45))
+    cases.append(("k200", boxes[:8, :200].contiguous(), scores[:8, :200].contiguous(), 300, 0.45))
     # the most one block holds: more candidates than threads
     big = torch.cat([boxes[:8], boxes[:8] + 3], 1)
     cases.append(("k1024", big, torch.cat([scores[:8], scores[:8]], 1), 300, 0.45))
@@ -229,15 +236,25 @@ def nms_cases(device, b=128, k=512, seed=0):
 
 
 def check_nms(device):
+    """K2 against its plain version on `nms_cases`, near-threshold pairs and
+    the random set shuffled (scores unsorted); timed at (128, 512), and
+    alone at (8, 1024)."""
     import torch
 
     from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_plain
 
     out = {"cases": {}, "max_abs_err": 0.0}
     cases = nms_cases(device)
+    name, boxes, scores, max_det, thr = cases[0]
+    g = torch.Generator().manual_seed(8)
+    perm = torch.stack([torch.randperm(boxes.shape[1], generator=g)
+                        for _ in range(boxes.shape[0])]).to(device)
+    cases.append(("shuffled", boxes.gather(1, perm[..., None].expand(-1, -1, 4)).contiguous(),
+                  scores.gather(1, perm).contiguous(), max_det, thr))
+    cases.append(("near_threshold", *near_threshold_case(device, 0.45), 300, 0.45))
     for name, boxes, scores, max_det, thr in cases:
-        ki, kv = nms_greedy(boxes, scores, thr, max_det)
         pi, pv = nms_greedy_plain(boxes, scores, thr, max_det)
+        ki, kv = nms_greedy(boxes, scores, thr, max_det)
         same = torch.equal(ki, pi) and torch.equal(kv, pv)
         out["cases"][name] = {"picks": int(kv.sum()), "equal": same}
         # largest difference of keep_idx or keep_valid anywhere
@@ -259,6 +276,9 @@ def check_nms(device):
         out["kernel_ms"] = graph_ms(lambda: nms_greedy(boxes, scores, thr, max_det), 20)
         out["plain_ms"] = cuda_ms(lambda: nms_greedy_plain(boxes, scores, thr, max_det), 3)
         out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "f32")
+        # the most one block holds: eight slots a lane
+        _, bx, sc, md, t = next(c for c in cases if c[0] == "k1024")
+        out["k1024_kernel_ms"] = graph_ms(lambda: nms_greedy(bx, sc, t, md), 20)
     return out
 
 
@@ -625,11 +645,11 @@ def check_conv(device, shapes=K1_SHAPES, timed=True):
                 xn = x.permute(0, 3, 1, 2)  # channels_last view for cuDNN
                 wo = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 case["ms"] = cuda_ms(lambda: conv3x3_s1(x, wt), 50)
-                if dt == bf16:
-                    case["kernel_ms"] = kernel_ms(x, wt, 50)
+                case["kernel_ms"] = kernel_ms(x, wt, 50)
                 case["plain_ms"] = cuda_ms(lambda: conv3x3_s1_plain(x, wt), 5)
                 case["library_ms"] = cuda_ms(lambda: F.conv2d(xn, wo, padding=1), 50)
-                case["bound_ms"], case["bound_by"] = bound(nbytes, ops, kind)
+                case["bound_ms"], case["bound_by"] = bound(
+                    nbytes, ops, "bf16" if dt == bf16 else "tf32x3")
                 case["bytes"], case["ops"] = nbytes, ops
                 case["tflops"] = ops / case["ms"] / 1e9
             cases.append(case)
@@ -638,13 +658,14 @@ def check_conv(device, shapes=K1_SHAPES, timed=True):
 
 
 def kernel_ms(x, wt, iters):
-    """K1's bf16 kernel alone: `conv3x3_s1` less its per-call host side
-    (channel padding, the K-major weight copy), timed on prepared inputs."""
+    """K1's kernel alone: `conv3x3_s1` less its per-call host side (channel
+    padding, the K-major weight copy, f32's TF32 split of the weights),
+    timed on prepared inputs."""
     import torch
 
-    from dmayolo_tpu_torch.nn.conv3x3 import launch_tc, prepare_tc
+    from dmayolo_tpu_torch.nn.conv3x3 import launch_tc, prepare
 
-    prep = prepare_tc(x, wt)
+    prep = prepare(x, wt)
     out = torch.empty(*x.shape[:3], wt.shape[3], dtype=x.dtype, device=x.device)
     return cuda_ms(lambda: check(launch_tc(*prep, out) == 0, "K1 launch failed"), iters)
 
@@ -676,32 +697,37 @@ def conv3x3_sites(model, x, dtype):
     return dict(sorted(sites.items(), key=lambda kv: (-kv[0][0], kv[0][2], kv[0][3])))
 
 
-def check_conv_flagship(device, sites, batch=128, iters=10):
-    """K1 at each of the flagship's 3x3 stride-1 conv shapes (`sites`) at
-    the serving batch in bf16.  Images 0-1 of the full-batch call are held
-    against the plain version on those two images (it cannot run the whole
-    batch: its unfold alone is 30 GB at 320x320x64).  Timed beside cuDNN
-    (`F.conv2d` on the channels_last view, the yardstick only) and the
-    bound; the sums weight each shape by its count in one forward."""
+def check_conv_flagship(device, sites, batch=128, iters=10, dtype="bf16"):
+    """K1 at each of the flagship's 3x3 stride-1 conv shapes (`sites`).
+
+    bf16, at the serving batch: images 0-1 of the full-batch call held
+    against the plain version on those two images (it cannot run the
+    whole batch: its unfold alone is 30 GB at 320x320x64), and timed
+    beside cuDNN (`F.conv2d` on the channels_last view, the yardstick
+    only) and the bound; the sums weight each shape by its count in one
+    forward.  f32 (the 3xTF32 route): the whole batch against the plain
+    version (TF32 off), untimed."""
     import torch
     import torch.nn.functional as F
 
     from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1, conv3x3_s1_plain
 
-    bf16 = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    timed = dtype == "bf16" and device.type == "cuda"
     g = torch.Generator(device=device).manual_seed(4)
     rows = []
     for (h, w, c1, c2), count in sites.items():
-        x = torch.randn(batch, h, w, c1, device=device, generator=g).to(bf16)
-        wt = (torch.randn(3, 3, c1, c2, device=device, generator=g) / (9 * c1) ** 0.5).to(bf16)
+        x = torch.randn(batch, h, w, c1, device=device, generator=g).to(dt)
+        wt = (torch.randn(3, 3, c1, c2, device=device, generator=g) / (9 * c1) ** 0.5).to(dt)
         got = conv3x3_s1(x, wt)
         want = conv3x3_s1_plain(x[:2], wt).float()
         err = (got[:2].float() - want).abs()
         row = {"shape": [batch, h, w, c1, c2], "count": count, "max_abs_err": float(err.max()),
-               "max_scaled_err": float((err / (1 + want.abs())).max()), "tol": K1_TOL["bf16"]}
+               "max_scaled_err": float((err / (1 + want.abs())).max()), "tol": K1_TOL[dtype]}
         check(got.shape == (batch, h, w, c2) and row["max_scaled_err"] <= row["tol"],
-              f"K1 differs from its plain version on images 0-1 at {row}")
-        if device.type == "cuda":
+              f"K1 differs from its plain version on images 0-1 at {row} ({dtype})")
+        if timed:
             xn = x.permute(0, 3, 1, 2)  # channels_last view for cuDNN
             wo = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             row["ms"] = cuda_ms(lambda: conv3x3_s1(x, wt), iters)
@@ -714,8 +740,9 @@ def check_conv_flagship(device, sites, batch=128, iters=10):
             del xn, wo
         rows.append(row)
         del x, wt, got, want, err
-    out = {"batch": batch, "convs": sum(sites.values()), "shapes": rows}
-    if device.type == "cuda":
+    out = {"batch": batch, "dtype": dtype, "convs": sum(sites.values()), "shapes": rows,
+           "max_scaled_err": max(r["max_scaled_err"] for r in rows)}
+    if timed:
         for key in ("ms", "kernel_ms", "library_ms", "bound_ms"):
             out[f"step_{key}"] = sum(r["count"] * r[key] for r in rows)
     return out
@@ -1109,12 +1136,17 @@ def main():
             (f"K3 blocked {tuple(k3b['shape'])}, {k3b['blocks_walked']} blocks walked",
              k3b["ms"], k3b["kernel_ms"], k3b),
             (f"K2 streaming {tuple(k2s['shape'])}, {k2s['route']}", k2s["ms"],
-             k2s["kernel_ms"], k2s)):
+             k2s["kernel_ms"], k2s),
+            (f"K2 {tuple(k2['shape'])}", k2["ms"], k2["kernel_ms"], k2)):
         print(f"{label}: call {ms:.4f} ms, kernel {kms:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"on {smi}", flush=True)
+    print(f"K2 (8, 1024): kernel {k2['k1024_kernel_ms']:.4f} ms on {smi}", flush=True)
     report["k1"] = k1 = check_conv(device)
     for c in k1:
         print("K1 conv3x3_s1: " + json.dumps(c), flush=True)
+        print(f"K1 {c['dtype']} {tuple(c['shape'])}: call {c['ms']:.4f} ms, kernel "
+              f"{c['kernel_ms']:.4f} ms, cuDNN {c['library_ms']:.4f} ms (TF32 off), bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']}) on {smi}", flush=True)
     report["k1_ragged"] = k1_ragged = check_conv(device, K1_RAGGED, timed=False)
     print("K1 conv3x3_s1 ragged: " + json.dumps(
         {"cases": len(k1_ragged), "max_scaled_err": max(c["max_scaled_err"] for c in k1_ragged)}),
@@ -1144,6 +1176,9 @@ def main():
           f"{k1f['step_ms']:.3f} ms (kernel {k1f['step_kernel_ms']:.3f}); "
           f"cuDNN over the same: {k1f['step_library_ms']:.3f} ms; "
           f"bound {k1f['step_bound_ms']:.3f} ms; on {smi}", flush=True)
+    report["k1_flagship_f32"] = k1f32 = check_conv_flagship(device, sites, batch=2, dtype="f32")
+    print(f"K1 f32 (3xTF32) at the flagship's {len(sites)} 3x3 shapes, batch 2: max scaled err "
+          f"{k1f32['max_scaled_err']:.2e} (tol {K1_TOL['f32']})", flush=True)
     report["serving"] = srv = serving(device, model, counters=counters)
     print("serving: " + json.dumps(srv), flush=True)
     check(srv["batcher_pallas"]["launches"]["nms_greedy"] > 0,
@@ -1168,10 +1203,16 @@ def main():
               f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch) on {smi}")
 
     # K1's headline: one bf16 call at each of the four shapes, summed; the
-    # bound of that sum is the larger of its summed byte and operation times
-    k1_bf16 = [c for c in k1 if c["dtype"] == "bf16"]
-    k1_bound, k1_bound_by = bound(sum(c["bytes"] for c in k1_bf16),
-                                  sum(c["ops"] for c in k1_bf16), "bf16")
+    # bound of that sum is the larger of its summed byte and operation
+    # times.  The f32 route's sums beside it, on the 3xTF32 rate.
+    k1_sums = {}
+    for kind, rate in (("bf16", "bf16"), ("f32", "tf32x3")):
+        cs = [c for c in k1 if c["dtype"] == kind]
+        k1_sums[kind] = {k: sum(c[k] for c in cs)
+                         for k in ("ms", "kernel_ms", "plain_ms", "library_ms")}
+        k1_sums[kind]["max_abs_err"] = max(c["max_abs_err"] for c in cs)
+        k1_sums[kind]["bound_ms"], k1_sums[kind]["bound_by"] = bound(
+            sum(c["bytes"] for c in cs), sum(c["ops"] for c in cs), rate)
     # launches on each main path: the two serving batchers and the eval
     # protocol's three backends
     paths = {f"serving {r['backend']}": r["launches"]
@@ -1187,13 +1228,15 @@ def main():
 
     kernels = [
         {"name": "nms_greedy", "route": "cuda",
+         "design": "four warps an image, candidates in registers",
          "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
          **launches(nms_greedy), **timed(k2), "library_ms": None, "shape": k2["shape"],
-         "kernel_ms": k2["kernel_ms"]},
+         "kernel_ms": k2["kernel_ms"], "k1024_kernel_ms": k2["k1024_kernel_ms"]},
         # the cluster kernel, the eval's route; the global-memory kernel
         # (K above the cluster's capacity) in "global_route"
-        {"name": "nms_greedy_stream", "route": "cuda", "design": "cluster",
+        {"name": "nms_greedy_stream", "route": "cuda",
+         "design": "thread-block cluster an image, winners pushed by st.async",
          "source": "dmayolo_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "dmayolo_tpu/core/pallas_nms.py:77",
          **launches(stream_cluster), **timed(k2s), "library_ms": None,
@@ -1201,6 +1244,7 @@ def main():
          "ms_by_route": k2s["ms_by_route"],
          "global_route": {"ms_at_shape": k2s["global_ms"], **k2s["global_big"]}},
         {"name": "nms_fixpoint", "route": "cuda",
+         "design": "one block an image, S as bits in shared memory, one-warp scan",
          "source": "dmayolo_tpu_torch/csrc/nms_fixpoint.cu",
          "replaces": "experiments/exp_pallas_fixpoint.py:87",
          **launches(fixpoint_keep), **timed(k3), "library_ms": None, "shape": k3["shape"],
@@ -1208,26 +1252,24 @@ def main():
                                "eval_shape", "eval_ms_divide", "eval_kernel_ms_divide",
                                "eval_plain_ms_divide", "eval_bound_ms", "eval_bound_by")}},
         {"name": "nms_fixpoint_blocked", "route": "cuda",
+         "design": "the blocked walk in one launch, keeper list in shared memory",
          "source": "dmayolo_tpu_torch/csrc/nms_fixpoint.cu",
          "replaces": "experiments/exp_pallas_fixpoint.py:87",
          **launches(fixpoint_keep_blocked), **timed(k3b), "library_ms": None,
          "shape": k3b["shape"], "kernel_ms": k3b["kernel_ms"],
          "nms_matrix_blocked_ms": k3b["nms_ms"],
          **{k: k3b[k] for k in ("blocks_walked", "pairs", "cross_tests", "walk_all")}},
-        {"name": "conv3x3_s1", "route": "cuda", "design": "wgmma+tma",
+        {"name": "conv3x3_s1", "route": "cuda",
+         "design": "implicit GEMM on wgmma with TMA loads: bf16, and f32 as 3xTF32",
          "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",
          "replaces": "dmayolo_tpu/nn/pallas_conv.py:75",
-         **launches(conv3x3_s1),
-         "max_abs_err": max(c["max_abs_err"] for c in k1_bf16),
-         "ms": sum(c["ms"] for c in k1_bf16), "plain_ms": sum(c["plain_ms"] for c in k1_bf16),
-         "bound_ms": k1_bound, "bound_by": k1_bound_by,
-         "library_ms": sum(c["library_ms"] for c in k1_bf16),
+         **launches(conv3x3_s1), **k1_sums["bf16"], "f32": k1_sums["f32"],
          "cases": [{k: c.get(k) for k in ("shape", "dtype", "max_abs_err", "ms", "kernel_ms",
                                           "plain_ms", "library_ms", "bound_ms", "bound_by")}
                    for c in k1],
-         "kernel_ms": sum(c["kernel_ms"] for c in k1_bf16),
          "flagship_bs128": {k: k1f[k] for k in ("convs", "step_ms", "step_kernel_ms",
-                                                 "step_library_ms", "step_bound_ms")}},
+                                                 "step_library_ms", "step_bound_ms")},
+         "flagship_f32_b2_max_scaled_err": k1f32["max_scaled_err"]},
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,8 +3,8 @@
 Port of `dmayolo_tpu/core/pallas_nms.py::pallas_batched_nms_core`.  Three
 kernels in `csrc/nms_greedy.cu` run the whole pick/suppress loop of one
 image, routed by K:
-  * K <= 1024 (serving): one thread block, the candidates in its shared
-    memory;
+  * K <= 1024 (serving): a block of four warps an image, each lane
+    holding up to 8 candidates in registers, with one barrier a step;
   * above that, `nms_greedy_stream`: a thread-block cluster an image, the
     candidates spread over its blocks' shared memory (`plan_stream` picks
     the cluster size), up to the capacity of 8 blocks (about 90,000);
@@ -29,8 +29,8 @@ import torch
 from ..utils.cuda_build import load_library
 
 NEG_INF = -1e10
-# candidates that fit one block's shared memory (28 bytes each); larger
-# candidate sets go to the streaming variant
+# candidates one block of four warps holds in registers; larger candidate
+# sets go to the streaming variant
 MAX_K = 1024
 CLUSTER_SIZES = tuple(range(1, 9))  # 8: the largest portable cluster
 CLUSTER_THREADS = 1024  # threads of a cluster kernel's block
@@ -201,11 +201,12 @@ def _check(name, boxes, scores):
 
 
 def _launch(name, boxes, scores, iou_thres, max_det, route):
-    """Launches the kernel of `route`: "shared", "global", or a cluster
-    size (int).  Returns (keep_idx, keep_valid, launched)."""
+    """Launches the kernel of `route`: "shared" (the group kernel),
+    "global", or a cluster size (int).  Returns (keep_idx, keep_valid,
+    launched)."""
     b, k, _ = boxes.shape
     boxes, scores = boxes.contiguous(), scores.contiguous()
-    if boxes.data_ptr() % 16:  # the streaming kernels read a box as one float4
+    if boxes.data_ptr() % 16:  # the kernels read a box as one float4
         boxes = boxes.clone()
     keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
     keep_valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
@@ -233,8 +234,8 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
     """Greedy NMS per image (see the module docstring for the outputs).
 
     A CPU tensor goes through `nms_greedy_plain`; a CUDA tensor launches
-    the shared-memory kernel, or `nms_greedy_stream` above MAX_K
-    candidates, or raises."""
+    the group kernel, or `nms_greedy_stream` above MAX_K candidates, or
+    raises."""
     if _check("nms_greedy", boxes, scores):
         return nms_greedy_plain(boxes, scores, iou_thres, max_det)
     if boxes.shape[1] > MAX_K:

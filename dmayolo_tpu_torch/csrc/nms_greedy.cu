@@ -6,24 +6,35 @@
 //
 // What bounds it on the card: neither bytes (20 B per candidate in, 5 B
 // per output slot) nor operations (~15 flops per candidate per pick) —
-// the chain of max_det dependent steps is.  Each step is a block-wide
-// argmax followed by one parallel suppress pass, so its cost is the
-// latency of two barriers and a shuffle reduction.  The design keeps
-// that chain short and on one SM:
-//   * the candidates (4 coordinates, area, live score, picked flag) sit in
-//     shared memory for the whole loop, 28 bytes each;
-//   * the argmax is warp shuffles, then one pass over the warp winners;
+// the chain of max_det dependent steps is.  Each step is an argmax over
+// the image's live scores and a suppress pass against the pick, so a
+// step costs the latency of its reduction and its barriers plus the pass.
 //   * a pick is written straight to keep_idx[t] (the TPU kernel wrote a
 //     rank vector and argsorted it outside);
-//   * the loop ends as soon as no live score is left, not after max_det.
+//   * the loop ends as soon as no live score is left, not after max_det;
+//   * the suppress pass for pick t is fused with the argmax for pick t + 1,
+//     and skips candidates already dropped.
 // The remaining slots then get the unpicked indices in ascending order,
 // so keep_idx equals the JAX function everywhere, padding included.
 //
-// Three kernels, routed by K: nms_greedy_kernel holds the candidates in
-// one block's shared memory (K <= 1024, the serving path);
-// nms_greedy_cluster_kernel spreads them over the shared memory of a
-// thread-block cluster (up to about 90,000; the eval protocol's 30,000);
-// nms_greedy_stream_kernel streams them from global memory for any K.
+// Three kernels, routed by K:
+//   * nms_greedy_group_kernel (K <= 1024, the serving path): a block of
+//     four warps owns one image.  Each lane keeps its PER <= 8 candidates
+//     (box, area, and the live score as an order-preserving integer key)
+//     in registers, so a step has one block barrier: the argmax is
+//     `__reduce_max_sync` on the key, then `__reduce_min_sync` on the
+//     index among the lanes with that key (higher score, then lower index,
+//     as `jnp.argmax`); the four warps' winners meet in shared memory,
+//     double-buffered by step parity.  The pick's box is one broadcast
+//     read of a copy of the boxes in shared memory (a register array
+//     indexed by the pick would spill).  The pass is straight-line over a
+//     lane's slots, the IoU test decided by two products (`quick_above`),
+//     so the slots' tests overlap.  One or two warps an image, with twice
+//     or four times the slots a lane, ran slower at every shape timed.
+//   * nms_greedy_cluster_kernel spreads the candidates over the shared
+//     memory of a thread-block cluster (up to about 90,000; the eval
+//     protocol's 30,000);
+//   * nms_greedy_stream_kernel streams them from global memory for any K.
 // All three give the same output.
 //
 // Built with -fmad=false: the IoU must round exactly as the CPU reference
@@ -59,89 +70,136 @@ __device__ __forceinline__ void warp_argmax(float& s, int& i) {
   }
 }
 
-__global__ void nms_greedy_kernel(const float* __restrict__ boxes,
-                                  const float* __restrict__ scores, int K,
-                                  int max_det, float iou_thres,
-                                  int* __restrict__ keep_idx,
-                                  unsigned char* __restrict__ keep_valid) {
-  extern __shared__ float smem[];
-  float* sx1 = smem;
-  float* sy1 = sx1 + K;
-  float* sx2 = sy1 + K;
-  float* sy2 = sx2 + K;
-  float* sarea = sy2 + K;
-  float* sscore = sarea + K;
-  int* spicked = reinterpret_cast<int*>(sscore + K);
-  __shared__ float red_s[32];
-  __shared__ int red_i[32];
-  __shared__ int s_best;
-  __shared__ int s_valid;
+// ---------------------------------------------------------------------------
+// K <= 1024: four warps an image, the candidates in registers
+// ---------------------------------------------------------------------------
 
-  const int b = blockIdx.x;
+constexpr int kGroupWarps = 4;
+constexpr int kGroupThreads = 32 * kGroupWarps;  // a block, an image
+constexpr int kMaxPerLane = 8;                   // candidates a lane keeps: 1024 / 128
+
+// An order-preserving key of a score: key(a) > key(b) exactly when a > b
+// as floats, with -0 and +0 one key, as a float compare has them equal
+// (every key of a number is above 0).
+__device__ __forceinline__ unsigned score_key(float s) {
+  unsigned u = __float_as_uint(s);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// rn(inter / uni) > t as far as two products tell it, without a branch: 1
+// or 0, or -1 where only the IEEE quotient can.  With inter in [+0, 2^60],
+// uni in [2^-60, 2^60] and t normal, hi * uni neither overflows nor
+// underflows and rounds within 2^-24 of the exact product, so inter above
+// it puts the exact quotient Q above t (1 + 2^-19), more than 16 ulps of
+// t, and rn(Q) > t; inter below lo * uni puts rn(Q) below t.  (The range
+// checks compare the bits: +0 up to 2^60, and 2^-60 up to 2^60.)
+__device__ __forceinline__ int quick_above(float inter, float uni, const iou_test::Thres& th) {
+  const unsigned ii = __float_as_uint(inter), ui = __float_as_uint(uni);
+  const bool in_range = ii <= 0x5d800000u && ui - 0x21800000u <= 0x5d800000u - 0x21800000u;
+  return in_range && inter > th.hi * uni ? 1 : (in_range && inter < th.lo * uni ? 0 : -1);
+}
+
+// Lane `tid` of the block holds candidates tid, tid + 128, ..., PER of them
+// (slots past K hold a -inf score); shared memory keeps a copy of every
+// box, for the pick's, and a picked flag each, for the tail.
+template <int PER>
+__global__ void __launch_bounds__(kGroupThreads)
+nms_greedy_group_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores, int K,
+                        int max_det, float iou_thres, int* __restrict__ keep_idx,
+                        unsigned char* __restrict__ keep_valid) {
+  constexpr int KP = kGroupThreads * PER;  // candidate slots of the block
+  __shared__ float4 sbox[KP];
+  __shared__ unsigned char spicked[KP];
+  __shared__ uint2 winners[2][kGroupWarps];  // (key, index) a warp, by step parity
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = (nthr + 31) >> 5;
-  const float* bx = boxes + static_cast<size_t>(b) * K * 4;
+  const int b = blockIdx.x;
+  const float4* bx = boxes + static_cast<size_t>(b) * K;
   const float* sc = scores + static_cast<size_t>(b) * K;
   int* out_idx = keep_idx + static_cast<size_t>(b) * max_det;
   unsigned char* out_valid = keep_valid + static_cast<size_t>(b) * max_det;
+  const iou_test::Thres th = iou_test::make_thres(iou_thres);
+  const unsigned dead = score_key(kNegInf);             // a dropped candidate's key
+  const unsigned live_key = score_key(kNegInf * 0.5f);  // a pick needs a key above it
 
-  for (int i = tid; i < K; i += nthr) {
-    const float x1 = bx[4 * i], y1 = bx[4 * i + 1];
-    const float x2 = bx[4 * i + 2], y2 = bx[4 * i + 3];
-    sx1[i] = x1;
-    sy1[i] = y1;
-    sx2[i] = x2;
-    sy2[i] = y2;
-    sarea[i] = (x2 - x1) * (y2 - y1);
-    sscore[i] = sc[i];
+  // the live scores as keys: a lane's best is its first slot (lowest
+  // index) with the highest key
+  float4 q[PER];
+  float qa[PER];
+  unsigned s[PER];
+  unsigned key = 0u;
+  int bi = INT_MAX;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = j * kGroupThreads + tid;
+    q[j] = i < K ? bx[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s[j] = score_key(i < K ? sc[i] : -INFINITY);
+    qa[j] = iou_test::area(q[j]);
+    sbox[i] = q[j];
     spicked[i] = 0;
+    if (s[j] > key) key = s[j], bi = i;
   }
   __syncthreads();
 
   int n_picked = 0;
   for (int t = 0; t < max_det; ++t) {
-    float bs = -INFINITY;
-    int bi = INT_MAX;
-    for (int i = tid; i < K; i += nthr) take_better(bs, bi, sscore[i], i);
-    warp_argmax(bs, bi);
-    if (lane == 0) {
-      red_s[warp] = bs;
-      red_i[warp] = bi;
-    }
+    // the block's best of the lanes' bests: the highest key, then the
+    // lowest index among the lanes holding it.  One barrier a step: a
+    // warp writes this step's winner in the buffer of its parity, which
+    // every warp read before the barrier of the step in between.
+    unsigned best_key = __reduce_max_sync(kFull, key);
+    unsigned best = __reduce_min_sync(kFull, key == best_key ? static_cast<unsigned>(bi) : UINT_MAX);
+    if (lane == 0) winners[t & 1][warp] = make_uint2(best_key, best);
     __syncthreads();
-    if (warp == 0) {
-      bs = lane < nwarps ? red_s[lane] : -INFINITY;
-      bi = lane < nwarps ? red_i[lane] : INT_MAX;
-      warp_argmax(bs, bi);
-      if (lane == 0) {
-        s_best = bi;
-        s_valid = bs > kNegInf * 0.5f;
+#pragma unroll
+    for (int w = 0; w < kGroupWarps; ++w) {
+      const uint2 o = winners[t & 1][w];
+      if (o.x > best_key || (o.x == best_key && o.y < best)) {
+        best_key = o.x;
+        best = o.y;
       }
     }
-    __syncthreads();
-    if (!s_valid) break;  // no live score left: every later step is empty
-    const int best = s_best;
+    if (best_key <= live_key) break;  // no live score left: every later step is empty
     if (tid == 0) {
-      out_idx[t] = best;
+      out_idx[t] = static_cast<int>(best);
       out_valid[t] = 1;
       spicked[best] = 1;
     }
-    const float px1 = sx1[best], py1 = sy1[best];
-    const float px2 = sx2[best], py2 = sy2[best];
-    const float parea = sarea[best];
-    for (int i = tid; i < K; i += nthr) {
-      const float iw = fmaxf(fminf(px2, sx2[i]) - fmaxf(px1, sx1[i]), 0.0f);
-      const float ih = fmaxf(fminf(py2, sy2[i]) - fmaxf(py1, sy1[i]), 0.0f);
-      const float inter = iw * ih;
-      const float iou = inter / (parea + sarea[i] - inter + 1e-7f);
-      if (iou > iou_thres || i == best) sscore[i] = kNegInf;
-    }
     n_picked = t + 1;
-    __syncthreads();
+    const float4 p = sbox[best];
+    const float parea = iou_test::area(p);
+    // the suppress pass, straight-line over the lane's slots so their
+    // tests overlap: two products decide (quick_above); the few pairs
+    // within 2^-18 of the threshold divide after it, in a branch the warp
+    // takes only when one of its lanes has such a pair.  A dropped
+    // candidate stays dropped whatever its test says.
+    unsigned undecided = 0u;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = j * kGroupThreads + tid;
+      const float inter = iou_test::intersection(p, q[j]);
+      const int quick = quick_above(inter, parea + qa[j] - inter + 1e-7f, th);
+      const bool live = s[j] > dead;
+      s[j] = live && (i == static_cast<int>(best) || quick == 1) ? dead : s[j];
+      undecided |= static_cast<unsigned>(live && i != static_cast<int>(best) && quick < 0) << j;
+    }
+    if (__any_sync(kFull, undecided != 0u)) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        if ((undecided >> j) & 1u) {
+          const float inter = iou_test::intersection(p, q[j]);
+          if (__fdiv_rn(inter, parea + qa[j] - inter + 1e-7f) > th.t) s[j] = dead;
+        }
+    }
+    key = 0u;
+    bi = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (s[j] > key) key = s[j], bi = j * kGroupThreads + tid;
   }
+  __syncthreads();  // the picked flags are complete
 
   // slots after the picks: unpicked indices in ascending order, then
   // (when K < max_det) index 0, all invalid
@@ -163,6 +221,15 @@ __global__ void nms_greedy_kernel(const float* __restrict__ boxes,
       out_valid[p] = 0;
     }
   }
+}
+
+template <int PER>
+int launch_group(const float* boxes, const float* scores, int B, int K, int max_det,
+                 float iou_thres, int* keep_idx, unsigned char* keep_valid, cudaStream_t stream) {
+  nms_greedy_group_kernel<PER><<<B, kGroupThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(boxes), scores, K, max_det, iou_thres, keep_idx,
+      keep_valid);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The global-memory variant, for candidate sets larger than a cluster's
@@ -540,23 +607,26 @@ cudaError_t set_cluster_smem(size_t shmem) {
 
 }  // namespace
 
-// boxes (B, K, 4) f32 xyxy, class offset applied; scores (B, K) f32 with
-// dropped candidates at -1e10; keep_idx (B, max_det) int32; keep_valid
-// (B, max_det) bool.  Returns cudaGetLastError() after the launch.
-extern "C" int nms_greedy_launch(const float* boxes, const float* scores,
-                                 int B, int K, int max_det, float iou_thres,
-                                 int* keep_idx, unsigned char* keep_valid,
-                                 void* stream) {
-  int threads = ((K + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 512 ? 512 : threads);
-  const size_t shmem = static_cast<size_t>(K) * (6 * sizeof(float) + sizeof(int));
-  nms_greedy_kernel<<<B, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      boxes, scores, K, max_det, iou_thres, keep_idx, keep_valid);
-  return static_cast<int>(cudaGetLastError());
+// boxes (B, K, 4) f32 xyxy, class offset applied, 16-byte aligned; scores
+// (B, K) f32 with dropped candidates at -1e10; keep_idx (B, max_det)
+// int32; keep_valid (B, max_det) bool.  K is 1 to 1024; each lane holds
+// the next power of two at or above ceil(K / 128) candidate slots.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a K the group kernel cannot hold.
+extern "C" int nms_greedy_launch(const float* boxes, const float* scores, int B, int K,
+                                 int max_det, float iou_thres, int* keep_idx,
+                                 unsigned char* keep_valid, void* stream) {
+  const int need = (K + kGroupThreads - 1) / kGroupThreads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K <= 0 || need > kMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
+  if (need <= 1) return launch_group<1>(boxes, scores, B, K, max_det, iou_thres, keep_idx, keep_valid, s);
+  if (need <= 2) return launch_group<2>(boxes, scores, B, K, max_det, iou_thres, keep_idx, keep_valid, s);
+  if (need <= 4) return launch_group<4>(boxes, scores, B, K, max_det, iou_thres, keep_idx, keep_valid, s);
+  return launch_group<8>(boxes, scores, B, K, max_det, iou_thres, keep_idx, keep_valid, s);
 }
 
-// The streaming variant, any K: as nms_greedy_launch, plus `live`, a
-// (B, K) f32 scratch buffer the kernel overwrites; boxes 16-byte aligned.
+// The streaming variant, any K: the arguments of nms_greedy_launch, plus
+// `live`, a (B, K) f32 scratch buffer the kernel overwrites.
 extern "C" int nms_greedy_stream_launch(const float* boxes, const float* scores,
                                         int B, int K, int max_det, float iou_thres,
                                         float* live, int* keep_idx,
@@ -573,9 +643,9 @@ extern "C" int nms_greedy_stream_launch(const float* boxes, const float* scores,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The cluster variant: as nms_greedy_launch, with clusters of `cluster`
-// (1-8) blocks an image, each holding ceil(K / cluster) candidates in
-// shared memory; boxes 16-byte aligned.  A refused launch returns its
+// The cluster variant: the arguments of nms_greedy_launch, with clusters
+// of `cluster` (1-8) blocks an image, each block
+// holding ceil(K / cluster) candidates in shared memory.  A refused launch returns its
 // error; nothing gives way to another kernel.
 extern "C" int nms_greedy_cluster_launch(const float* boxes, const float* scores, int B, int K,
                                          int max_det, float iou_thres, int cluster,

@@ -10,8 +10,12 @@ says what bounds them on the card:
   C1, zero-padded to a multiple of 8 (TMA needs 16-byte strides; zero
   channels add nothing to the sums), the weights reordered to K-major
   (C2, 9, C1p), and the tile plan (`plan_tc`).
-* f32 inputs: a tiled direct convolution on the CUDA cores, f32 exact
-  enough for the 1e-4 tolerance against the f32 reference.
+* f32 inputs: the same implicit GEMM as 3xTF32 (hi*hi + hi*lo + lo*hi of
+  each operand's TF32 parts, `split_tf32`), exact enough for the 1e-4
+  tolerance against the f32 reference.  `prepare_tf32x3` does its host
+  side: channels padded to a multiple of 4, the K-major weights split into
+  their hi and lo parts, stacked (2, C2, 9, C1p), and a plan of 128-row
+  tiles; the kernel splits the activations itself.
 
 `conv3x3_s1` launches a kernel for CUDA tensors and takes the plain
 version, `conv3x3_s1_plain` (unfold + one f32 matmul, the `im2col` form),
@@ -32,6 +36,7 @@ from ..utils.cuda_build import load_library
 
 _DTYPES = (torch.float32, torch.bfloat16)
 TILE_ROWS = (128, 256)  # rows of a tensor-core tile: two or four m64 wgmma blocks
+TF32X3_ROWS = (128,)  # the f32 route's tile rows: its doubled stages fit no more
 MAX_HALO_W = 56  # widest haloed patch (TW + 2): the largest tile's buffers fit 227 KB
 _SMS = 132  # an H100 SXM's SMs, for the tile-size choice only
 # what the wgmma launcher returns when it cannot make a TMA tensor map
@@ -91,12 +96,13 @@ class TcPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def plan_tc(b: int, h: int, w: int, c2: int) -> TcPlan:
+def plan_tc(b: int, h: int, w: int, c2: int, tile_rows=TILE_ROWS) -> TcPlan:
     """The patch that covers an image with the fewest tiles (the widest
     among equals, for longer runs of stores).  BN = 64 for C2 <= 64, else
-    128; 256-row tiles at BN 128, which halve the weight reads an output,
-    where they compute at most 10% more rows than 128-row tiles and still
-    give the card's SMs half a tile each or more."""
+    128; 256-row tiles at BN 128 (where `tile_rows` offers them), which
+    halve the weight reads an output, where they compute at most 10% more
+    rows than 128-row tiles and still give the card's SMs half a tile each
+    or more."""
     def patch(rows):
         best = None
         for tw in range(min(w, MAX_HALO_W - 2), 0, -1):
@@ -106,11 +112,12 @@ def plan_tc(b: int, h: int, w: int, c2: int) -> TcPlan:
                 best = (n, th, tw)
         return best
 
-    bm, bn = TILE_ROWS[0], 64 if c2 <= 64 else 128
-    small, big = (patch(rows)[0] for rows in TILE_ROWS)
-    if (bn == 128 and big * TILE_ROWS[1] <= 1.1 * small * TILE_ROWS[0]
-            and b * big * -(-c2 // bn) >= _SMS // 2):
-        bm = TILE_ROWS[1]
+    bm, bn = tile_rows[0], 64 if c2 <= 64 else 128
+    if len(tile_rows) > 1:
+        small, big = (patch(rows)[0] for rows in tile_rows)
+        if (bn == 128 and big * tile_rows[1] <= 1.1 * small * tile_rows[0]
+                and b * big * -(-c2 // bn) >= _SMS // 2):
+            bm = tile_rows[1]
     _, th, tw = patch(bm)
     return TcPlan(b, h, w, c2, th, tw, -(-h // th), -(-w // tw), bm, bn, -(-c2 // bn))
 
@@ -133,6 +140,43 @@ def prepare_tc(x: torch.Tensor, w: torch.Tensor):
     return x, wk, plan_tc(b, h, wd, c2)
 
 
+def split_tf32(t: torch.Tensor):
+    """(hi, lo) of an f32 tensor as TF32 parts: hi = tf32(t), lo =
+    tf32(t - hi), where tf32() rounds to nearest, ties away from zero, and
+    clears the low 13 mantissa bits (`cvt.rna.tf32.f32`).  hi + lo is within
+    2^-22 |t| of t; the kernel splits its activations the same way."""
+    def tf32(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = tf32(t)
+    return hi, tf32(t - hi)
+
+
+def prepare_tf32x3(x: torch.Tensor, w: torch.Tensor):
+    """Host side of the f32 route (3xTF32): x (B, H, W, C1p) f32 and the
+    weights as K-major (C2, 9, C1p) hi and lo parts stacked into wk
+    (2, C2, 9, C1p), K ordered (tap, c1), C1p = C1 rounded up to a
+    multiple of 4 (zero-filled), both contiguous and 16-byte aligned; and
+    a plan of 128-row tiles."""
+    b, h, wd, c1 = x.shape
+    c2 = w.shape[3]
+    pad = -c1 % 4
+    wk = w.float().permute(3, 0, 1, 2).reshape(c2, 9, c1)
+    if pad:
+        x = F.pad(x, (0, pad))
+        wk = F.pad(wk, (0, pad))
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # a view at an odd offset: TMA needs 16-byte alignment
+        x = x.clone()
+    return x, torch.stack(split_tf32(wk)), plan_tc(b, h, wd, c2, TF32X3_ROWS)
+
+
+def prepare(x: torch.Tensor, w: torch.Tensor):
+    """The host side of the kernel of x's dtype: `prepare_tc` (bf16) or
+    `prepare_tf32x3` (f32)."""
+    return prepare_tc(x, w) if x.dtype == torch.bfloat16 else prepare_tf32x3(x, w)
+
+
 def _fn(name: str, n_int: int):
     fn = getattr(load_library("conv3x3_s1"), name)
     if fn.argtypes is None:
@@ -142,22 +186,22 @@ def _fn(name: str, n_int: int):
 
 
 def launch_tc(xp: torch.Tensor, wk: torch.Tensor, plan: TcPlan, out: torch.Tensor) -> int:
-    """The tensor-core kernel on `prepare_tc`'s output, into `out` (f32 or
-    bf16) on the current stream; returns the launcher's code (0: launched).
-    No launch count: `conv3x3_s1` keeps it."""
+    """The tensor-core kernel on `prepare`'s output (bf16, or f32 as
+    3xTF32), into `out` (f32 or bf16) on the current stream; returns the
+    launcher's code (0: launched).  No launch count: `conv3x3_s1` keeps it."""
     stream = torch.cuda.current_stream(xp.device).cuda_stream
-    return _fn("conv3x3_s1_wgmma_launch", 12)(
+    return _fn("conv3x3_s1_wgmma_launch", 13)(
         xp.data_ptr(), wk.data_ptr(), out.data_ptr(), plan.batch, plan.h, plan.w, xp.shape[3],
         plan.c2, plan.th, plan.tw, plan.tiles_h, plan.tiles_w, plan.bm, plan.bn,
-        int(out.dtype == torch.bfloat16), stream)
+        int(xp.dtype == torch.float32), int(out.dtype == torch.bfloat16), stream)
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None):
     """3x3 / stride-1 / pad-1 NHWC conv, HWIO weights, f32 accumulation.
 
     Output dtype defaults to x.dtype.  A CPU tensor goes through
-    `conv3x3_s1_plain`; a CUDA tensor launches the kernel of its input
-    dtype (bf16: tensor cores; f32: CUDA cores), or raises."""
+    `conv3x3_s1_plain`; a CUDA tensor launches the tensor-core kernel of
+    its input dtype (bf16, or f32 as 3xTF32), or raises."""
     out_dtype = _check(x, w, out_dtype)
     if x.device != w.device:
         raise ValueError("x and w must be on one device")
@@ -165,20 +209,11 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None):
         return conv3x3_s1_plain(x, w, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_s1 runs on cuda or cpu, not {x.device}")
-    b, h, wd, c1 = x.shape
-    c2 = w.shape[3]
-    out = torch.empty((b, h, wd, c2), dtype=out_dtype, device=x.device)
+    out = torch.empty((*x.shape[:3], w.shape[3]), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
-            rc = launch_tc(*prepare_tc(x, w), out)
-        else:
-            x, w = x.contiguous(), w.to(x.dtype).contiguous()
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = _fn("conv3x3_s1_launch", 6)(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c1, c2,
-                int(out_dtype == torch.bfloat16), stream)
+        rc = launch_tc(*prepare(x, w), out)
     if rc != 0:
         raise RuntimeError(f"conv3x3_s1 kernel launch failed: "
                            f"{_TC_ERRORS.get(rc, f'CUDA error {rc}')}")

@@ -10,7 +10,11 @@ K1, 3x3 conv: `conv3x3_s1` on CPU tensors against `conv3x3_s1(...,
 interpret=True)` at the shapes of tests/test_pallas_conv.py: f32 within
 1e-5 (summation order), bf16 outputs within 2e-2 (one bf16 rounding).
 The host side of K1's tensor-core route (channel padding, K-major weight
-reorder, tile plan) against the plain conv, f32 within 1e-5.
+reorder, tile plan) against the plain conv, f32 within 1e-5.  The f32
+route's 3xTF32 arithmetic: the TF32 split (hi with its low 13 mantissa
+bits zero, hi + lo within 2^-22 of the value), the split K-major weights
+and their padding, and a torch emulation of the kernel's three-product
+sum against the plain conv and the Pallas kernel, within 1e-5.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
@@ -26,7 +30,7 @@ from dmayolo_tpu.nn.pallas_conv import conv3x3_s1 as jax_conv3x3
 from dmayolo_tpu_torch.core.nms import NEG_INF, nms_single
 from dmayolo_tpu_torch.core.nms_kernel import MAX_K, nms_greedy
 from dmayolo_tpu_torch.nn.conv3x3 import (MAX_HALO_W, TILE_ROWS, conv3x3_s1, conv3x3_s1_plain,
-                                          prepare_tc)
+                                          prepare, prepare_tc, prepare_tf32x3, split_tf32)
 
 
 def _candidates(kind: str, b: int, k: int, seed: int):
@@ -38,6 +42,14 @@ def _candidates(kind: str, b: int, k: int, seed: int):
         c = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 4, (b, k, 2))
         wh = rng.uniform(30, 60, (b, k, 2))
         boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
+    elif kind == "threshold":
+        # pairs of 10 x 10 boxes shifted by d along x, on a grid 20 px
+        # apart: IoU (10 - d) / (10 + d) within a few ulps of 0.45
+        pair = np.arange(k) // 2
+        d = 10 * (1 - 0.45) / (1 + 0.45) + rng.integers(-20, 21, (b, k)) * 2e-6
+        x1 = (pair % 16) * 20.0 + (np.arange(k) % 2) * d
+        y1 = np.broadcast_to((pair // 16) * 20.0, (b, k))
+        boxes = np.stack([x1, y1, x1 + 10, y1 + 10], -1)
     else:
         xy1 = rng.uniform(0, 500, (b, k, 2))
         boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 150, (b, k, 2))], -1)
@@ -62,6 +74,15 @@ def _candidates(kind: str, b: int, k: int, seed: int):
     ("masked_rows", 4, 64, 32, 0.45, 3),
     ("chain", 1, 64, 64, 0.3, 4),
     ("random", 2, 40, 64, 0.45, 5),  # K < max_det: padded slots
+    ("random", 2, 512, 100, 0.45, 6),  # the serving K, scores unsorted
+    ("clustered", 2, 1024, 100, 0.45, 7),  # the most the kernel's block holds
+    # the edges of the kernel's slots a lane (128 lanes): one, two, four
+    ("random", 2, 128, 100, 0.45, 10),
+    ("random", 2, 129, 100, 0.45, 11),
+    ("ties", 2, 200, 300, 0.5, 12),
+    ("clustered", 2, 257, 100, 0.45, 13),
+    ("random", 3, 31, 16, 0.45, 8),  # fewer candidates than a warp's lanes
+    ("threshold", 2, 512, 300, 0.45, 9),  # IoUs within a few ulps of the threshold
 ])
 def test_nms_plain_matches_pallas_and_scan(kind, b, k, max_det, thr, seed):
     boxes, scores = _candidates(kind, b, k, seed)
@@ -168,3 +189,58 @@ def test_conv3x3_tensor_core_preparation(shape):
     assert (cover == 1).all()
     # never more tiles an image than a fixed 8x16 patch would take
     assert plan.tiles_h * plan.tiles_w <= -(-h // 8) * -(-w // 16)
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 11, 5, 6), (2, 20, 20, 64, 64), (1, 5, 3, 3, 130)])
+def test_conv3x3_tf32x3_preparation(shape):
+    """The f32 route's host side: TF32 parts of the weights (hi with its low
+    13 mantissa bits zero, hi + lo within 2^-22 of w), K-major (2, C2, 9,
+    C1p) with zero-filled channels, C1p a multiple of 4; x zero-padded to
+    C1p; 128-row tiles."""
+    b, h, w, c1, c2 = shape
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c1)).astype(np.float32))
+    wt = torch.from_numpy((rng.normal(size=(3, 3, c1, c2)) * 0.2).astype(np.float32))
+    xp, wk, plan = prepare_tf32x3(x, wt)
+    assert prepare(x, wt)[1].shape == wk.shape and prepare(x.bfloat16(), wt)[1].dim() == 3
+    c1p = xp.shape[3]
+    assert c1p % 4 == 0 and c1p - c1 < 4 and tuple(wk.shape) == (2, c2, 9, c1p)
+    assert xp.is_contiguous() and wk.is_contiguous() and plan.bm == 128
+    assert torch.equal(xp[..., :c1], x) and not xp[..., c1:].any() and not wk[..., c1:].any()
+    hi, lo = wk[0, ..., :c1], wk[1, ..., :c1]
+    assert not (hi.view(torch.int32) & 0x1FFF).any() and not (lo.view(torch.int32) & 0x1FFF).any()
+    want = wt.permute(3, 0, 1, 2).reshape(c2, 9, c1)  # K-major, K = (tap, c1)
+    assert ((hi - want).abs() <= 2.0 ** -11 * want.abs()).all()
+    assert ((hi + lo - want).abs() <= 2.0 ** -22 * want.abs()).all()
+
+
+def _tf32x3_emulated(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """K1's f32 route in torch: the prepared inputs split into TF32 parts,
+    hi*hi + hi*lo + lo*hi as im2col products in f32 (TF32 products are
+    exact in f32)."""
+    xp, wk, _ = prepare_tf32x3(x, wt)
+    b, h, w, c1p = xp.shape
+    c2 = wk.shape[1]
+    xpad = torch.nn.functional.pad(xp, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xpad[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)], 3)
+    x_hi, x_lo = (c.reshape(b * h * w, 9 * c1p) for c in split_tf32(cols))
+    w_hi, w_lo = (p.reshape(c2, 9 * c1p).T for p in wk)
+    return (x_hi @ w_lo + x_lo @ w_hi + x_hi @ w_hi).reshape(b, h, w, c2)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 16, 24),
+    (1, 64, 32, 8, 8),
+    (2, 96, 96, 32, 32),
+])
+def test_conv3x3_tf32x3_emulation_matches_plain_and_pallas(shape):
+    b, h, w, c1, c2 = shape
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(b, h, w, c1)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, c1, c2)) * 0.1).astype(np.float32)
+    got = _tf32x3_emulated(torch.from_numpy(x), torch.from_numpy(wt)).numpy()
+    np.testing.assert_allclose(got, conv3x3_s1_plain(torch.from_numpy(x),
+                                                     torch.from_numpy(wt)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(jax_conv3x3(jnp.asarray(x), jnp.asarray(wt), rh=8, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
