@@ -67,6 +67,31 @@ source, all at once), then:
    with random weights: the plumbing is what is checked).  The step is
    timed by part (forward, candidate top-k, NMS per backend), and one TTA
    batch of 8 runs.
+7. The training path (no kernel of K1-K3 on it; convs through cuDNN by
+   autograd): the full-width flagship (nc 10, `init_with_priors` from a
+   seeded generator) takes one SGD step at batch 2, 640 px, f32 with TF32
+   off, on the card and on the host CPU from the same weights and batch:
+   loss and items, every gradient and every updated parameter must agree
+   (`TRAIN_F32_TOL`); the same step in bf16 must give the f32 loss within
+   `TRAIN_BF16_LOSS_TOL`, and each conv's and BN's backward in it must
+   match its formula in f32 on the layer's own operands
+   (`TRAIN_BF16_LAYER_TOL`; the whole step's bf16 grads are read, not
+   held: at random init the train-mode forward amplifies rounding), while
+   a control with the BN backward computed in bf16 must fail that check.
+   Then the author's recipe (train.sh:5-9: 1536
+   px, batch 4, Adam, hyp VisDrone, 128 target rows, bf16 over f32 master
+   weights, no remat) through the port's `Trainer` over one epoch of 24
+   in-memory batches of filled rectangles: every loss finite, optimizer
+   steps and EMA updates equal to the reference's cadence.  Train img/s
+   from CUDA events over the 22 batches after 2 warm-up, peak memory, ms
+   per optimizer step at accumulate 1 and 16, one step profiled by group.
+   Last, the EMA checkpoint the Trainer wrote (`last.npz`) is read back
+   with `load_jax_checkpoint`: every tensor must be the EMA's rounded to
+   f16, and the model on it must give the EMA's raw head within
+   `TRAIN_CKPT_HEAD_TOL` (train-mode BN), which a control with the 3x3
+   kernels transposed must exceed.  Then fused and served one batch on
+   "matrix" at a conf below every image's best score: K3 must launch, and
+   the detections be non-empty and equal to the plain "scan" backend's.
 
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
@@ -76,6 +101,7 @@ check fails.  Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1089,6 +1115,452 @@ def evaluate(device, model, imgsz=640, batch=32, tta_batch=8, nc=10, counters=()
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+# the author's recipe (train.sh:5-9): 1536 px, batch 4, Adam, hyp VisDrone
+RECIPE = dict(imgsz=1536, batch=4, adam=True, hyp="visdrone", max_targets=128)
+TRAIN_BATCHES = 24  # one epoch of the in-memory loader
+TRAIN_WARMUP_BATCHES = 2  # before the timed window
+TRAIN_ACCS = (1, 16)  # the ramp's start, and the recipe's accumulate after warmup
+# card (f32, TF32 off) against the host CPU, one step at batch 2, 640 px:
+# loss and items relative; every grad and updated parameter scaled by
+# 1 + max |x| of its tensor
+TRAIN_F32_TOL = {"loss": 1e-4, "grad": 1e-3, "param": 1e-5}
+TRAIN_BF16_LOSS_TOL = 1e-2  # bf16 step's loss against the f32 CPU loss, relative
+# each conv's and BN's backward in the bf16 step against its formula in f32
+# on the layer's own operands, relative L2 over each grad tensor: those it
+# gives in bf16 (within bf16's rounding, 2^-8) and those in f32
+TRAIN_BF16_LAYER_TOL = {"low_grads": 2 ** -8, "f32_grads": 1e-4}
+# the model on the EMA checkpoint (f16) against the live EMA: the raw head
+# (f32, train-mode BN) relative L2 to its spread over images and cells (the
+# head's per-output means are mostly the prior biases)
+TRAIN_CKPT_HEAD_TOL = 0.5
+# kernel time of one step by group, from the profiler's CPU-side ops (device
+# time of the kernels each launched, children included); the rest is "other"
+TRAIN_PROFILE_GROUPS = [
+    ("conv forward", "aten::cudnn_convolution"),
+    ("conv dgrad/wgrad", "aten::convolution_backward"),
+    ("BN train forward", "_BatchNormTrain"),
+    ("BN train backward", "_BatchNormTrainBackward"),
+    ("loss (forward)", "loss"),
+    ("optimizer", "optimizer"),
+    ("EMA", "ema"),
+]
+
+
+def ref_cadence_steps(n_batches, nw, acc):
+    """The reference's stepping rule with the warmup accumulate ramp
+    (train.py:409-412, 448-454): optimizer steps over `n_batches`."""
+    import numpy as np
+
+    pending, steps = 0, 0
+    for ni in range(n_batches):
+        pending += 1
+        if pending >= max(1, min(acc, round(float(np.interp(ni, [0, nw], [1, acc]))))):
+            steps += 1
+            pending = 0
+    return steps
+
+
+def train_batches(n, b, imgsz, nc, max_targets, seed):
+    """`n` loader batches of filled rectangles (up to 64 an image), their
+    boxes as targets padded to `max_targets` rows."""
+    import numpy as np
+
+    from dmayolo_tpu_torch.train.loss import Targets
+    from dmayolo_tpu_torch.train.trainer import Batch
+
+    out = []
+    for i in range(n):
+        imgs, (cls, box, mask) = rectangles(b, imgsz, nc, seed + i, max_objects=64)
+        pad = max_targets - cls.shape[1]
+        out.append(Batch(imgs, Targets(np.pad(cls, ((0, 0), (0, pad))),
+                                       np.pad(box, ((0, 0), (0, pad), (0, 0))),
+                                       np.pad(mask, ((0, 0), (0, pad))))))
+    return out
+
+
+class TimedLoader:
+    """The batches, with a CUDA event recorded when batch `start` is
+    handed out and when the loader runs dry (before the epoch's save);
+    untimed on the CPU."""
+
+    def __init__(self, batches, start, timed=True):
+        import torch
+
+        self.batches, self.start = batches, start
+        self.t0, self.t1 = ((torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True)) if timed else (None, None))
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for i, b in enumerate(self.batches):
+            if i == self.start and self.t0:
+                self.t0.record()
+            yield b
+        if self.t1:
+            self.t1.record()
+
+
+def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False):
+    """One SGD step past warmup (lr and momentum at their base values) of
+    the flagship from `state_dict` on `batch`: (metrics, grads, updated
+    parameters, layer errors), all on the host.  SGD moves each parameter
+    in proportion to its gradient, so the updated parameters compare as
+    the grads do (Adam's first step moves each by +-lr whatever the
+    gradient's size).  With `layers`, every conv's and BN's backward is
+    held against its formula on its own operands (`layer_grad_errs`), and
+    the dtypes of the master weights and their grads are kept; else None."""
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.train.loss import ComputeLoss, Targets
+    from dmayolo_tpu_torch.train.optim import Schedule, param_groups
+    from dmayolo_tpu_torch.train.step import init_train_state, make_train_step
+    from dmayolo_tpu_torch.train.trainer import load_hyp, scale_hyp
+
+    model = DetectionModel(cfg, nc=nc, device=device)
+    model.load_state_dict(state_dict)
+    h = scale_hyp(load_hyp(RECIPE["hyp"]), model.head.nl, nc, batch.images.shape[1])
+    sched = Schedule(h, epochs=1, steps_per_epoch=1, batch_size=batch.images.shape[0])
+    state = init_train_state(model, param_groups(model), h["weight_decay"],
+                             momentum=h["momentum"])
+    step = make_train_step(ComputeLoss(model.head.anchors, h, nc=nc), sched, dtype=dtype)
+    imgs = torch.from_numpy(batch.images).to(device)
+    tg = Targets(*(torch.from_numpy(t).to(device) for t in batch.targets))
+    records, handles = layer_grad_hooks(model) if layers else ({}, [])
+    grads, errs = {}, None
+
+    def pre_step(*_):  # read before the update: CUDA's foreach SGD adds momentum into .grad
+        nonlocal errs
+        grads.update({k: p.grad.float().cpu() for k, p in model.named_parameters()})
+        if layers:
+            with torch.no_grad():
+                errs = layer_grad_errs(records, dtype)
+            errs["master_dtypes"] = sorted({str(t.dtype) for p in model.parameters()
+                                            for t in (p, p.grad)})
+            records.clear()
+
+    state.optimizer.register_step_pre_hook(pre_step)
+    metrics = step(state, imgs, tg, ni=float(sched.nw + 1))
+    for hd in handles:
+        hd.remove()
+    return ({k: float(v) for k, v in metrics.items()}, grads,
+            {k: p.detach().float().cpu() for k, p in model.named_parameters()}, errs)
+
+
+def layer_grad_hooks(model):
+    """Hooks that keep, for every Conv2d and BatchNorm2d of `model`, its
+    input and the grads of its output and input as the backward computes
+    them: ({module: record}, hook handles)."""
+    from dmayolo_tpu_torch.nn.primitives import BatchNorm2d, Conv2d
+
+    records, handles = {}, []
+
+    def fwd(m, inp, out):
+        records[m] = {"x": inp[0]}
+
+    def bwd(m, grad_in, grad_out):
+        records[m].update(dx=grad_in[0], dy=grad_out[0])
+
+    for m in model.modules():
+        if isinstance(m, (Conv2d, BatchNorm2d)):
+            handles += [m.register_forward_hook(fwd), m.register_full_backward_hook(bwd)]
+    return records, handles
+
+
+def layer_grad_errs(records, dtype):
+    """Each recorded layer's backward against its formula in f32 (TF32
+    off) on the layer's own operands, upcast: the largest relative L2 error
+    over the layers of the grads the layers give in the compute `dtype`
+    (conv dgrad, wgrad and bias grad; BN's input grad) and of those they
+    give in f32 (BN's scale and bias grads).  On its own operands a layer
+    is not chaotic, so this sees a wrong backward that the whole step's
+    bf16 grads, far off the f32 ones at random init, would hide."""
+    import torch
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from dmayolo_tpu_torch.nn.primitives import BatchNorm2d
+
+    def rel(got, want):
+        return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+    low, f32 = [], []
+    for m, r in records.items():
+        x, dy = r["x"].to(dtype).float(), r["dy"].float()
+        if isinstance(m, BatchNorm2d):
+            n = x.numel() // x.shape[1]
+            mean = x.mean(dim=(0, 2, 3))
+            var = (x.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0)
+            rstd = torch.rsqrt(var + m.eps)
+            xhat = (x - mean[:, None, None]) * rstd[:, None, None]
+            dbias, dscale = dy.sum(dim=(0, 2, 3)), (dy * xhat).sum(dim=(0, 2, 3))
+            dx = (dy - (dbias / n)[:, None, None] - xhat * (dscale / n)[:, None, None]) \
+                * (rstd * m.weight.detach())[:, None, None]
+            low.append(rel(r["dx"], dx))
+            f32 += [rel(m.weight.grad, dscale), rel(m.bias.grad, dbias)]
+            continue
+        w = m.weight.detach().to(dtype).float()
+        low.append(rel(m.weight.grad, conv2d_weight(x, w.shape, dy, m.s, m.p, m.d, m.g)))
+        if m.bias is not None:
+            low.append(rel(m.bias.grad, dy.sum(dim=(0, 2, 3))))
+        if r["dx"] is not None:
+            low.append(rel(r["dx"], conv2d_input(x.shape, w, dy, m.s, m.p, m.d, m.g)))
+    return {"layers": len(records), "low_grads": max(low), "f32_grads": max(f32)}
+
+
+@contextlib.contextmanager
+def bn_backward_in(dtype):
+    """The control of the bf16 backward check, a known fault: the BN train
+    backward computed in `dtype` instead of f32."""
+    import torch
+
+    from dmayolo_tpu_torch.nn.primitives import _BatchNormTrain
+
+    sound = _BatchNormTrain.backward
+
+    def faulty(ctx, dy, _dmean, _dvar):
+        x, scale, mean, rstd = ctx.saved_tensors
+        g = dy.to(dtype)
+        xhat = (x.to(dtype) - mean.to(dtype)[:, None, None]) * rstd.to(dtype)[:, None, None]
+        dbias, dscale = g.sum(dim=(0, 2, 3)), (g * xhat).sum(dim=(0, 2, 3))
+        n = x.numel() // x.shape[1]
+        dx = (g - (dbias / n)[:, None, None] - xhat * (dscale / n)[:, None, None]) \
+            * (rstd * scale).to(dtype)[:, None, None]
+        return dx.to(x.dtype), dscale.float(), dbias.float(), None
+
+    _BatchNormTrain.backward = staticmethod(faulty)
+    try:
+        yield
+    finally:
+        _BatchNormTrain.backward = sound
+
+
+def scaled_err(got, want):
+    """max over tensors of max |got - want| / (1 + max |want|)."""
+    return max(float((got[k] - w).abs().max()) / (1 + float(w.abs().max()))
+               for k, w in want.items())
+
+
+def profile_train_step(step, groups=TRAIN_PROFILE_GROUPS, top=15):
+    """One train step under torch.profiler: kernel time by group, the
+    device's busy share of the step's wall time, and the CPU-side ops that
+    launched the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in avg
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = {e.key: e.device_time_total / 1e3 for e in avg
+           if e.device_type == torch.autograd.DeviceType.CPU and e.device_time_total > 0}
+    by_group = {name: ops.get(key, 0.0) for name, key in groups}
+    by_group["other"] = device_ms - sum(by_group.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms, "groups_ms": by_group,
+            "top_ops": sorted(ops.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def train(device, cfg=None, nc=10, imgsz=RECIPE["imgsz"], check_imgsz=640,
+          n_batches=TRAIN_BATCHES, accs=TRAIN_ACCS, counters=(), seed=7):
+    """The training path: the card's f32 step against the host's, the bf16
+    step's loss against f32 and its backward layer by layer (with a
+    control fault), the recipe's Trainer over an in-memory epoch (finite
+    losses, the reference cadence, img/s, peak memory), step times at two
+    accumulates, one step profiled, and the EMA checkpoint held against
+    the live EMA and served on "matrix" (K3 counted) equal to "scan".  On
+    the CPU (a rehearsal at a small `cfg` and size) nothing is timed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel, model_config
+    from dmayolo_tpu_torch.train.trainer import Trainer, load_hyp
+    from dmayolo_tpu_torch.utils.weights import load_jax_checkpoint
+
+    cfg = cfg or model_config(FLAGSHIP)
+    on_card = device.type == "cuda"
+    out = {"recipe": dict(RECIPE, imgsz=imgsz), "batches": n_batches}
+
+    # ---- one step, f32 on the card (TF32 off) against f32 on the host CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model = DetectionModel(cfg, nc=nc, device="cpu")
+    sd = cpu_model.init_with_priors(torch.Generator().manual_seed(seed)).state_dict()
+    small = train_batches(1, 2, check_imgsz, nc, RECIPE["max_targets"], seed)[0]
+    t0 = time.perf_counter()
+    want = one_train_step(torch.device("cpu"), cfg, sd, small, torch.float32, nc)
+    out["cpu_step_s"] = time.perf_counter() - t0
+    got = one_train_step(device, cfg, sd, small, torch.float32, nc)
+    f32 = {"loss_rel_err": max(abs(got[0][k] - want[0][k]) / abs(want[0][k]) for k in want[0]),
+           "grad_scaled_err": scaled_err(got[1], want[1]),
+           "param_scaled_err": scaled_err(got[2], want[2]), "metrics_cpu": want[0],
+           "metrics_card": got[0]}
+    out["f32_card_vs_cpu"] = f32
+    check(all(np.isfinite(v) for v in want[0].values()), f"non-finite CPU loss {want[0]}")
+    check(f32["loss_rel_err"] <= TRAIN_F32_TOL["loss"]
+          and f32["grad_scaled_err"] <= TRAIN_F32_TOL["grad"]
+          and f32["param_scaled_err"] <= TRAIN_F32_TOL["param"],
+          f"the f32 train step on the card differs from the CPU's: {f32}")
+    bf16 = one_train_step(device, cfg, sd, small, torch.bfloat16, nc, layers=True)
+    with bn_backward_in(torch.bfloat16):
+        control = one_train_step(device, cfg, sd, small, torch.bfloat16, nc, layers=True)[3]
+    sq = lambda gs: sum(float(g.double().square().sum()) for g in gs)  # noqa: E731
+    b16 = out["bf16_vs_f32"] = {
+        "metrics_bf16": bf16[0],
+        "loss_rel_err": abs(bf16[0]["loss"] - want[0]["loss"]) / want[0]["loss"],
+        # read, not checked: the train-mode forward at random init amplifies
+        # bf16 rounding layer by layer, so the whole step's grads are far
+        # off the f32 ones whatever the backward does
+        "grad_rel_l2": (sq(bf16[1][k] - g for k, g in want[1].items()) / sq(want[1].values()))
+        ** 0.5,
+        "layers": bf16[3], "control_bn_backward_in_bf16": control}
+    check(b16["loss_rel_err"] <= TRAIN_BF16_LOSS_TOL,
+          f"the bf16 step's loss is off the f32 one: {b16}")
+    check(bf16[3]["master_dtypes"] == ["torch.float32"]
+          and all(bf16[3][k] <= tol for k, tol in TRAIN_BF16_LAYER_TOL.items()),
+          f"a layer's bf16 backward is off its formula: {b16}")
+    check(any(control[k] > tol for k, tol in TRAIN_BF16_LAYER_TOL.items()),
+          f"the bf16 backward check misses the control's fault: {b16}")
+    del cpu_model, sd, want, got, bf16
+
+    # ---- the recipe: Trainer over an in-memory epoch, bf16, Adam
+    b = RECIPE["batch"]
+    batches = train_batches(n_batches, b, imgsz, nc, RECIPE["max_targets"], seed + 1)
+    loader = TimedLoader(batches, TRAIN_WARMUP_BATCHES, timed=on_card)
+    run_dir = ROOT / "build" / "train_smoke"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, loader, load_hyp(RECIPE["hyp"]), nc=nc, epochs=1,
+                     batch_size=b, img_size=imgsz, adam=RECIPE["adam"], out_dir=str(run_dir),
+                     dtype=torch.bfloat16, seed=seed, device=device)
+        losses, step_for = [], tr.get_step
+
+        def recorded(acc):  # the Trainer's steps, each one's metrics kept
+            step = step_for(acc)
+
+            def run(*args, **kw):
+                losses.append(step(*args, **kw))
+                return losses[-1]
+            return run
+
+        tr.get_step = recorded
+        state = tr.train(log_every=n_batches)
+        tr.get_step = step_for
+        # the EMA's and the model's tensors as `last.npz` holds them (the
+        # timed steps below advance the state)
+        ema_sd = {k: v.clone() for k, v in state.ema.state_dict().items()}
+        model_sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        out["trainer_s"] = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.synchronize()
+            out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            window_ms = loader.t0.elapsed_time(loader.t1)
+            n_img = (n_batches - TRAIN_WARMUP_BATCHES) * b
+            out.update(window_batches=n_batches - TRAIN_WARMUP_BATCHES, window_ms=window_ms,
+                       img_per_s=n_img / window_ms * 1e3, card=card_state())
+        out["losses"] = [{k: float(v) for k, v in m.items()} for m in losses]
+        check(all(np.isfinite(v) for m in out["losses"] for v in m.values()),
+              "a non-finite training loss")
+        want_steps = ref_cadence_steps(n_batches, tr.sched.nw, tr.accumulate)
+        out.update(accumulate=tr.accumulate, nw=tr.sched.nw, opt_steps=state.step,
+                   ema_updates=state.ema_updates, ref_steps=want_steps)
+        check(state.step == state.ema_updates == want_steps == len(losses),
+              f"optimizer steps {state.step} / EMA updates {state.ema_updates} / "
+              f"reference cadence {want_steps}")
+
+        # ---- ms per optimizer step at two accumulates, and one profiled step
+        if on_card:
+            imgs, tg = tr.to_device(batches[:max(accs)])
+            out["step_ms"] = {}
+            for acc in accs:
+                n = acc * b
+                step = tr.get_step(acc)
+                out["step_ms"][acc] = cuda_ms(
+                    lambda: step(tr.state, imgs[:n], type(tg)(*(t[:n] for t in tg))), 2)
+            step1 = tr.get_step(1)
+            out["profile"] = profile_train_step(
+                lambda: step1(tr.state, imgs[:b], type(tg)(*(t[:b] for t in tg))))
+            del imgs, tg
+        del tr, state
+
+        # ---- the EMA checkpoint (`last.npz`, written by save_checkpoint),
+        # read back: the EMA's tensors rounded to f16, exactly; the model on
+        # them gives the EMA's head within that rounding, a 3x3 layout fault
+        # does not.  Both heads in train mode: at these few steps the
+        # running statistics are far from the batch's, and in eval mode the
+        # features fade to a head of nearly its biases alone (the statistics
+        # are held by the exact check).  Then fused and served one batch on
+        # "matrix" (K3), at a conf below every image's best score, equal to
+        # the plain "scan"
+        sd, meta = load_jax_checkpoint(run_dir / "last.npz", device=device)
+        f16 = lambda t: t.half().float()  # noqa: E731
+        served = DetectionModel(cfg, nc=nc, device=device).train()
+        x, _ = rectangles(8, check_imgsz, nc, seed + 2)
+        xf = torch.from_numpy(x).to(device).float() / 255.0
+
+        def head(state_dict):  # raw head, f32, unfused, BN on the batch's moments
+            served.load_state_dict(state_dict, strict=True)
+            with torch.inference_mode():
+                return served(xf, torch.float32)
+
+        ema_head = head(ema_sd)
+
+        def head_err(state_dict):  # relative L2 to the head's spread over images and cells
+            return max(float((g - w).norm() / (w - w.mean(dim=(0, 1, 2))).norm())
+                       for g, w in zip(head(state_dict), ema_head))
+
+        flipped = {k: v.transpose(2, 3) if v.dim() == 4 and v.shape[2] == 3 else v
+                   for k, v in sd.items()}
+        ck = out["checkpoint"] = {
+            "tensors": len(sd),
+            "not_ema_f16": sum(not torch.equal(sd[k], f16(v)) for k, v in ema_sd.items()),
+            # read: how many tensors tell the EMA from the model in f16 here
+            "model_differs_from_ema_f16": sum(not torch.equal(f16(v), f16(ema_sd[k]))
+                                              for k, v in model_sd.items()),
+            "control_3x3_transposed_head_err": head_err(flipped),
+            "head_err": head_err(sd), "meta_epoch": meta["epoch"]}
+        check(not ck["not_ema_f16"] and ck["head_err"] <= TRAIN_CKPT_HEAD_TOL
+              < ck["control_3x3_transposed_head_err"],
+              f"the checkpoint does not hold the EMA model: {ck}")
+        del ema_head, ema_sd, model_sd, flipped
+        served.load_state_dict(sd, strict=True)
+        served.eval().fuse()
+        dtype = torch.bfloat16 if on_card else torch.float32
+        with torch.inference_mode():
+            raw = served.apply(xf.to(dtype), dtype=dtype, fused=True)
+            conf = min(0.25, 0.5 * float(served.decode_parts(raw)[1].amax(1).min()))
+            for c in counters:
+                c.launches = 0
+            dets, valid = served.serve_detections(raw, conf_thres=conf, backend="matrix")
+            launches = {c.__name__: c.launches for c in counters}
+            want_dets, want_valid = served.serve_detections(raw, conf_thres=conf,
+                                                            backend="scan")
+        out["checkpoint_serve"] = {"launches": launches, "conf_thres": conf,
+                                   "detections": int(valid.sum())}
+        check(bool(torch.isfinite(dets).all()) and dets.shape == (8, 300, 6)
+              and int(valid.sum()) > 0 and torch.equal(valid, want_valid)
+              and torch.equal(dets, want_dets),
+              f"bad detections from the trained checkpoint: {out['checkpoint_serve']}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
 
@@ -1201,6 +1673,42 @@ def main():
     for name, res in ev["backends"].items():
         print(f"eval bs{ev['batch']} 640px bf16 max_nms 30000 NMS '{name}': "
               f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch) on {smi}")
+    del model
+    torch.cuda.empty_cache()
+    report["train"] = tr = train(device, counters=counters)
+    print("train: " + json.dumps(tr), flush=True)
+    check(tr["checkpoint_serve"]["launches"]["fixpoint_keep"] > 0,
+          "K3 did not launch serving the trained checkpoint on 'matrix'")
+    f32 = tr["f32_card_vs_cpu"]
+    print(f"train f32 step, card (TF32 off) vs CPU, bs2 640px: loss rel err "
+          f"{f32['loss_rel_err']:.2e} (tol {TRAIN_F32_TOL['loss']}), grads scaled err "
+          f"{f32['grad_scaled_err']:.2e} (tol {TRAIN_F32_TOL['grad']}), updated params "
+          f"{f32['param_scaled_err']:.2e} (tol {TRAIN_F32_TOL['param']}); bf16 loss vs f32 "
+          f"{tr['bf16_vs_f32']['loss_rel_err']:.2e} (tol {TRAIN_BF16_LOSS_TOL})")
+    print(f"train {RECIPE['imgsz']}px bs{RECIPE['batch']} Adam bf16: {tr['img_per_s']:.1f} img/s "
+          f"over {tr['window_batches']} loader batches ({tr['opt_steps']} optimizer steps in the "
+          f"epoch, accumulate ramp from 1 toward {tr['accumulate']}); ms per optimizer step: "
+          + ", ".join(f"accumulate {a} {ms:.1f}" for a, ms in tr["step_ms"].items())
+          + f"; peak memory {tr['peak_mem_gib']:.2f} GiB; on {smi}", flush=True)
+    b16, ck = tr["bf16_vs_f32"], tr["checkpoint"]
+    print(f"train bf16 step, each of {b16['layers']['layers']} convs' and BNs' backward vs its "
+          f"f32 formula on its own operands, rel L2: bf16 grads {b16['layers']['low_grads']:.2e} "
+          f"(tol {TRAIN_BF16_LAYER_TOL['low_grads']:.2e}), f32 grads "
+          f"{b16['layers']['f32_grads']:.2e} (tol {TRAIN_BF16_LAYER_TOL['f32_grads']}); control "
+          f"(BN backward in bf16): {b16['control_bn_backward_in_bf16']['low_grads']:.2e}, "
+          f"{b16['control_bn_backward_in_bf16']['f32_grads']:.2e}; the whole step's grads vs "
+          f"f32, rel L2 {b16['grad_rel_l2']:.3f} (read)")
+    print(f"train checkpoint: {ck['tensors']} tensors, the EMA's in f16 exactly "
+          f"({ck['model_differs_from_ema_f16']} differ from the model's); head rel err "
+          f"{ck['head_err']:.3e} (tol {TRAIN_CKPT_HEAD_TOL}), control (3x3 kernels transposed) "
+          f"{ck['control_3x3_transposed_head_err']:.3f}; served "
+          f"{tr['checkpoint_serve']['detections']} detections at conf "
+          f"{tr['checkpoint_serve']['conf_thres']:.3g} on 'matrix', equal to 'scan'", flush=True)
+    prof = tr["profile"]
+    print(f"train step profile (accumulate 1, bs{RECIPE['batch']} {RECIPE['imgsz']}px), ms: "
+          + ", ".join(f"{g} {ms:.2f}" for g, ms in prof["groups_ms"].items())
+          + f"; device busy {prof['device_busy_share']:.3f} of {prof['wall_ms']:.1f} ms wall; "
+          f"on {smi}", flush=True)
 
     # K1's headline: one bf16 call at each of the four shapes, summed; the
     # bound of that sum is the larger of its summed byte and operation
@@ -1218,6 +1726,7 @@ def main():
     paths = {f"serving {r['backend']}": r["launches"]
              for r in (srv["batcher_pallas"], srv["batcher_default"])}
     paths.update({f"eval {b}": r["launches"] for b, r in ev["backends"].items()})
+    paths["trained checkpoint served, matrix"] = tr["checkpoint_serve"]["launches"]
 
     def launches(counter):
         by_path = {p: n[counter.__name__] for p, n in paths.items() if n[counter.__name__]}

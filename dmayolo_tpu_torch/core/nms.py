@@ -24,13 +24,14 @@ from .boxes import xywh2xyxy
 from .fixpoint_kernel import (MAX_K, _fixpoint_keep, _fixpoint_keep_boxes,  # noqa: F401
                               _keep_to_idx, _pairwise_iou, _suppression_matrix,
                               fixpoint_keep, fixpoint_keep_blocked)
+from .iou import bbox_iou
 from .nms_kernel import NEG_INF, nms_greedy, nms_greedy_plain
 
 MAX_WH = 4096.0  # class-offset stride, the reference's max_wh
 _MERGE_GATE_MAX = 3000  # the reference's merge-NMS candidate-count gate
 
 __all__ = ["MAX_WH", "NEG_INF", "batched_nms", "nms_from_topk", "nms_matrix",
-           "nms_matrix_blocked", "nms_parts", "nms_single"]
+           "nms_matrix_blocked", "nms_parts", "nms_single", "nms_variant_single"]
 
 
 def nms_single(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
@@ -43,6 +44,30 @@ def nms_single(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
     keep_idx, keep_valid = nms_greedy_plain(boxes[None], scores[None],
                                             iou_thres, max_det)
     return keep_idx[0], keep_valid[0]
+
+
+def nms_variant_single(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                       max_det: int = 300, class_nms: str = "SIoU"):
+    """Greedy NMS on one image with a selectable IoU variant of `bbox_iou`
+    (IoU, GIoU, DIoU, CIoU, SIoU or EIoU): boxes (K, 4) xyxy, scores (K,)
+    with NEG_INF for dropped candidates -> (keep_idx (max_det,) int32,
+    keep_valid (max_det,)).  A plain loop, as the JAX `lax.scan`: each
+    step picks the first highest live score and suppresses the candidates
+    whose IoU with it exceeds `iou_thres`; an invalid step keeps its pick's
+    index with `keep_valid` False."""
+    key = class_nms.lower()
+    flags = {v: key == v.lower() for v in ("GIoU", "DIoU", "CIoU", "SIoU", "EIoU")}
+    live = scores.clone()
+    keep_idx = torch.zeros(max_det, dtype=torch.int32, device=scores.device)
+    keep_valid = torch.zeros(max_det, dtype=torch.bool, device=scores.device)
+    for t in range(max_det):
+        best = torch.argmax(live)
+        valid = live[best] > NEG_INF / 2
+        suppress = (bbox_iou(boxes[best][None], boxes, **flags) > iou_thres) & valid
+        suppress[best] = valid
+        live = torch.where(suppress, torch.full_like(live, NEG_INF), live)
+        keep_idx[t], keep_valid[t] = best, valid
+    return keep_idx, keep_valid
 
 
 def _top_k_candidates(scores: torch.Tensor, k: int):
@@ -214,7 +239,8 @@ def batched_nms(prediction: torch.Tensor, conf_thres: float = 0.25,
         w = overlap.float() * top_scores.clamp(min=0.0)[:, None, :]
         merged = torch.einsum("bdk,bkc->bdc", w, top_boxes.float()) / (
             w.sum(-1, keepdim=True) + 1e-12)
-        out_boxes = torch.where(gate[:, None, None], merged.to(out_boxes.dtype), out_boxes)
+        # the dets come back in f32, as JAX's `jnp.where` promotes them
+        out_boxes = torch.where(gate[:, None, None], merged, out_boxes.to(merged.dtype))
         keep_valid = torch.where(gate[:, None], keep_valid & (overlap.sum(-1) > 1),
                                  keep_valid)
     dets = _dets(out_boxes, out_scores, out_cls, keep_valid)

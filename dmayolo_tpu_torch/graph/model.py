@@ -68,9 +68,14 @@ class DetectionModel(nn.Module):
 
     Takes images (B, H, W, 3) and returns the raw head, a list of
     (B, ny, nx, na, no).  Built on `device` (None means CUDA, and raises
-    when CUDA is missing) with deterministic weights from seed 0; call
-    `init_with_priors(generator)` for seeded weights with the head priors,
-    or `load_state_dict` (see `utils/weights.py`)."""
+    when CUDA is missing) with deterministic weights from seed 0, in eval
+    mode; call `init_with_priors(generator)` for seeded weights with the
+    head priors, or `load_state_dict` (see `utils/weights.py`).
+
+    `model.train()` is the JAX `apply(train=True)`: every BN normalises
+    with its batch moments and updates its running statistics in place,
+    so the JAX `(raw, new_stats)` pair is the raw head and the module's
+    buffers.  `model.eval()` switches back."""
 
     def __init__(self, cfg: Union[str, Path, dict], ch: int = 3,
                  nc: Optional[int] = None, device=None):
@@ -89,6 +94,7 @@ class DetectionModel(nn.Module):
 
         with torch.device("meta"):
             self.model = nn.ModuleList(self._parse())
+            self.eval()
             # stride probe: shapes of the raw head for an s x s input
             s = STRIDE_PROBE
             shapes = [o.shape for o in self.forward(

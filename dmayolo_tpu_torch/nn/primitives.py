@@ -1,4 +1,4 @@
-"""Leaf layers: conv, eval batchnorm, activations, pooling, resize.
+"""Leaf layers: conv, batchnorm, activations, pooling, resize.
 
 Port of `dmayolo_tpu/nn/primitives.py`.  Feature maps are NCHW tensors in
 `channels_last` memory (the JAX package's NHWC, seen through a permute);
@@ -75,15 +75,52 @@ class Conv2d(nn.Module):
         return y
 
 
-class BatchNorm2d(nn.Module):
-    """Inference BatchNorm, eps 1e-3 (the value the reference forces on
-    every BN).  The per-channel affine is computed in f32 and applied in
-    the activation dtype, as the JAX eval path does.  Only the two running
-    buffers are kept: the port does not train yet."""
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BN over (N, H, W) per channel, as the JAX package computes
+    it: moments in f32 as E[x^2] - E[x]^2 clamped at 0, output
+    `((x - mean) * rsqrt(var + eps) * scale + bias)` in f32, cast to the
+    input dtype.  The backward is that formula's derivative; only the
+    input (in its own dtype) and two f32 vectors are kept for it."""
 
-    def __init__(self, c, eps: float = 1e-3):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0)
+        rstd = torch.rsqrt(var + eps)
+        inv = rstd * scale
+        y = ((xf - mean[:, None, None]) * inv[:, None, None] + bias[:, None, None]).to(x.dtype)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, rstd = ctx.saved_tensors
+        g = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        dbias = g.sum(dim=(0, 2, 3))
+        dscale = (g * xhat).sum(dim=(0, 2, 3))
+        n = x.numel() // x.shape[1]
+        dx = (g - (dbias / n)[:, None, None] - xhat * (dscale / n)[:, None, None]) \
+            * (rstd * scale)[:, None, None]
+        return dx.to(x.dtype), dscale, dbias, None
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm, eps 1e-3 and momentum 0.03 (the values the reference
+    forces on every BN).
+
+    Eval mode (`module.eval()`): the per-channel affine is computed in f32
+    and applied in the activation dtype, as the JAX eval path does.  Train
+    mode (`module.train()`, the JAX `ctx.train`): batch moments in f32
+    (`_BatchNormTrain`), and the running mean and the unbiased variance
+    (factor n / (n - 1)) updated in place with momentum 0.03."""
+
+    def __init__(self, c, eps: float = 1e-3, momentum: float = 0.03):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -97,6 +134,14 @@ class BatchNorm2d(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x, dtype):
+        if self.training:
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+            return y
         a = torch.rsqrt(self.running_var + self.eps) * self.weight
         b = self.bias - self.running_mean * a
         return x * a.to(x.dtype)[None, :, None, None] + b.to(x.dtype)[None, :, None, None]

@@ -1,4 +1,4 @@
-"""Weights from the JAX package into the port.
+"""Weights between the JAX package and the port.
 
 The JAX package keys every leaf by a path tuple that mirrors a torch module
 path (`("model", "3", "cv1", "conv", "kernel")`), and the port's module
@@ -6,30 +6,34 @@ attribute names equal those path parts, so the map is mechanical:
 
     JAX leaf          port key           layout
     ----------------  -----------------  ---------------
-    kernel (4-D)      .weight            HWIO -> OIHW
-    scale             .weight            as is
+    kernel (4-D)      .weight (Conv2d)   HWIO <-> OIHW
+    scale             .weight (BN)       as is
     bias              .bias              as is
     mean / var        .running_mean/var  as is
 
-`load_jax_checkpoint` reads the JAX `.npz` checkpoint format (path parts
-joined by "|", one prefix per tree), as `dmayolo_tpu/utils/checkpoint.py`
-writes it.
+`state_dict_from_jax` goes one way, `jax_from_state_dict` the other (a
+`.weight` is a kernel or a scale by the type of its module).
+`load_jax_checkpoint` reads the JAX `.npz` checkpoint format
+(`utils/checkpoint.py`).
 """
 from __future__ import annotations
 
-import json
-from pathlib import Path
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from ..nn.primitives import BatchNorm2d, Conv2d
+from .checkpoint import load_checkpoint
 from .device import resolve_device
-
-SEP = "|"  # path-component separator inside npz keys
 
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
+# port leaf -> (JAX tree, JAX leaf), by module type
+_TO_JAX = {Conv2d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+           BatchNorm2d: {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                         "running_mean": ("stats", "mean"), "running_var": ("stats", "var")}}
 
 
 def _port_key(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -41,6 +45,38 @@ def _port_key(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     if leaf not in _LEAF:
         raise ValueError(f"{'.'.join(path)}: no port counterpart for leaf '{leaf}'")
     return f"{prefix}{_LEAF[leaf]}", arr
+
+
+def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """Every `state_dict` key of `model` -> (JAX tree "params" or "stats",
+    JAX path).  Raises for a tensor with no JAX counterpart."""
+    types = {name: type(m) for name, m in model.named_modules()}
+    out = {}
+    for key in model.state_dict():
+        prefix, _, leaf = key.rpartition(".")
+        tree, jleaf = _TO_JAX.get(types.get(prefix), {}).get(leaf, (None, None))
+        if tree is None:
+            raise ValueError(f"{key}: no JAX counterpart")
+        out[key] = (tree, (tuple(prefix.split(".")) if prefix else ()) + (jleaf,))
+    return out
+
+
+def to_jax_layout(path: Tuple[str, ...], t: torch.Tensor) -> np.ndarray:
+    """A port tensor as the JAX leaf at `path` holds it (f32 on the host;
+    conv kernels OIHW -> HWIO)."""
+    arr = t.detach().float().cpu().numpy()
+    return np.ascontiguousarray(arr.transpose(2, 3, 1, 0)) if path[-1] == "kernel" else arr
+
+
+def jax_from_state_dict(model: nn.Module, state_dict: Optional[Mapping] = None):
+    """The port's `state_dict` (of `model`, or `state_dict` shaped like it,
+    such as the EMA copy's) -> JAX (params, stats) flat dicts of numpy
+    arrays keyed by path tuples."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    trees = {"params": {}, "stats": {}}
+    for key, (tree, path) in jax_paths(model).items():
+        trees[tree][path] = to_jax_layout(path, sd[key])
+    return trees["params"], trees["stats"]
 
 
 def state_dict_from_jax(params: Mapping, stats: Mapping,
@@ -63,23 +99,8 @@ def load_jax_checkpoint(path, device=None) -> Tuple[Dict[str, torch.Tensor], dic
     Prefers the EMA trees when present (as the JAX CLIs do) and upcasts
     f16 leaves to f32."""
     dev = resolve_device(device)
-    path = Path(path)
-    if path.suffix != ".npz":
-        path = path.with_suffix(".npz")
-    with np.load(path, allow_pickle=False) as z:
-        meta = (json.loads(bytes(z["__meta__"]).decode())
-                if "__meta__" in z.files else {})
-        trees = {}
-        for prefix in ("params", "stats", "ema_params", "ema_stats"):
-            pre = prefix + SEP
-            tree = {}
-            for k in z.files:
-                if k.startswith(pre):
-                    a = z[k]
-                    tree[tuple(k[len(pre):].split(SEP))] = (
-                        a.astype(np.float32) if a.dtype == np.float16 else a)
-            trees[prefix] = tree
-    params = trees["ema_params"] or trees["params"]
+    trees, meta = load_checkpoint(path)
+    params = trees.get("ema_params") or trees.get("params", {})
     # a fully fused checkpoint may hold no BN statistics at all
-    stats = trees["ema_stats"] or trees["stats"]
+    stats = trees.get("ema_stats") or trees.get("stats", {})
     return state_dict_from_jax(params, stats, device=dev), meta

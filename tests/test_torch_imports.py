@@ -30,7 +30,8 @@ def test_no_jax_import(path):
 
 
 def test_port_has_its_own_configs():
-    cfgs = ROOT / "dmayolo_tpu_torch" / "configs" / "models"
-    for name in ("ablation-ca-scconv-sppfcspc", "yolov5n", "yolov5s"):
-        ours = (cfgs / f"{name}.yaml").read_bytes()
-        assert ours == (ROOT / "dmayolo_tpu" / "configs" / "models" / f"{name}.yaml").read_bytes()
+    for kind, names in (("models", ("ablation-ca-scconv-sppfcspc", "yolov5n", "yolov5s")),
+                        ("hyp", ("scratch", "visdrone"))):
+        for name in names:
+            ours = (ROOT / "dmayolo_tpu_torch" / "configs" / kind / f"{name}.yaml").read_bytes()
+            assert ours == (ROOT / "dmayolo_tpu" / "configs" / kind / f"{name}.yaml").read_bytes()

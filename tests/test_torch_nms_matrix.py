@@ -14,7 +14,8 @@ equal to the JAX functions, in every slot.  K2 streaming's plain path
 (boxes within 1e-5, and 1e-6 relative for merged boxes, whose weighted
 means sum in another order; scores and classes exact), the same source
 rows.  The invalid slots may differ: the port's "scan" fills them with
-the unpicked indices, as K2 does.
+the unpicked indices, as K2 does.  At bf16 with `merge`: f32 dets, the
+same detection set, boxes within 1e-3 px.
 
 The CUDA kernels are held against these plain versions on the card by
 chip_smoke.py.
@@ -242,3 +243,32 @@ def test_batched_nms_backends_agree():
                              backend=b) for b in ("pallas", "scan", "matrix")]
     for d, v in outs[1:]:
         assert torch.equal(v, outs[0][1]) and torch.equal(d, outs[0][0])
+
+
+def test_batched_nms_merge_bf16_matches_jax():
+    """merge=True on bf16 predictions: the dets come back f32 with the
+    merged boxes as JAX computes them (within 1e-3 px), the same detection
+    set.  Every candidate's bf16 score (obj 1.0 times its one class) is
+    distinct, so no tie decides which candidates NMS keeps."""
+    rng = np.random.default_rng(11)
+    b, n, nc = 2, 300, 4
+    grid = torch.arange(0.125, 1.0, 2 ** -9).to(torch.bfloat16).unique().float().numpy()
+    pred = np.zeros((b, n, 5 + nc), np.float32)
+    pred[..., :2] = rng.uniform(100, 400, (b, n, 2))
+    pred[..., 2:4] = rng.uniform(20, 80, (b, n, 2))
+    pred[..., 4] = 1.0
+    for i in range(b):
+        pred[i, np.arange(n), 5 + rng.integers(0, nc, n)] = rng.choice(grid, n, replace=False)
+    pred = torch.from_numpy(pred).to(torch.bfloat16)
+    common = dict(conf_thres=0.25, iou_thres=0.45, max_det=1000, merge=True, backend="scan")
+    jd, jv = (np.asarray(a) for a in jnms.batched_nms(
+        jnp.asarray(pred.float().numpy()).astype(jnp.bfloat16), **common))
+    td, tv = tnms.batched_nms(pred, **common)
+    assert jd.dtype == np.float32 and td.dtype == torch.float32
+    td, tv = td.numpy(), tv.numpy()
+    for i in range(b):
+        want = jd[i][jv[i]][np.argsort(-jd[i][jv[i]][:, 4], kind="stable")]
+        got = td[i][tv[i]][np.argsort(-td[i][tv[i]][:, 4], kind="stable")]
+        assert len(want) > 10 and got.shape == want.shape
+        np.testing.assert_array_equal(got[:, 4:], want[:, 4:])
+        np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
