@@ -31,6 +31,15 @@ from .tta import forward_augment
 IOUV = np.linspace(0.5, 0.95, 10)  # the 10 IoU thresholds of mAP@.5:.95
 
 
+def with_obj_column(dec: torch.Tensor, nc: int) -> torch.Tensor:
+    """A TDetect decode (B, N, 4 + nc) with an objectness column of ones
+    inserted after the box, the (B, N, 5 + nc) layout NMS reads; a Detect
+    decode as it is."""
+    if dec.shape[-1] != nc + 4:
+        return dec
+    return torch.cat([dec[..., :4], torch.ones_like(dec[..., :1]), dec[..., 4:]], -1)
+
+
 @dataclass
 class ValResult:
     mp: float = 0.0
@@ -79,6 +88,7 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
                 dec = forward_augment(model, xf, dtype=dtype, fused=fused)
             else:
                 dec = model.decode(model.apply(xf, dtype=dtype, fused=fused))
+            dec = with_obj_column(dec, model.nc)
             if hybrid:
                 t_cls, t_box, t_mask = (torch.as_tensor(t, device=device) for t in tgt)
                 h, w = x.shape[1], x.shape[2]

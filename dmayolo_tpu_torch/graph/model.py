@@ -16,9 +16,9 @@ import torch
 import torch.nn as nn
 import yaml
 
-from ..core.nms import nms_parts
+from ..core.nms import NEG_INF, _top_k_candidates, nms_from_topk, nms_parts
 from ..nn.fuse import fuse_model
-from ..nn.heads import Detect
+from ..nn.heads import Detect, TDetect
 from ..nn.primitives import BatchNorm2d, Conv2d, Sequential
 from ..utils.device import resolve_device
 from .registry import INSERT_N, REGISTRY, WIDTH_GAIN
@@ -64,13 +64,16 @@ def check_anchor_order(anchors: np.ndarray, strides) -> np.ndarray:
 
 
 class DetectionModel(nn.Module):
-    """YAML-driven detector: backbone + head + Detect.
+    """YAML-driven detector: backbone + head + Detect or TDetect.
 
     Takes images (B, H, W, 3) and returns the raw head, a list of
-    (B, ny, nx, na, no).  Built on `device` (None means CUDA, and raises
-    when CUDA is missing) with deterministic weights from seed 0, in eval
-    mode; call `init_with_priors(generator)` for seeded weights with the
-    head priors, or `load_state_dict` (see `utils/weights.py`).
+    (B, ny, nx, na, no) for Detect, (B, ny, nx, 4 * 16 + nc) for TDetect.
+    Built on `device` (None means CUDA, and raises when CUDA is missing)
+    with deterministic weights from seed 0, in eval mode; call
+    `init_with_priors(generator)` for seeded weights with the head priors,
+    or `load_state_dict` (see `utils/weights.py`).  `anchors` overrides the
+    yaml's: pairs per level, or a number n for round(n) placeholder anchors
+    a level, which autoanchor replaces (`train/autoanchor.py`).
 
     `model.train()` is the JAX `apply(train=True)`: every BN normalises
     with its batch moments and updates its running statistics in place,
@@ -78,7 +81,7 @@ class DetectionModel(nn.Module):
     buffers.  `model.eval()` switches back."""
 
     def __init__(self, cfg: Union[str, Path, dict], ch: int = 3,
-                 nc: Optional[int] = None, device=None):
+                 nc: Optional[int] = None, anchors=None, device=None):
         super().__init__()
         dev = resolve_device(device)
         if isinstance(cfg, (str, Path)):
@@ -89,8 +92,12 @@ class DetectionModel(nn.Module):
         self.ch = self.yaml.get("ch", ch)
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
+        if anchors:
+            self.yaml["anchors"] = (round(anchors) if isinstance(anchors, (int, float))
+                                    else anchors)
         self.nc = self.yaml["nc"]
         self.fused = False
+        self.lazy_tails = 0  # serving tails that took the lazy route
 
         with torch.device("meta"):
             self.model = nn.ModuleList(self._parse())
@@ -100,11 +107,12 @@ class DetectionModel(nn.Module):
             shapes = [o.shape for o in self.forward(
                 torch.empty(1, s, s, self.ch), torch.float32)]
         head = self.head
-        if isinstance(head, Detect):
+        if isinstance(head, (Detect, TDetect)):
             self.stride = np.asarray([s / sh[1] for sh in shapes], np.float32)
             head.stride = self.stride
-            anc = head.anchors / self.stride.reshape(-1, 1, 1)
-            head.anchors = check_anchor_order(anc, self.stride)
+            if isinstance(head, Detect):
+                anc = head.anchors / self.stride.reshape(-1, 1, 1)
+                head.anchors = check_anchor_order(anc, self.stride)
         else:
             self.stride = np.asarray([32.0], np.float32)
         self.to_empty(device=dev)
@@ -147,6 +155,10 @@ class DetectionModel(nn.Module):
                 args.append([ch[x] for x in f])
                 if isinstance(args[1], int):  # 'anchors: N' auto-anchor mode
                     args[1] = [list(range(args[1] * 2))] * len(f)
+            elif name == "TDetect":
+                args.append([ch[x] for x in f])
+            elif name == "space_to_depth":
+                c2 = 4 * ch[f]
             else:
                 c2 = ch[f] if isinstance(f, int) else ch[f[0]]
             mod = Sequential(*[cls(*args) for _ in range(n)]) if n > 1 else cls(*args)
@@ -192,7 +204,7 @@ class DetectionModel(nn.Module):
         """Fresh weights from `generator` plus the detection-head bias
         priors; returns self."""
         self.reset_parameters(generator)
-        if isinstance(self.head, Detect):
+        if isinstance(self.head, (Detect, TDetect)):
             self.head.bias_init()
         return self
 
@@ -208,17 +220,47 @@ class DetectionModel(nn.Module):
         return self.head.decode(raw)
 
     def decode_parts(self, raw, class_mask=None, ref_order: bool = True):
+        """Serving decode (see each head's `decode_parts`); TDetect's
+        candidates are in their one (y, x) order whatever `ref_order`."""
+        if isinstance(self.head, TDetect):
+            return self.head.decode_parts(raw, class_mask)
         return self.head.decode_parts(raw, class_mask, ref_order=ref_order)
+
+    def decode_topk(self, raw, k: int = 512, conf_thres: float = 0.25, class_mask=None):
+        """Lazy serving decode of a TDetect head: the conf gate and top-k on
+        the best-class scores, then the DFL boxes of the K survivors only
+        (`decode_scores`, `decode_at`).  Equal to `decode_parts` followed by
+        `nms_parts`' candidate selection; feed it to `nms_from_topk`.
+        Returns (top_boxes (B, K, 4), top_scores (B, K), top_cls (B, K))."""
+        scores = self.head.decode_scores(raw, class_mask)
+        cand = torch.where(scores > conf_thres, scores, torch.full_like(scores, NEG_INF))
+        top_scores, top_idx = _top_k_candidates(cand, min(k, cand.shape[1]))
+        boxes, cls = self.head.decode_at(raw, top_idx)
+        return boxes, top_scores, cls
 
     def serve_detections(self, raw, conf_thres: float = 0.25,
                          iou_thres: float = 0.45, max_det: int = 300,
                          max_nms: int = 512, backend: str = "matrix",
                          agnostic: bool = False, class_mask=None,
                          ref_order: bool = True):
-        """Raw head -> (dets (B, max_det, 6), valid (B, max_det)): decode
-        in reference order, top-`max_nms` candidates, greedy class-offset
-        NMS.  backend "matrix" goes through the CUDA kernel K3, "pallas"
-        through K2 (see core/nms.py)."""
+        """Raw head -> (dets (B, max_det, 6), valid (B, max_det)): decode,
+        top-`max_nms` candidates, greedy class-offset NMS.  backend "matrix"
+        goes through the CUDA kernel K3, "pallas" through K2 (see
+        core/nms.py).
+
+        A TDetect head whose candidates number at least 4 * `max_nms` takes
+        the lazy route (`decode_topk`, then `nms_from_topk`: boxes decoded
+        for the top-k cells only, counted in `lazy_tails`); every other head
+        the eager one (`decode_parts`, then `nms_parts`).  Both give the
+        same detections, as in the JAX package."""
+        if isinstance(self.head, TDetect):
+            n_cand = sum(x.shape[1] * x.shape[2] for x in raw)
+            if max_nms * 4 <= n_cand:
+                self.lazy_tails += 1
+                tb, ts, tc = self.decode_topk(raw, k=max_nms, conf_thres=conf_thres,
+                                              class_mask=class_mask)
+                return nms_from_topk(tb, ts, tc, iou_thres=iou_thres, agnostic=agnostic,
+                                     max_det=max_det, backend=backend)
         boxes, scores, cls = self.decode_parts(raw, class_mask=class_mask,
                                                ref_order=ref_order)
         return nms_parts(boxes, scores, cls, conf_thres=conf_thres,

@@ -15,6 +15,8 @@ REGISTRY = {
     "Conv": B.ConvBN,
     "Bottleneck": B.Bottleneck,
     "C3": B.C3,
+    "CABottleneck": B.CABottleneck,
+    "C3CA": B.C3CA,
     "SPPF": B.SPPF,
     "Concat": B.Concat,
     "CoorAttention": B.CoorAttention,
@@ -22,7 +24,9 @@ REGISTRY = {
     "SPPFCSPC": B.SPPFCSPC,
     "SCConv": B.SCConv,
     "nn.Upsample": B.Upsample,
+    "space_to_depth": B.SpaceToDepth,
     "Detect": H.Detect,
+    "TDetect": H.TDetect,
 }
 
 # parse_model's channel-rule groups, copied from the JAX registry

@@ -1,4 +1,5 @@
-"""The blocks of the flagship `ablation-ca-scconv-sppfcspc` and of YOLOv5.
+"""The blocks of the flagship `ablation-ca-scconv-sppfcspc`, of YOLOv5 and
+of the SPD-Conv family (`C3CASPD2`, `CASPD_ODRTA`).
 
 Port of the matching classes of `dmayolo_tpu/nn/blocks.py`.  Attribute
 names equal the JAX path parts ("cv1", "conv", "bn", "m", "0", ...), so a
@@ -21,6 +22,7 @@ from .primitives import (
     max_pool,
     resize_nearest,
     silu,
+    space_to_depth_2x,
     upsample_nearest,
 )
 
@@ -58,7 +60,9 @@ class Bottleneck(nn.Module):
 
 
 class C3(nn.Module):
-    """CSP bottleneck with 3 convs."""
+    """CSP bottleneck with 3 convs; `block` is the inner bottleneck."""
+
+    block = Bottleneck
 
     def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
         super().__init__()
@@ -66,7 +70,7 @@ class C3(nn.Module):
         self.cv1 = ConvBN(c1, c_, 1, 1)
         self.cv2 = ConvBN(c1, c_, 1, 1)
         self.cv3 = ConvBN(2 * c_, c2, 1)
-        self.m = Sequential(*[Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
+        self.m = Sequential(*[self.block(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
 
     def forward(self, x, dtype):
         return self.cv3(torch.cat([self.m(self.cv1(x, dtype), dtype),
@@ -122,6 +126,38 @@ class CoorAttention(nn.Module):
         a_h = torch.sigmoid(self.conv_h(y_h, dtype))                     # (B, C2, H, 1)
         a_w = torch.sigmoid(self.conv_w(y_w.permute(0, 1, 3, 2), dtype))  # (B, C2, 1, W)
         return x * a_w * a_h
+
+
+class CABottleneck(nn.Module):
+    """Bottleneck with Coordinate Attention on its output (+residual)."""
+
+    def __init__(self, c1, c2, shortcut=True, g=1, e=0.5, reduction=32):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c_, c2, 3, 1, g=g)
+        self.ca = CoorAttention(c2, c2, reduction)
+        self.residual = shortcut and c1 == c2
+
+    def forward(self, x, dtype):
+        y = self.ca(self.cv2(self.cv1(x, dtype), dtype), dtype)
+        return x + y if self.residual else y
+
+
+class C3CA(C3):
+    """C3 with CABottleneck inside, the DMA head block."""
+
+    block = CABottleneck
+
+
+class SpaceToDepth(nn.Module):
+    """SPD-Conv `space_to_depth`: (B, C, H, W) -> (B, 4C, H/2, W/2)."""
+
+    def __init__(self, dimension=1):
+        super().__init__()
+
+    def forward(self, x, dtype):
+        return space_to_depth_2x(x)
 
 
 class SPPFCSPC(nn.Module):

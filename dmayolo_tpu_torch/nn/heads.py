@@ -1,8 +1,11 @@
-"""Anchor-based YOLOv5 `Detect` head.
+"""Detection heads: the anchor-based YOLOv5 `Detect` and the anchor-free
+`TDetect` with DFL box regression.
 
-Port of `dmayolo_tpu/nn/heads.py::Detect`.  The raw output per scale is
-(B, ny, nx, na, no), the JAX layout; decoding emits candidates in the
+Port of `dmayolo_tpu/nn/heads.py`.  `Detect`'s raw output per scale is
+(B, ny, nx, na, no), the JAX layout; its decoding emits candidates in the
 reference (a, y, x) order so NMS tie-breaks agree with the JAX package.
+`TDetect`'s raw output per scale is (B, ny, nx, 4 * reg_max + nc), box
+logits first, and its candidates are the cells in (y, x) order.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .blocks import ConvBN
 from .primitives import Conv2d, Sequential
 
 
@@ -105,3 +109,142 @@ class Detect(nn.Module):
                 scs.append(best.reshape(b, na * ny * nx))
                 cls_.append(bc.reshape(b, na * ny * nx))
         return torch.cat(bxs, 1), torch.cat(scs, 1), torch.cat(cls_, 1)
+
+
+def dfl_expectation(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
+    """Distribution-focal decode, in f32: the softmax expectation over
+    `reg_max` bins, (..., 4, reg_max) -> (..., 4)."""
+    p = torch.softmax(box_logits.float(), dim=-1)
+    bins = torch.arange(reg_max, dtype=torch.float32, device=box_logits.device)
+    return (p * bins).sum(-1)
+
+
+def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = True):
+    """(l, t, r, b) distances from the cell centres -> xywh or xyxy boxes."""
+    lt, rb = distance.chunk(2, dim=-1)
+    x1y1 = anchor_points - lt
+    x2y2 = anchor_points + rb
+    if xywh:
+        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
+    return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def make_anchor_points(shapes, strides, offset: float = 0.5, device=None):
+    """Cell centres (A, 2) as (x, y) in feature units, and each cell's
+    stride (A, 1), for a list of (ny, nx) shapes, in (level, y, x) order."""
+    pts, sts = [], []
+    for (ny, nx), s in zip(shapes, strides):
+        sx = torch.arange(nx, dtype=torch.float32, device=device) + offset
+        sy = torch.arange(ny, dtype=torch.float32, device=device) + offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        pts.append(torch.stack([gx, gy], dim=-1).reshape(-1, 2))
+        sts.append(torch.full((ny * nx, 1), float(s), dtype=torch.float32, device=device))
+    return torch.cat(pts), torch.cat(sts)
+
+
+def _branch(c1, c2, c_out):
+    """Two 3x3 ConvBN and a 1x1 conv with bias: keys 0, 1, 2."""
+    return Sequential(ConvBN(c1, c2, 3), ConvBN(c2, c2, 3), Conv2d(c2, c_out, 1, bias=True))
+
+
+class TDetect(nn.Module):
+    """Anchor-free decoupled head with DFL box regression: per level a box
+    branch `cv2.{i}` (4 * reg_max logits) and a class branch `cv3.{i}`
+    (nc logits)."""
+
+    reg_max = 16
+
+    def __init__(self, nc=80, ch=(), inplace=True):
+        super().__init__()
+        self.nc = nc
+        self.nl = len(ch)
+        self.no = nc + self.reg_max * 4
+        self.stride = None  # set by DetectionModel
+        c2, c3 = max(ch[0] // 4, 16), max(ch[0], self.no - 4)
+        self.cv2 = Sequential(*[_branch(x, c2, 4 * self.reg_max) for x in ch])
+        self.cv3 = Sequential(*[_branch(x, c3, self.nc) for x in ch])
+
+    @torch.no_grad()
+    def bias_init(self):
+        """Box biases 1, class biases log(5 / nc / (640 / s)^2), in place."""
+        for i, s in enumerate(self.stride):
+            self.cv2[i][2].bias.fill_(1.0)
+            self.cv3[i][2].bias.fill_(math.log(5 / self.nc / (640 / float(s)) ** 2))
+
+    def forward(self, xs: Sequence[torch.Tensor], dtype) -> List[torch.Tensor]:
+        """Raw outputs, list of (B, ny, nx, 4 * reg_max + nc); no sigmoid."""
+        return [torch.cat([self.cv2[i](xs[i], dtype), self.cv3[i](xs[i], dtype)],
+                          dim=1).permute(0, 2, 3, 1) for i in range(self.nl)]
+
+    def flatten(self, raw: Sequence[torch.Tensor]):
+        """Scales concatenated -> (box_logits (B, A, 4 * reg_max),
+        cls_logits (B, A, nc))."""
+        flat = torch.cat([x.reshape(x.shape[0], -1, self.no) for x in raw], dim=1)
+        return flat[..., :4 * self.reg_max], flat[..., 4 * self.reg_max:]
+
+    def _boxes(self, raw, xywh: bool):
+        shapes = [(x.shape[1], x.shape[2]) for x in raw]
+        points, strides = make_anchor_points(shapes, self.stride, device=raw[0].device)
+        box_logits, cls_logits = self.flatten(raw)
+        b, a, _ = box_logits.shape
+        dist = dfl_expectation(box_logits.reshape(b, a, 4, self.reg_max), self.reg_max)
+        return dist2bbox(dist, points[None], xywh=xywh) * strides[None], cls_logits
+
+    def decode(self, raw: Sequence[torch.Tensor]) -> torch.Tensor:
+        """(B, A, 4 + nc): xywh pixels and class probabilities (no
+        objectness column), the eval path."""
+        dbox, cls_logits = self._boxes(raw, xywh=True)
+        return torch.cat([dbox, torch.sigmoid(cls_logits.float())], dim=-1)
+
+    def decode_parts(self, raw: Sequence[torch.Tensor], class_mask=None):
+        """Serving decode: (boxes xyxy (B, A, 4), scores (B, A), cls (B, A)).
+        The score is the best class probability (no objectness), the best
+        class taken on the raw logits (sigmoid is monotone)."""
+        boxes, cls_logits = self._boxes(raw, xywh=False)
+        best = torch.sigmoid(cls_logits.amax(-1).float())
+        bc = torch.argmax(cls_logits, dim=-1)  # first maximum, as jnp.argmax
+        if class_mask is not None:
+            best = torch.where(class_mask[bc], best, torch.zeros_like(best))
+        return boxes, best, bc.float()
+
+    def decode_scores(self, raw: Sequence[torch.Tensor], class_mask=None) -> torch.Tensor:
+        """Lazy decode, pass 1: best-class scores (B, A) in f32, with no box
+        decode at all."""
+        outs = []
+        for x in raw:
+            logits = x[..., 4 * self.reg_max:]
+            best = torch.sigmoid(logits.amax(-1).float())
+            if class_mask is not None:
+                bc = torch.argmax(logits, dim=-1)
+                best = torch.where(class_mask[bc], best, torch.zeros_like(best))
+            outs.append(best.reshape(x.shape[0], -1))
+        return torch.cat(outs, 1)
+
+    def _candidate_constants(self, shapes, device=None) -> torch.Tensor:
+        """(A, 3) [anchor_x, anchor_y, stride], the values and order of
+        `make_anchor_points`."""
+        points, strides = make_anchor_points(shapes, self.stride, device=device)
+        return torch.cat([points, strides], dim=-1)
+
+    def decode_at(self, raw: Sequence[torch.Tensor], idx: torch.Tensor):
+        """Lazy decode, pass 2: the DFL boxes and best classes of the
+        candidate cells `idx` (B, K) only -> (boxes xyxy (B, K, 4), cls
+        (B, K) f32).  Each level's rows are gathered from its own map: the
+        (B, A, no) concatenation never exists."""
+        rows, off = None, 0
+        for x in raw:
+            flat = x.reshape(x.shape[0], -1, self.no)
+            n_i = flat.shape[1]
+            li = (idx - off).clamp(0, n_i - 1)
+            got = torch.gather(flat, 1, li[..., None].expand(-1, -1, self.no))
+            pick = (idx >= off) & (idx < off + n_i)
+            rows = got if rows is None else torch.where(pick[..., None], got, rows)
+            off += n_i
+        shapes = [(x.shape[1], x.shape[2]) for x in raw]
+        cv = self._candidate_constants(shapes, idx.device)[idx]  # (B, K, 3)
+        b, k = idx.shape
+        dist = dfl_expectation(rows[..., :4 * self.reg_max].reshape(b, k, 4, self.reg_max),
+                               self.reg_max)
+        boxes = dist2bbox(dist, cv[..., 0:2], xywh=False) * cv[..., 2:3]
+        return boxes, torch.argmax(rows[..., 4 * self.reg_max:], dim=-1).float()
+

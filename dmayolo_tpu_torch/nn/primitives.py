@@ -204,3 +204,13 @@ def resize_nearest(x, size: Tuple[int, int]):
     rows = torch.arange(th, device=x.device) * h // th
     cols = torch.arange(tw, device=x.device) * w // tw
     return x[:, :, rows][:, :, :, cols]
+
+
+def space_to_depth_2x(x):
+    """SPD-Conv slice-cat: (B, C, H, W) -> (B, 4C, H/2, W/2), the channel
+    blocks in the reference's order: top-left, bottom-left, top-right,
+    bottom-right.  A `channels_last` input gives a `channels_last` output,
+    so the conv after it reads it as it is."""
+    return torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
+                      x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]], dim=1)
+

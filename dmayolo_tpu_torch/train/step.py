@@ -63,10 +63,11 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
     accumulate ramp), steps the optimizer, and updates the EMA.  `freeze`
     leaves the parameters of model.0 .. model.{freeze - 1} and their
     optimizer state exactly as they were.  `generator` is the JAX step's
-    rng; no layer of the anchor-based path draws from it.
+    rng; no layer of the ported models and no loss draws from it.
 
-    metrics: loss (total / accumulate) and the box, obj and cls items
-    averaged over the microbatches, as 0-d tensors on the device.
+    metrics: loss (total / accumulate) and the loss's items (box, obj and
+    cls, or TAL's box, cls and dfl) averaged over the microbatches, as 0-d
+    tensors on the device.
     """
 
     def step(state: TrainState, imgs: torch.Tensor, targets: Targets,

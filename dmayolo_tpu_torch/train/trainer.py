@@ -1,12 +1,16 @@
-"""The training loop for the anchor-based head.
+"""The training loop, for the anchor-based head (`assignment="anchor"`,
+the SIoU `ComputeLoss`) and the anchor-free TDetect (`assignment="tal"`,
+`ComputeLossTAL`).
 
 Port of `dmayolo_tpu/train/trainer.py` without the data stack: the caller
 passes the loader, a sized iterable of batches with `.images` (uint8
 (B, H, W, 3)) and `.targets` (`Targets`, numpy or tensors), the JAX
-`DataLoader`'s batch shape, and `nc`.  The trainer scales the hyp, picks
-the accumulation, builds the loss, the schedule and the train state, and
-runs the epochs: the warmup accumulate ramp, a `last` checkpoint in the
-JAX `.npz` format and a CSV row each epoch.
+`DataLoader`'s batch shape, and `nc`; with `autoanchor`, the loader also
+has the dataset's `.shapes` and `.labels` (see `train/autoanchor.py`).
+The trainer scales the hyp, picks the accumulation, builds the loss, the
+schedule and the train state, and runs the epochs: the warmup accumulate
+ramp, a `last` checkpoint in the JAX `.npz` format and a CSV row each
+epoch.
 """
 from __future__ import annotations
 
@@ -21,12 +25,15 @@ import torch
 import yaml
 
 from ..graph import DetectionModel
+from ..nn.heads import Detect, TDetect
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_checkpoint
 from ..utils.device import resolve_device
 from ..utils.weights import state_dict_from_jax
+from .autoanchor import maybe_autoanchor
 from .loss import ComputeLoss, Targets
 from .optim import Schedule, param_groups
 from .step import init_train_state, load_state_trees, make_train_step, state_trees
+from .tal import ComputeLossTAL
 
 NBS = 64  # nominal batch size
 HYP_DIR = Path(__file__).resolve().parents[1] / "configs" / "hyp"
@@ -92,6 +99,7 @@ class Trainer:
         epochs: int = 100,
         batch_size: int = 16,
         img_size: int = 640,
+        assignment: str = "anchor",
         adam: bool = False,
         out_dir: str = "runs/train/exp",
         dtype=torch.bfloat16,
@@ -99,6 +107,7 @@ class Trainer:
         resume_from: Optional[str] = None,
         pretrained: Optional[str] = None,
         accumulate: Optional[int] = None,
+        autoanchor: bool = False,
         nosave: bool = False,
         device=None,
     ):
@@ -112,7 +121,8 @@ class Trainer:
         self.nc = nc
         # checkpoints are self-describing: the config path, or the dict
         self.cfg_ref = str(cfg) if isinstance(cfg, (str, Path)) else dict(cfg)
-        self.model = DetectionModel(cfg, nc=nc, device=self.device)
+        # hyp `anchors` (a count a level or pairs) overrides the yaml's
+        self.model = DetectionModel(cfg, nc=nc, anchors=hyp.get("anchors"), device=self.device)
         gs = int(self.model.stride.max())
         img_size = self.img_size = check_img_size(img_size, gs, floor=gs * 2)
 
@@ -126,21 +136,36 @@ class Trainer:
         self.weight_decay = h.get("weight_decay", 5e-4) * batch_size * self.accumulate / NBS
 
         # resume: the trained anchors go in before the loss reads them
+        head = self.model.head
         resume = load_checkpoint(resume_from) if resume_from else None
-        if resume is not None:
+        resumed_anchors = False
+        if resume is not None and isinstance(head, Detect):
             anc = resume[1].get("anchors")
-            if anc is not None and np.shape(anc) == np.shape(self.model.head.anchors):
-                self.model.head.anchors = np.asarray(anc, np.float32)
-        # `anchors: <int>` configs carry placeholder anchors [0, 1, 2, ...]
-        # that only autoanchor replaces; a 0-sized anchor makes SIoU NaN
-        a = np.asarray(self.model.head.anchors)
-        if a.size and float(a.min()) <= 0:
-            raise ValueError(
-                "model has placeholder/degenerate anchors (min size 0): this config "
-                "declares `anchors: <int>` and needs autoanchor to generate real ones; "
-                "specify anchor pairs in the yaml")
-
-        self.loss = ComputeLoss(self.model.head.anchors, h, nc=nc)
+            if anc is not None and np.shape(anc) == np.shape(head.anchors):
+                head.anchors = np.asarray(anc, np.float32)
+                resumed_anchors = True
+        if assignment not in ("anchor", "tal"):
+            raise ValueError(f"unknown assignment {assignment!r}")
+        if autoanchor and assignment == "anchor" and not resumed_anchors:
+            if not (hasattr(loader, "shapes") and hasattr(loader, "labels")):
+                raise ValueError("autoanchor needs the loader's dataset .shapes and .labels")
+            maybe_autoanchor(self.model, loader, img_size, thr=h.get("anchor_t", 4.0))
+        if assignment == "tal":
+            if not isinstance(head, TDetect):
+                raise ValueError("assignment 'tal' needs a TDetect head")
+            self.loss = ComputeLossTAL(self.model.stride, nc=nc, hyp=h)
+        else:
+            if not isinstance(head, Detect):
+                raise ValueError("assignment 'anchor' needs a Detect head")
+            # `anchors: <int>` configs carry placeholder anchors [0, 1, 2,
+            # ...] that only autoanchor replaces; a 0-sized anchor makes
+            # SIoU NaN
+            if float(np.min(head.anchors)) <= 0:
+                raise ValueError(
+                    "model has placeholder/degenerate anchors (min size 0): this config "
+                    "declares `anchors: <int>`; pass autoanchor=True (with a loader that "
+                    "has .shapes and .labels) or specify anchor pairs in the yaml")
+            self.loss = ComputeLoss(head.anchors, h, nc=nc)
         self.sched = Schedule(
             h, epochs=epochs, steps_per_epoch=self.steps_per_epoch, adam=adam,
             batch_size=batch_size, step_scale=self.accumulate,
@@ -186,9 +211,9 @@ class Trainer:
     def _save(self, name: str, epoch: int):
         meta = {"epoch": epoch, "best_fitness": float(self.best_fitness),
                 "step": self.state.step, "updates": self.state.ema_updates,
-                "nc": self.nc, "cfg": self.cfg_ref,
-                # the live anchors, in stride units
-                "anchors": np.asarray(self.model.head.anchors, np.float32).tolist()}
+                "nc": self.nc, "cfg": self.cfg_ref}
+        if isinstance(self.model.head, Detect):  # the live anchors, in stride units
+            meta["anchors"] = np.asarray(self.model.head.anchors, np.float32).tolist()
         save_checkpoint(self.out / name, meta=meta, half=True, **state_trees(self.state))
 
     def _log_csv(self, row: Dict):
