@@ -114,6 +114,44 @@ source, all at once), then:
    models at bs128 640 px bf16, as in 4, each model's count-weighted sum
    beside cuDNN's and the bound.
 
+9. The data path on disk, without OpenCV (the port's own image library,
+   built with g++ at first use), after a probe of what the host offers
+   it (image modules found, not imported; JPEG, PNG and zlib headers and
+   libraries; nvJPEG; g++): the port's generator writes a
+   VisDrone-analog set at 1536 px (64 train and 96 val images, JPEG at
+   quality 85 where the host library has libjpeg, else PNG) under
+   build/data_smoke/ (removed at the end); the val passes read each val
+   file through 8 symlinked copies (768 images, 24 batches of 32), so
+   that 8 loader threads, each taking a whole batch, stay busy.  The
+   loader alone: decode ms, img/s at 1 worker (to the last batch's
+   arrival) and at min(8, cpu_count) workers (the whole pass, and after
+   the first round of batches) for the val pipeline (letterbox to 640,
+   bs32) and the train one (hyp VisDrone at 1536 px, bs4), the batches
+   the same bytes at both; the val targets mapped back to native pixels
+   equal the label files' boxes within 1e-3 px; `build_coco_gt_from_yolo`
+   on the val set, its annotations fed back as detections: COCOeval's mAP
+   1.0.  Then the val labels are rewritten as the flagship's own top 20
+   detections an image, and `run_validation` of the flagship (as in 5)
+   at bs32 640 px runs on "scan", "matrix" and "pallas", counted: mAP@.5
+   strictly between 0 and 1, the metrics identical across the three,
+   K3's blocked entry once a batch on "matrix", K2's cluster kernel once
+   a batch on "pallas", img/s of the whole run beside the device step
+   alone of 6.  Then the recipe's `Trainer` built from a data yaml (1536
+   px, bs4, Adam, hyp VisDrone, one epoch of 64 batches over the train
+   files read 4x at accumulate 4, validated on 32 val images), with device_aug off and
+   on, each from the eval weights as `pretrained` and validated on its
+   EMA's own detections written as the val labels (a fresh init scores
+   under the conf gate and keeps no best.npz): finite losses, validation
+   at the epoch's end, last.npz and best.npz and the CSV's metrics; img/s
+   over batches 8-31 unprofiled (after the fill and the first two
+   optimizer steps, while the loader still works), with the time the
+   loop waited for the loader and the rate at which the loader made
+   samples, and the device's busy share over batches 32-39 under
+   torch.profiler;
+   best.npz served on
+   "matrix", K3 counted.  Last, device_aug on the card against its CPU
+   version on the same batch, gains and flips (1e-5).
+
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result, when
@@ -1921,6 +1959,618 @@ def print_train(label, tr, smi):
           f"on {smi}", flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# the data path: a dataset on disk, the loader, run_validation, the Trainer
+# ---------------------------------------------------------------------------
+
+# VisDrone's pixel scale on VisDrone-size frames: the train recipe's 1536 px;
+# 160 images, so that generation stays under 30 s on a slow host (192 took
+# 19.6-30.5 s on 8 threads).  The val passes read the 96 val files through
+# `val_copies` symlinked copies each: 24 batches of 32, so that 8 loader
+# threads (each takes a whole batch) stay busy for three rounds.  The
+# Trainer reads `train_copies` copies of the train files: an epoch of 64
+# batches, at accumulate 4, so that the optimizer steps 16 times as a
+# 16-batch epoch at accumulate 1 would (the warmup's bias lr of 0.1 pulls
+# the objectness down each step; then no score passes the protocol's
+# conf gate and no best.npz is kept).  The loader runs up to 24 batches
+# ahead (16 queued, 8 in its threads) and finishes its last sample near
+# batch 40, after which the steps run without it: the epoch is timed
+# unprofiled over batches `train_timed` (after the fill and the first two
+# optimizer steps) and profiled over `train_profiled`, both while the
+# loader still works.
+DATA = dict(img_size=1536, n_train=64, n_val=96, val_copies=8, train_copies=4, val_imgsz=640,
+            val_batch=32, train_batch=4, train_accumulate=4, train_val=32,
+            one_worker_batches={"val": 1, "train": 2}, train_timed=(8, 32),
+            train_profiled=(32, 40), train_device_aug=(False, True))
+DATA_DIR = ROOT / "build" / "data_smoke"
+DEVICE_AUG_TOL = 1e-5  # device_aug on the card against its CPU version, same gains and flips
+TARGET_TOL_PX = 1e-3  # the loader's targets mapped back to native pixels, against the labels
+
+
+def loader_pass(ds, batch, workers, n_batches, shuffle, seed=0):
+    """The first `n_batches` batches of one epoch of a `DataLoader` over
+    `ds` with `workers` threads, and the seconds from the iterator's start
+    at which each arrived (read before the loop stops the loader, whose
+    threads may be busy with later batches)."""
+    from dmayolo_tpu_torch.data.loader import DataLoader
+
+    loader = DataLoader(ds, batch, max_targets=256, shuffle=shuffle, workers=workers,
+                        seed=seed, drop_last=False)
+    out, at = [], []
+    t0 = time.perf_counter()
+    for b in loader:
+        at.append(time.perf_counter() - t0)
+        out.append(b)
+        if len(out) == n_batches:
+            break
+    return out, at
+
+
+def loader_rates(one, at1, many, at_n, workers):
+    """img/s at 1 worker (to the last batch's arrival), and at `workers`:
+    over the whole pass (the pipeline's fill included) and after its first
+    round of `workers` batches."""
+    def n_img(batches):
+        return sum(len(b.indices) for b in batches)
+
+    check(len(many) > workers, f"{len(many)} batches do not outlast {workers} loader threads")
+    return {"img_per_s_1": n_img(one) / at1[-1], f"img_per_s_{workers}": n_img(many) / at_n[-1],
+            f"img_per_s_{workers}_after_first_round":
+                n_img(many[workers:]) / (at_n[-1] - at_n[workers - 1]),
+            "batches_1": len(one), f"batches_{workers}": len(many)}
+
+
+def replicate_split(root, split, copies):
+    """`root`'s split (images and label files) as `copies` symlinked copies
+    of each file, under `root/<split>_x<copies>`; the image directory."""
+    dst = root / f"{split}_x{copies}"
+    for kind, suffix in (("images", None), ("labels", ".txt")):
+        d = dst / kind / split
+        d.mkdir(parents=True)
+        for f in sorted((root / kind / split).iterdir()):
+            if suffix is None or f.suffix == suffix:
+                for k in range(copies):
+                    (d / f"r{k}_{f.name}").symlink_to(f)
+    return dst / "images" / split
+
+
+def same_batches(a, b):
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        x.indices == y.indices and np.array_equal(x.images, y.images)
+        and all(np.array_equal(u, v) for u, v in zip(x.targets, y.targets)) for x, y in zip(a, b))
+
+
+def targets_vs_labels(ds, batches, imgsz):
+    """The largest distance in native pixels between the loader's targets,
+    mapped back through the letterbox, and the label files' boxes (clipped
+    to the image as the loader clips them)."""
+    import numpy as np
+
+    from dmayolo_tpu_torch.eval.validator import _scale_to_native
+
+    worst = 0.0
+    for b in batches:
+        h, w = b.images.shape[1:3]
+        for i, idx in enumerate(b.indices):
+            m = b.targets.mask[i]
+            xywh = b.targets.box[i][m].astype(np.float64) * [w, h, w, h]
+            got = _scale_to_native(np.concatenate([xywh[:, :2] - xywh[:, 2:] / 2,
+                                                   xywh[:, :2] + xywh[:, 2:] / 2], 1),
+                                   (h, w), tuple(ds.shapes[idx]))
+            nh, nw = ds.shapes[idx]
+            rows = np.loadtxt(ds.label_files[idx], ndmin=2)
+            lb = rows[:, 1:5] * [nw, nh, nw, nh]
+            want = np.concatenate([lb[:, :2] - lb[:, 2:] / 2, lb[:, :2] + lb[:, 2:] / 2], 1)
+            gain = min(h / nh, w / nw)  # the loader keeps boxes 1e-3 px inside its image
+            want = np.clip(want, 0, [(w - 1e-3) / gain, (h - 1e-3) / gain] * 2)
+            check(len(rows) == len(got) and np.array_equal(rows[:, 0], b.targets.cls[i][m]),
+                  f"targets of {ds.im_files[idx]} are not its labels")
+            worst = max(worst, float(np.abs(got - want).max()) if len(got) else 0.0)
+    return worst
+
+
+def coco_known_answer(val_path, nc):
+    """`build_coco_gt_from_yolo` on the val set, its annotations fed back
+    as detections at score 1: COCOeval's mAP must be 1."""
+    from dmayolo_tpu_torch.eval.coco_json import build_coco_gt_from_yolo
+    from dmayolo_tpu_torch.eval.cocoeval import NpCOCOeval
+
+    gt = json.loads(json.dumps(build_coco_gt_from_yolo(val_path, nc=nc)))  # as a file holds it
+    preds = [{"image_id": a["image_id"], "category_id": a["category_id"], "bbox": a["bbox"],
+              "score": 1.0} for a in gt["annotations"]]
+    stats = NpCOCOeval(gt, preds).evaluate().summarize(verbose=False)
+    m, m50 = float(stats[0]), float(stats[1])
+    check(m == m50 == 1.0, f"COCOeval of the labels as detections: mAP {m}, mAP@.5 {m50}")
+    return {"images": len(gt["images"]), "annotations": len(gt["annotations"]),
+            "map": m, "map50": m50}
+
+
+class WindowedLoader:
+    """A loader whose epoch is measured on the card in two windows of
+    batches, each from a synchronised mark when its first batch arrives to
+    one when the batch after its last arrives (its steps done): `timed`,
+    unprofiled (wall time, the time the training loop waited for the
+    loader in it, and the samples the loader made in it), then `profiled`,
+    under torch.profiler (the device's kernel time, and so its busy share
+    of that window's wall time).  The batches before `timed` are timed
+    from the iterator's start (the pipeline's fill).  Untimed on the
+    CPU."""
+
+    def __init__(self, loader, on_card, timed, profiled):
+        self.loader, self.on_card = loader, on_card
+        self.timed, self.profiled = timed, profiled
+        self.windows = None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):  # sample_weights and the rest
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self.on_card:
+            yield from self.loader
+            return
+        (a, b), (p, q) = self.timed, self.profiled
+        check(b <= p < q <= len(self.loader), f"windows {self.timed} {self.profiled} do not fit "
+                                              f"an epoch of {len(self.loader)} batches")
+        def mark(key):
+            torch.cuda.synchronize()
+            marks[key] = time.perf_counter()
+
+        ds, made = self.loader.ds, []
+        get = ds.get
+
+        def timed_get(*args):  # when each sample is made, on the loader's threads
+            sample = get(*args)
+            made.append(time.perf_counter())
+            return sample
+
+        marks, waits, handed, prof = {}, [], [], profile(activities=[ProfilerActivity.CUDA])
+        ds.get = timed_get
+        try:
+            mark("start")
+            it = iter(self.loader)
+            for i in range(len(self.loader)):
+                t = time.perf_counter()
+                batch = next(it)
+                handed.append(time.perf_counter())
+                waits.append(handed[-1] - t)
+                if i == q:  # the profiled window ends before its trace is read
+                    mark("q")
+                    prof.__exit__(None, None, None)
+                if i in (a, b):
+                    mark(i)
+                if i == p:  # and starts once the profiler runs
+                    prof.__enter__()
+                    mark("p")
+                yield batch
+            if q == len(self.loader):
+                mark("q")
+                prof.__exit__(None, None, None)
+        finally:
+            del ds.get
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        bs, fill, timed, profiled = (self.loader.bs, marks[a] - marks["start"],
+                                     marks[b] - marks[a], marks["q"] - marks["p"])
+        self.windows = {
+            "fill": {"batches": a, "wall_s": fill, "img_per_s": a * bs / fill},
+            "timed": {"batches": [a, b], "wall_s": timed, "img_per_s": (b - a) * bs / timed,
+                      "loader_wait_s": sum(waits[a + 1:b + 1]),
+                      "loader_img_per_s": sum(marks[a] <= t < marks[b] for t in made) / timed},
+            "profiled": {"batches": [p, q], "wall_s": profiled,
+                         "img_per_s_under_profiler": (q - p) * bs / profiled,
+                         "loader_wait_s": sum(waits[p + 1:q + 1]), "device_ms": device_ms,
+                         "device_busy_share": device_ms / (profiled * 1e3)},
+            "loader_done_s": max(made) - marks["start"],
+            "loader_wait_s_by_batch": waits,
+            "handed_out_s_by_batch": [t - marks["start"] for t in handed]}
+        self.windows["profiled"]["loader_done_before_end"] = max(made) < marks["q"]
+
+
+def own_labels(model, val_dir, imgsz, batch, dtype, workers, max_det=20):
+    """Rewrite the label files of `val_dir` as `model`'s top `max_det`
+    detections an image (conf 0, NMS IoU 0.6), in native pixels."""
+    import numpy as np
+
+    from dmayolo_tpu_torch.data.datasets import DetectionDataset
+    from dmayolo_tpu_torch.data.loader import DataLoader
+    from dmayolo_tpu_torch.eval.validator import _scale_to_native, make_infer_fn
+
+    ds = DetectionDataset(val_dir, img_size=imgsz, nc=model.nc, stride=int(model.stride.max()))
+    was_training = model.training
+    model.eval()
+    infer = make_infer_fn(model, 0.0, 0.6, max_det, dtype=dtype)
+    for b in DataLoader(ds, batch, shuffle=False, drop_last=False, workers=workers):
+        dets, valid = infer(b.images)
+        dets, valid = dets.float().cpu().numpy(), valid.cpu().numpy()
+        for i, idx in enumerate(b.indices):
+            nh, nw = ds.shapes[idx]
+            d = dets[i][valid[i]]
+            xy = _scale_to_native(d[:, :4].astype(np.float64), b.images.shape[1:3], (nh, nw))
+            keep = (xy[:, 2] > xy[:, 0]) & (xy[:, 3] > xy[:, 1])
+            with open(ds.label_files[idx], "w") as f:
+                for (x1, y1, x2, y2), c in zip(xy[keep], d[keep, 5]):
+                    f.write(f"{int(c)} {(x1 + x2) / 2 / nw:.6f} {(y1 + y2) / 2 / nh:.6f} "
+                            f"{(x2 - x1) / nw:.6f} {(y2 - y1) / nh:.6f}\n")
+    model.train(was_training)
+
+
+def data_train(device, data_yaml, cfg, sizes, counters, device_aug, workers, pretrained,
+               seed=7):
+    """The recipe's Trainer built from the data yaml, one epoch from the
+    `pretrained` checkpoint: finite losses, validation at the epoch's end,
+    last.npz and best.npz, the CSV's metrics; img/s over an unprofiled
+    window and the device's busy share over a profiled one
+    (`WindowedLoader`); best.npz served on "matrix" (K3 counted)."""
+    import csv
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.data.loader import DataLoader
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.train import trainer as trainer_mod
+    from dmayolo_tpu_torch.train.trainer import Trainer, load_hyp
+    from dmayolo_tpu_torch.utils.weights import load_jax_checkpoint
+
+    on_card = device.type == "cuda"
+    out_dir = DATA_DIR / f"train_device_aug_{int(device_aug)}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dtype = torch.bfloat16 if on_card else torch.float32
+    parts, t0 = {}, time.perf_counter()
+    tr = Trainer(cfg, data=str(data_yaml), hyp=load_hyp("visdrone"), epochs=1,
+                 batch_size=sizes["train_batch"], img_size=sizes["img_size"], adam=True,
+                 accumulate=sizes["train_accumulate"], dtype=dtype, seed=seed, device=device,
+                 out_dir=str(out_dir), workers=workers, device_aug=device_aug,
+                 pretrained=str(pretrained))
+    check(isinstance(tr.loader, DataLoader), "the data-built Trainer has no DataLoader")
+    parts["build_s"] = time.perf_counter() - t0
+    tr.loader = WindowedLoader(tr.loader, on_card, sizes["train_timed"], sizes["train_profiled"])
+    vals, real, save = [], trainer_mod.run_validation, tr._save
+    parts.update(val_s=0.0, own_labels_s=0.0, save_s=0.0)
+
+    def counted(model, data_path, **k):
+        # the known answer: the val split labelled with the validated
+        # model's own detections just before validation (random weights
+        # score 0 on the generated labels, and then no best.npz is kept)
+        t1 = time.perf_counter()
+        own_labels(model, data_path, k["img_size"], k["batch_size"], k["dtype"], workers)
+        t2 = time.perf_counter()
+        vals.append(real(model, data_path, **k))
+        parts["own_labels_s"] += t2 - t1
+        parts["val_s"] += time.perf_counter() - t2
+        return vals[-1]
+
+    def timed_save(*a):
+        t1 = time.perf_counter()
+        save(*a)
+        parts["save_s"] += time.perf_counter() - t1
+
+    tr._save = timed_save
+
+    trainer_mod.run_validation = counted
+    losses, step_for = [], tr.get_step
+
+    def recorded(acc):
+        step = step_for(acc)
+
+        def run(*args, **kw):
+            losses.append(step(*args, **kw))
+            return losses[-1]
+        return run
+
+    tr.get_step = recorded
+    try:
+        t0 = time.perf_counter()
+        tr.train(log_every=len(tr.loader))
+        total_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.run_validation = real
+    out = {"device_aug": device_aug, "batches": len(tr.loader), "trainer_s": total_s,
+           "parts_s": parts,
+           "losses": [{k: float(v) for k, v in m.items()} for m in losses],
+           "best_fitness": tr.best_fitness}
+    check(len(vals) == 1, f"validation ran {len(vals)} times in one epoch")
+    check(all(np.isfinite(v) for m in out["losses"] for v in m.values()) and losses,
+          "a non-finite training loss on data")
+    out["val"] = {k: getattr(vals[0], k) for k in ("mp", "mr", "map50", "map75", "map", "nt")}
+    rows = list(csv.DictReader(open(out_dir / "results.csv")))
+    check(len(rows) == 1 and rows[0]["metrics/mAP_0.5"] != "" and "fitness" in rows[0],
+          f"the CSV lacks the metrics: {rows}")
+    check((out_dir / "last.npz").exists() and (out_dir / "best.npz").exists(),
+          f"last.npz and best.npz not both written (best fitness {tr.best_fitness})")
+    if tr.loader.windows is not None:
+        out["windows"] = dict(tr.loader.windows, card=card_state())
+    # best.npz served: fused, one val batch on "matrix", K3 counted
+    t1 = time.perf_counter()
+    sd, meta = load_jax_checkpoint(out_dir / "best.npz", device=device)
+    served = DetectionModel(cfg, nc=meta["nc"], device=device)
+    served.head.anchors = np.asarray(meta["anchors"], np.float32)
+    served.load_state_dict(sd, strict=True)
+    served.eval().fuse()
+    b = next(iter(DataLoader(tr.train_ds, sizes["train_batch"], shuffle=False, workers=workers)))
+    x = torch.from_numpy(b.images).to(device).to(dtype) / 255.0
+    with torch.inference_mode():
+        raw = served.apply(x, dtype=dtype, fused=True)
+        conf = min(0.25, 0.5 * float(served.decode_parts(raw)[1].amax(1).min()))
+        for c in counters:
+            c.launches = 0
+        dets, valid = served.serve_detections(raw, conf_thres=conf, backend="matrix")
+        launches = {c.__name__: c.launches for c in counters}
+    out["best_serve"] = {"launches": launches, "conf_thres": conf, "detections": int(valid.sum()),
+                         "best_epoch": meta["epoch"]}
+    check(bool(torch.isfinite(dets).all()) and int(valid.sum()) > 0,
+          f"bad detections from best.npz: {out['best_serve']}")
+    if on_card:
+        check(launches["fixpoint_keep"] > 0, "K3 did not launch serving best.npz on 'matrix'")
+    parts["serve_best_s"] = time.perf_counter() - t1
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def device_aug_check(device, images):
+    """device_aug on the card against its plain CPU version on the same
+    uint8 batch, gains and flips."""
+    import torch
+
+    from dmayolo_tpu_torch.data.device_aug import apply_hsv_flip, augment_batch
+
+    x = torch.from_numpy(images).to(device)
+    g = torch.Generator(device=device).manual_seed(11)
+    got, flipped = augment_batch(x, g, hgain=0.4, sgain=0.3, vgain=0.5)
+    u = torch.rand((x.shape[0], 3), generator=torch.Generator(device=device).manual_seed(11),
+                   device=device)  # the gains augment_batch drew, drawn again
+    gains = u * 2.0 - 1.0
+    gains = gains * torch.tensor([0.4, 0.3, 0.5], device=device) + 1.0
+    want = apply_hsv_flip(x.cpu(), gains.cpu(), flipped.cpu())
+    err = float((got.cpu() - want).abs().max())
+    check(err <= DEVICE_AUG_TOL, f"device_aug on {device} vs the CPU: {err}")
+    return {"images": int(x.shape[0]), "flipped": int(flipped.sum()), "max_abs_err": err,
+            "tol": DEVICE_AUG_TOL}
+
+
+def machine_probe():
+    """What the host offers the data path: which image modules are
+    installed (found, not imported: the port uses none of them), the CPU
+    count, the JPEG and PNG headers and libraries, nvJPEG, g++, and
+    whether the port's host library was built with JPEG."""
+    import importlib.util
+    import os
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from dmayolo_tpu_torch.data.imageio import jpeg_available
+
+    cuda = Path(CUDA_HOME or "/usr/local/cuda")
+    libs = ""
+    if shutil.which("ldconfig"):
+        libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
+    return {
+        "modules_found": {m: importlib.util.find_spec(m) is not None
+                          for m in ("cv2", "PIL", "torchvision", "triton")},
+        "cpu_count": os.cpu_count(),
+        "headers": {h: Path(h).exists() for h in ("/usr/include/jpeglib.h",
+                                                   "/usr/include/turbojpeg.h",
+                                                   "/usr/include/png.h", "/usr/include/zlib.h",
+                                                   str(cuda / "include" / "nvjpeg.h"))},
+        "ldconfig": sorted({line.split()[0] for line in libs.splitlines()
+                            if any(k in line for k in ("jpeg", "png", "libz."))}),
+        "nvjpeg_libs": sorted(p.name for p in (cuda / "lib64").glob("libnvjpeg*")),
+        "gxx": gxx.stdout.splitlines()[0],
+        "host_library_jpeg": jpeg_available(),
+    }
+
+
+def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=None):
+    """The data path on disk: generate, time the loader alone, run
+    `run_validation` on the three backends (counted), check known answers
+    on the files, train from the data yaml with device_aug off and on, and
+    hold device_aug against its CPU version.  Writes under build/ and
+    removes what it wrote."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.data.datasets import DetectionDataset
+    from dmayolo_tpu_torch.data.imageio import imread, jpeg_available
+    from dmayolo_tpu_torch.data.synthetic import generate_visdrone_analog
+    from dmayolo_tpu_torch.eval.validator import run_validation
+    from dmayolo_tpu_torch.graph import model_config
+    from dmayolo_tpu_torch.train.trainer import load_hyp
+    from dmayolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from dmayolo_tpu_torch.utils.weights import jax_from_state_dict
+
+    on_card = device.type == "cuda"
+    cpus = os.cpu_count() or 1
+    workers = workers or min(8, cpus)
+    ext = "jpg" if jpeg_available() else "png"
+    out = {"cpu_count": cpus, "workers": workers, "format": ext, "sizes": dict(sizes),
+           "probe": machine_probe()}
+    print("data probe: " + json.dumps(out["probe"]), flush=True)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        # ---- 1. the dataset, drawn by the port's generator
+        t0 = time.perf_counter()
+        data_yaml = generate_visdrone_analog(DATA_DIR, n_train=sizes["n_train"],
+                                             n_val=sizes["n_val"], img_size=sizes["img_size"],
+                                             seed=0, ext=ext, workers=workers)
+        out["generate_s"] = time.perf_counter() - t0
+        val_dir, train_dir = str(DATA_DIR / "images" / "val"), str(DATA_DIR / "images" / "train")
+        val_many = str(replicate_split(DATA_DIR, "val", sizes["val_copies"]))
+        train_many = replicate_split(DATA_DIR, "train", sizes["train_copies"])
+        n_val = sizes["n_val"] * sizes["val_copies"]
+        files = sorted((DATA_DIR / "images" / "val").iterdir())[:8]
+        t0 = time.perf_counter()
+        for f in files:
+            imread(f)
+        out["decode_ms"] = (time.perf_counter() - t0) / len(files) * 1e3
+        out["file_mb"] = sum(f.stat().st_size for f in files) / len(files) / 2 ** 20
+
+        # ---- 2. the loader alone: val (letterbox) and train (the recipe's hyp)
+        stride = int(model.stride.max())
+        val_ds = DetectionDataset(val_many, img_size=sizes["val_imgsz"], stride=stride, nc=nc)
+        train_ds = DetectionDataset(train_dir, img_size=sizes["img_size"], augment=True,
+                                    hyp=load_hyp("visdrone"), stride=stride, nc=nc)
+        rates = {}
+        for name, ds, bs, shuffle in (("val", val_ds, sizes["val_batch"], False),
+                                      ("train", train_ds, sizes["train_batch"], True)):
+            n1 = sizes["one_worker_batches"][name]
+            one, at1 = loader_pass(ds, bs, 1, n1, shuffle)
+            many, at_n = loader_pass(ds, bs, workers, -(-len(ds) // bs), shuffle)
+            check(same_batches(one, many[:n1]),
+                  f"{name} batches differ between 1 and {workers} workers")
+            rates[name] = {"batch": bs, **loader_rates(one, at1, many, at_n, workers)}
+            if name == "val":
+                out["targets_vs_labels_px"] = targets_vs_labels(ds, many, sizes["val_imgsz"])
+                check(out["targets_vs_labels_px"] <= TARGET_TOL_PX,
+                      f"loader targets vs label files: {out['targets_vs_labels_px']} px")
+                val_images = many[0].images
+            del one, many
+        out["loader"] = rates
+        print("data loader: " + json.dumps(rates), flush=True)
+
+        # ---- 3. known answers on the files: COCO's ground truth fed back
+        out["coco_known_answer"] = coco_known_answer(val_dir, nc)
+
+        # ---- 4. run_validation on the three backends, the loader included,
+        # on the model's own detections written as the labels (the random
+        # weights score 0 on the generated ones): a K2 or K3 that kept other
+        # boxes than "scan" moves the metrics
+        dtype = torch.bfloat16 if on_card else torch.float32
+        own_labels(model, val_dir, sizes["val_imgsz"], sizes["val_batch"], dtype, workers)
+        t0 = time.perf_counter()  # the label cache, rebuilt for the new labels: not timed below
+        DetectionDataset(val_many, img_size=sizes["val_imgsz"], stride=stride, nc=nc)
+        out["val_rescan_s"] = time.perf_counter() - t0
+        n_batches = -(-n_val // sizes["val_batch"])
+        out["run_validation"] = {}
+        first = None
+        for backend in EVAL_BACKENDS:
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            res = run_validation(model, val_many, img_size=sizes["val_imgsz"],
+                                 batch_size=sizes["val_batch"], nc=nc, dtype=dtype,
+                                 nms_backend=backend, workers=workers, device=device)
+            wall = time.perf_counter() - t0
+            r = {"images": n_val, "wall_s": wall, "img_per_s": n_val / wall,
+                 "speed_ms": res.speed_ms, "launches": {c.__name__: c.launches for c in counters},
+                 **{k: getattr(res, k) for k in ("mp", "mr", "map50", "map75", "map", "nt")}}
+            out["run_validation"][backend] = r
+            metrics = tuple(r[k] for k in ("mp", "mr", "map50", "map75", "map"))
+            check(all(np.isfinite(v) for v in metrics) and r["nt"] > 0
+                  and 0 < r["map50"] < 1, f"bad run_validation result on '{backend}': {r}")
+            if first is None:
+                first = (backend, metrics)
+            else:
+                check(metrics == first[1], f"run_validation metrics differ between "
+                                           f"'{first[0]}' and '{backend}'")
+        if on_card:
+            lm = out["run_validation"]["matrix"]["launches"]
+            lp = out["run_validation"]["pallas"]["launches"]
+            check(lm["fixpoint_keep_blocked"] == n_batches and lm["fixpoint_keep"] == 0,
+                  f"run_validation on 'matrix': K3's blocked entry once a batch? {lm}")
+            check(lp["nms_greedy_stream_cluster"] == n_batches,
+                  f"run_validation on 'pallas': K2's cluster kernel once a batch? {lp}")
+
+        print("data run_validation: " + json.dumps(out["run_validation"]), flush=True)
+
+        # ---- 5. the Trainer from the data yaml, device_aug off and on, each
+        # from the eval weights above as its pretrained checkpoint: a fresh
+        # init's head priors keep every score under the protocol's conf
+        # gate, so no fitness above 0 and no best.npz
+        cfg = cfg or model_config(FLAGSHIP)
+        val_list = DATA_DIR / "val_train.txt"  # the Trainer validates on the first images
+        val_list.write_text("".join(f"{f}\n" for f in
+                                    sorted((DATA_DIR / "images" / "val").iterdir())
+                                    [:sizes["train_val"]]))
+        train_yaml = DATA_DIR / "train.yaml"
+        train_yaml.write_text(f"path: {DATA_DIR}\ntrain: {train_many}\nval: {val_list}\n"
+                              f"nc: {nc}\n")
+        start = DATA_DIR / "start.npz"
+        save_checkpoint(start, meta={"nc": nc}, **dict(zip(("params", "stats"),
+                                                          jax_from_state_dict(model))))
+        out["train"] = []
+        for aug in sizes["train_device_aug"]:  # repeat the pair to see the spread
+            out["train"].append(data_train(device, train_yaml, cfg, sizes, counters, aug,
+                                           workers, start))
+            print("data train: " + json.dumps({k: v for k, v in out["train"][-1].items()
+                                                if k != "losses"}), flush=True)
+
+        # ---- 6. device_aug on the card against its CPU version
+        out["device_aug"] = device_aug_check(device, val_images)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return out
+
+
+def print_data(dp, ev, tr_mem, smi):
+    """The data phase's summary lines; `ev` and `tr_mem` are the eval and
+    train phases' results (the device step alone, the in-memory Trainer)."""
+    s, w, pr = dp["sizes"], dp["workers"], dp["probe"]
+    print(f"data probe of the card's host: found {pr['modules_found']} (none imported); "
+          f"headers {[h for h, ok in pr['headers'].items() if ok]}; libraries "
+          f"{pr['ldconfig']} {pr['nvjpeg_libs']}; {pr['gxx']}; the port's host library "
+          f"{'with' if pr['host_library_jpeg'] else 'without'} JPEG; on {smi}", flush=True)
+    print(f"data: host cpu_count {dp['cpu_count']}, {w} loader workers; "
+          f"{s['n_train']} train + {s['n_val']} val VisDrone-analog images at {s['img_size']} px "
+          f"as {dp['format'].upper()} ({dp['file_mb']:.2f} MiB each), generated in "
+          f"{dp['generate_s']:.1f} s; decode {dp['decode_ms']:.1f} ms an image on one thread",
+          flush=True)
+    for name, r in dp["loader"].items():
+        what = (f"val: letterbox to {s['val_imgsz']}" if name == "val"
+                else f"train: hyp VisDrone at {s['img_size']} (mosaic, warp, mixup 0.2, HSV, "
+                     "flip)")
+        print(f"data loader alone, {what}, bs{r['batch']}: {r['img_per_s_1']:.2f} img/s at 1 "
+              f"worker ({r['batches_1']} batches), {r[f'img_per_s_{w}']:.2f} img/s at {w} "
+              f"({r[f'batches_{w}']} batches, the fill included), "
+              f"{r[f'img_per_s_{w}_after_first_round']:.2f} after the first {w}; the same "
+              f"bytes at both; on {smi}", flush=True)
+    print(f"data loader targets mapped back to native pixels vs the label files: max "
+          f"{dp['targets_vs_labels_px']:.2e} px (tol {TARGET_TOL_PX}); COCOeval of the "
+          f"labels fed back: mAP {dp['coco_known_answer']['map']}", flush=True)
+    for b, r in dp["run_validation"].items():
+        step = ev["backends"][b]["img_per_s"] if ev else float("nan")
+        print(f"run_validation bs{s['val_batch']} {s['val_imgsz']}px bf16 NMS '{b}' on "
+              f"{s['n_val']} files read {s['val_copies']}x ({r['images']} images, {w} loader "
+              f"threads): {r['img_per_s']:.1f} img/s whole run, loader included "
+              f"(device step alone, eval phase: {step:.1f} img/s); P {r['mp']:.4g} R "
+              f"{r['mr']:.4g} mAP@.5 {r['map50']:.4g} mAP@.5:.95 {r['map']:.4g}, identical "
+              f"across backends; on {smi}", flush=True)
+    mem = tr_mem.get("img_per_s", float("nan"))
+    mem16 = 64e3 / tr_mem["step_ms"][16] if "step_ms" in tr_mem else float("nan")
+    for t in dp["train"]:
+        fill, tw, pw = (t["windows"][k] for k in ("fill", "timed", "profiled"))
+        (a, b), (p, q) = tw["batches"], pw["batches"]
+        print(f"data Trainer {s['img_size']}px bs{s['train_batch']} accumulate "
+              f"{s['train_accumulate']} Adam bf16 hyp VisDrone, device_aug "
+              f"{'on' if t['device_aug'] else 'off'}: {tw['img_per_s']:.2f} img/s over batches "
+              f"{a}-{b - 1} unprofiled (the loop waited {tw['loader_wait_s']:.2f} of "
+              f"{tw['wall_s']:.2f} s for the loader, which made {tw['loader_img_per_s']:.2f} "
+              f"img/s; batches 0-{a - 1}, the fill and the first steps, "
+              f"{fill['img_per_s']:.2f} img/s); device busy {pw['device_busy_share']:.3f}"
+              f" over batches {p}-{q - 1} under torch.profiler ({pw['img_per_s_under_profiler']:.2f}"
+              f" img/s, waited {pw['loader_wait_s']:.2f} of {pw['wall_s']:.2f} s); in memory, "
+              f"train phase: {mem:.2f} img/s at accumulate 1, {mem16:.2f} a step of accumulate "
+              f"16; val at the epoch's end mAP@.5 {t['val']['map50']:.4g}; best.npz served on "
+              f"'matrix' ({t['best_serve']['detections']} detections); on {smi}", flush=True)
+    da = dp["device_aug"]
+    print(f"device_aug on the card vs its CPU version: max abs err {da['max_abs_err']:.2e} "
+          f"(tol {da['tol']})", flush=True)
+
+
 def main():
     import torch
 
@@ -2053,6 +2703,15 @@ def main():
               f"{sums['step_bound_ms']:.3f} ms; max scaled err {k1s['max_scaled_err']:.2e} "
               f"(images 0-1); on {smi}", flush=True)
 
+    # ---- the data path on disk: loader, run_validation, the data-built Trainer
+    t1 = time.perf_counter()
+    model = build_model(device)
+    report["data"] = dp = data_phase(device, counters, model)
+    dp["s"] = time.perf_counter() - t1
+    del model
+    torch.cuda.empty_cache()
+    print_data(dp, ev, tr, smi)
+
     # K1's headline: one bf16 call at each of the four shapes, summed; the
     # bound of that sum is the larger of its summed byte and operation
     # times.  The f32 route's sums beside it, on the 3xTF32 rate.
@@ -2078,6 +2737,10 @@ def main():
                       for b, r in res["eval"]["backends"].items()})
         paths[f"{name} trained checkpoint served, matrix"] = \
             res["train"]["checkpoint_serve"]["launches"]
+    paths.update({f"run_validation {b}": r["launches"] for b, r in dp["run_validation"].items()})
+    for t in dp["train"]:
+        paths[f"data-trained best.npz served, matrix, device_aug {int(t['device_aug'])}"] = \
+            t["best_serve"]["launches"]
 
     def launches(counter):
         by_path = {p: n[counter.__name__] for p, n in paths.items() if n[counter.__name__]}

@@ -1,8 +1,8 @@
 """COCO-format prediction export + optional pycocotools evaluation.
 
-Port of `dmayolo_tpu/eval/coco_json.py` (host numpy, copied).  The GT
-builder from a YOLO-layout dataset, `build_coco_gt_from_yolo`, reads the
-dataset's label cache and comes with the data slice of the port.
+Port of `dmayolo_tpu/eval/coco_json.py` (host numpy, copied), with the
+GT builder from a YOLO-layout dataset, `build_coco_gt_from_yolo`, which
+reads the dataset's label cache.
 
 Reference surface: val.py:50-60 (save_one_json), val.py:325-341 (COCOeval),
 utils/general.py:517-525 (coco80_to_coco91_class). Output entries are
@@ -88,6 +88,43 @@ def write_coco_json(jdict: List[dict], path) -> Path:
     with open(path, "w") as f:
         json.dump(jdict, f)
     return path
+
+
+def build_coco_gt_from_yolo(val_path, nc: int, names=None,
+                            class_map: Optional[Sequence[int]] = None,
+                            single_cls: bool = False) -> Dict:
+    """COCO-format GT dict from a YOLO-layout dataset (images + labels txt),
+    so that the COCO protocol runs on any dataset.  Image ids are those of
+    `append_coco_json` (`image_id_map`); `class_map` must be the map the
+    prediction writer used.  Reads the dataset's label cache (shapes and
+    labels): no image is decoded again."""
+    from ..data.datasets import DetectionDataset
+
+    ds = DetectionDataset(val_path, img_size=640, augment=False, rect=False)
+    cmap = list(class_map) if class_map is not None else list(range(nc))
+    ids = image_id_map(ds.im_files)
+    images, annotations = [], []
+    ann_id = 1
+    cats = set()
+    for f, lb, (h, w) in zip(ds.im_files, ds.labels, ds.shapes):
+        iid = ids[str(f)]
+        images.append({"id": iid, "file_name": Path(f).name,
+                       "height": int(h), "width": int(w)})
+        for cls, cx, cy, bw, bh in np.asarray(lb, np.float64).reshape(-1, 5):
+            if single_cls:  # the --single-cls protocol: every class 0
+                cls = 0
+            x1, y1 = (cx - bw / 2) * w, (cy - bh / 2) * h
+            cat = cmap[int(cls)]
+            annotations.append({
+                "id": ann_id, "image_id": iid, "category_id": cat,
+                "bbox": [x1, y1, bw * w, bh * h], "area": bw * w * bh * h,
+                "iscrowd": 0,
+            })
+            ann_id += 1
+            cats.add((int(cls), cat))
+    categories = [{"id": cat, "name": (names[c] if names and c < len(names) else str(c))}
+                  for c, cat in sorted(cats)]
+    return {"images": images, "annotations": annotations, "categories": categories}
 
 
 def evaluate_coco(pred_json, anno_json, img_ids: Optional[List[int]] = None):

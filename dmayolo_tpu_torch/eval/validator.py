@@ -8,14 +8,16 @@ aggregates AP (`eval/metrics.py`).  The protocol's defaults are the
 reference's: conf 0.001, NMS IoU 0.6, multi-label, max_det 300, and 30,000
 candidates before NMS.
 
-`_match_batch` and `_summarize` are the body and the summary of the JAX
-`run_validation` loop, on arrays shaped like its `Batch`: images
-(B, H, W, 3) uint8, targets cls (B, M), box xywhn (B, M, 4), mask (B, M).
-The loop itself, which reads the dataset from disk, comes with the data
-slice of the port (ROADMAP.md, Queue 1 item 10).
+`run_validation` reads a dataset from disk through the port's
+`DetectionDataset` and `DataLoader` (letterboxed batches, optionally
+rectangular) and runs the protocol over it; `_match_batch` and
+`_summarize` are its loop's body and summary, on arrays shaped like the
+loader's `Batch`: images (B, H, W, 3) uint8, targets cls (B, M), box xywhn
+(B, M, 4), mask (B, M).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -25,6 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.nms import batched_nms
+from ..data.datasets import DetectionDataset
+from ..data.loader import DataLoader
+from ..utils.device import resolve_device
+from .coco_json import append_coco_json, image_id_map
 from .metrics import ap_per_class, process_batch
 from .tta import forward_augment
 
@@ -182,4 +188,119 @@ def _summarize(stats: List[tuple], nc: int,
         nt_cls = np.bincount(tcls.astype(int), minlength=nc)[classes]
         res.per_class = {"cls": classes, "p": p, "r": r, "ap50": ap50,
                          "ap": ap_mean, "nt": nt_cls}
+    return res
+
+
+def run_validation(
+    model,
+    data_path,
+    img_size: int = 640,
+    batch_size: int = 16,
+    nc: Optional[int] = None,
+    conf_thres: float = 0.001,
+    iou_thres: float = 0.6,
+    max_det: int = 300,
+    dtype=torch.bfloat16,
+    fused: bool = False,
+    max_targets: int = 256,
+    augment: bool = False,
+    save_txt_dir: Optional[Path] = None,
+    save_conf: bool = False,
+    rect: bool = False,
+    pad: float = 0.5,
+    single_cls: bool = False,
+    max_nms: int = 30000,
+    nms_backend: str = "scan",
+    save_json: Optional[list] = None,
+    class_map=None,
+    mesh=None,
+    spatial: bool = False,
+    save_hybrid: bool = False,
+    quant=None,
+    workers: int = 4,
+    device=None,
+) -> ValResult:
+    """The eval protocol over the images and labels under `data_path` (a
+    directory or a txt list of images): P, R, mAP@.5, mAP@.75 and
+    mAP@.5:.95 of `model` (in eval mode for the run), on `device` (None:
+    CUDA; the model must be there).
+
+    rect: the aspect-sorted rectangular batches (pad 0.5 of a stride).
+    save_txt_dir / save_json: the detections in native pixels as txt rows
+    or COCO entries; save_hybrid: the labels join the candidates before
+    NMS.  `workers` loader threads.  speed_ms: the device step (forward,
+    decode, NMS, the copy back) a image after the first batch, and the
+    loader's wait a image."""
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"the model is on {next(model.parameters()).device}, "
+                         f"validation asked for {device}")
+    nc = nc if nc is not None else model.nc
+    ds = DetectionDataset(
+        data_path, img_size=img_size, augment=False, rect=rect,
+        stride=int(model.stride.max()),
+        nc=nc if not single_cls else 10 ** 6,  # ids validated against the raw dataset
+        batch_size=batch_size, pad=pad, single_cls=single_cls)
+    loader = DataLoader(ds, batch_size, max_targets=max_targets, shuffle=False,
+                        drop_last=False, workers=workers)
+    if quant is not None and augment:
+        raise ValueError("int8 with TTA (augment) is not supported")
+    infer = make_infer_fn(model, conf_thres, iou_thres, max_det, dtype=dtype, fused=fused,
+                          augment=augment, max_nms=max_nms, nms_backend=nms_backend,
+                          mesh=mesh, spatial=spatial, hybrid=save_hybrid, quant=quant)
+    if save_txt_dir is not None:
+        save_txt_dir = Path(save_txt_dir)
+        save_txt_dir.mkdir(parents=True, exist_ok=True)
+    json_ids = image_id_map(ds.im_files) if save_json is not None else None
+    # identity class map sized to the model, past 1000 for LVIS-scale counts
+    cmap = class_map if class_map is not None else list(range(max(1000, nc)))
+
+    stats_acc = []
+    t_infer = t_first = t_wait = 0.0
+    n_first = n_timed = n_all = 0
+    was_training = model.training
+    model.eval()
+    try:
+        t_w = time.perf_counter()
+        for batch in loader:
+            t0 = time.perf_counter()
+            t_wait += t0 - t_w
+            n = batch.images.shape[0]
+            tgt = batch.targets if save_hybrid else ()
+            dets, valid = infer(batch.images, *tgt)
+            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+            if n_all == 0:  # the first batch carries the builds and the autotuning
+                t_first, n_first = time.perf_counter() - t0, n
+            else:
+                t_infer += time.perf_counter() - t0
+                n_timed += n
+            n_all += n
+            hw = batch.images.shape[1:3]
+            stats, kept = _match_batch(dets, valid, hw, *batch.targets, single_cls=single_cls)
+            stats_acc += stats
+            if save_txt_dir is not None or save_json is not None:
+                for i, d in enumerate(kept):
+                    idx = batch.indices[i]
+                    native = tuple(ds.shapes[idx])
+                    dn = d.copy()
+                    dn[:, :4] = _scale_to_native(d[:, :4], hw, native)
+                    if save_txt_dir is not None:
+                        _save_txt(dn, native, save_txt_dir / f"{Path(ds.im_files[idx]).stem}.txt",
+                                  save_conf)
+                    if save_json is not None:
+                        append_coco_json(jdict=save_json, dets_native=dn,
+                                         image_id=json_ids[str(ds.im_files[idx])],
+                                         class_map=cmap)
+            t_w = time.perf_counter()
+    finally:
+        model.train(was_training)
+
+    if n_timed:
+        speed = {"inference+nms": 1000 * t_infer / n_timed}
+    else:  # one batch: only the one with the builds exists
+        speed = {"inference+nms(incl compile)": 1000 * t_first / max(n_first, 1)}
+    speed["loader_wait"] = 1000 * t_wait / max(n_all, 1)
+    res = _summarize(stats_acc, nc, speed)
+    if save_json is not None:
+        res.used_image_ids = sorted(set(json_ids.values()), key=str)
     return res

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from ..data.device_aug import augment_batch, flip_targets_lr
 from ..utils.weights import jax_from_state_dict, jax_paths, state_dict_from_jax, to_jax_layout
 from .loss import Targets
 from .optim import Schedule, ema_decay, ema_update, make_optimizer, set_schedule
@@ -51,7 +52,7 @@ def _frozen(name: str, freeze: int) -> bool:
 
 
 def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
-                    accumulate: int = 1, freeze: int = 0):
+                    accumulate: int = 1, freeze: int = 0, device_aug: Optional[Dict] = None):
     """Build the step `(state, images, targets, generator=None, ni=None) ->
     metrics`.
 
@@ -63,7 +64,11 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
     accumulate ramp), steps the optimizer, and updates the EMA.  `freeze`
     leaves the parameters of model.0 .. model.{freeze - 1} and their
     optimizer state exactly as they were.  `generator` is the JAX step's
-    rng; no layer of the ported models and no loss draws from it.
+    rng; no layer of the ported models and no loss draws from it, only
+    `device_aug`: {'hgain', 'sgain', 'vgain', 'fliplr'} moves the HSV
+    jitter and the left-right flip of each uint8 microbatch into the step
+    (`data/device_aug.py`, on the images' device), the targets of flipped
+    rows mirrored; the host pipeline must then leave them out.
 
     metrics: loss (total / accumulate) and the loss's items (box, obj and
     cls, or TAL's box, cls and dfl) averaged over the microbatches, as 0-d
@@ -80,10 +85,17 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
         for k in range(accumulate):
             sl = slice(k * mb, (k + 1) * mb)
             x = imgs[sl]
-            x = x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
+            tgt = Targets(*(t[sl] for t in targets))
+            if device_aug is not None and x.dtype == torch.uint8:
+                x, flipped = augment_batch(
+                    x, generator, hgain=device_aug["hgain"], sgain=device_aug["sgain"],
+                    vgain=device_aug["vgain"], fliplr_p=device_aug["fliplr"], dtype=dtype)
+                tgt = Targets(tgt.cls, flip_targets_lr(tgt.box, flipped), tgt.mask)
+            else:
+                x = x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
             raw = model(x, dtype)
             with record_function("loss"):
-                tot, its = loss_fn(raw, Targets(*(t[sl] for t in targets)))
+                tot, its = loss_fn(raw, tgt)
             tot.backward()
             total = total + tot.detach()
             items = {n: items.get(n, 0.0) + torch.as_tensor(v).detach() for n, v in its.items()}

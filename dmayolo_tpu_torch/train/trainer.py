@@ -2,28 +2,43 @@
 the SIoU `ComputeLoss`) and the anchor-free TDetect (`assignment="tal"`,
 `ComputeLossTAL`).
 
-Port of `dmayolo_tpu/train/trainer.py` without the data stack: the caller
-passes the loader, a sized iterable of batches with `.images` (uint8
-(B, H, W, 3)) and `.targets` (`Targets`, numpy or tensors), the JAX
-`DataLoader`'s batch shape, and `nc`; with `autoanchor`, the loader also
-has the dataset's `.shapes` and `.labels` (see `train/autoanchor.py`).
+Port of `dmayolo_tpu/train/trainer.py`.  The batches come from one of two
+sources:
+
+  * `data`: a dataset yaml or dict (`nc`, `train`, `val`), read through
+    the port's `DetectionDataset` and threaded `DataLoader` with the hyp's
+    augmentation; the EMA model is validated (`run_validation`) every
+    `val_interval` epochs, `best` kept by fitness, and `EarlyStopping`
+    ends the run after `patience` epochs without a better one;
+  * `loader`: a sized iterable of in-memory batches with `.images` (uint8
+    (B, H, W, 3)) and `.targets` (`Targets`, numpy or tensors), and `nc`;
+    with `autoanchor`, the loader also has the dataset's `.shapes` and
+    `.labels` (see `train/autoanchor.py`).  No validation.
+
 The trainer scales the hyp, picks the accumulation, builds the loss, the
 schedule and the train state, and runs the epochs: the warmup accumulate
 ramp, a `last` checkpoint in the JAX `.npz` format and a CSV row each
-epoch.
+epoch.  `device_aug` (HSV and flip) and `multi_scale` (a bilinear resize
+of the batch) run on the model's device.
 """
 from __future__ import annotations
 
 import csv
 import math
+import random
 import time
 from pathlib import Path
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import yaml
 
+from ..data.datasets import DetectionDataset, check_dataset
+from ..data.loader import Batch, DataLoader  # noqa: F401 (Batch: the in-memory batches' type)
+from ..eval.metrics import fitness
+from ..eval.validator import run_validation
 from ..graph import DetectionModel
 from ..nn.heads import Detect, TDetect
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_checkpoint
@@ -31,7 +46,7 @@ from ..utils.device import resolve_device
 from ..utils.weights import state_dict_from_jax
 from .autoanchor import maybe_autoanchor
 from .loss import ComputeLoss, Targets
-from .optim import Schedule, param_groups
+from .optim import Schedule, labels_to_class_weights, labels_to_image_weights, param_groups
 from .step import init_train_state, load_state_trees, make_train_step, state_trees
 from .tal import ComputeLossTAL
 
@@ -67,11 +82,19 @@ def scale_hyp(hyp: Dict, nl: int, nc: int, img_size: int) -> Dict:
     return h
 
 
-class Batch(NamedTuple):
-    """One loader batch: uint8 images (B, H, W, 3) and their Targets."""
+MULTI_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5)  # multi_scale's buckets of img_size
+METRIC_KEYS = ("metrics/precision", "metrics/recall", "metrics/mAP_0.5",
+               "metrics/mAP_0.5:0.95", "fitness")
 
-    images: Any
-    targets: Targets
+
+def resize_batch(images: torch.Tensor, size: int) -> torch.Tensor:
+    """uint8 (B, H, W, 3) -> (B, size, size, 3): bilinear with half-pixel
+    centres and no antialiasing (cv2's INTER_LINEAR), on the batch's
+    device."""
+    x = images.permute(0, 3, 1, 2).float()
+    x = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False,
+                      antialias=False)
+    return x.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
 
 
 class EarlyStopping:
@@ -93,9 +116,9 @@ class Trainer:
     def __init__(
         self,
         cfg,                      # model yaml path or dict
-        loader,                   # sized iterable of Batch-shaped batches
-        hyp: Dict,
-        nc: int,
+        loader=None,              # sized iterable of in-memory batches, or None with `data`
+        hyp: Optional[Dict] = None,
+        nc: Optional[int] = None,
         epochs: int = 100,
         batch_size: int = 16,
         img_size: int = 640,
@@ -110,14 +133,49 @@ class Trainer:
         autoanchor: bool = False,
         nosave: bool = False,
         device=None,
+        data=None,                # dataset yaml path or dict, or None with `loader`
+        workers: int = 4,
+        max_targets: int = 128,
+        patience: int = 30,
+        val_interval: int = 1,
+        noval: bool = False,
+        save_period: int = -1,
+        device_aug: bool = False,
+        multi_scale: bool = False,
+        image_weights: bool = False,
+        rect: bool = False,
+        quad: bool = False,
+        cache_images=False,       # False, True or "ram", or "disk"
+        single_cls: bool = False,
     ):
+        if (loader is None) == (data is None):
+            raise ValueError("pass exactly one source of batches: loader= or data=")
+        if hyp is None:
+            raise ValueError("hyp is required")
+        if data is None and (image_weights or rect or quad or cache_images or single_cls):
+            raise ValueError("image_weights, rect, quad, cache_images and single_cls "
+                             "need the dataset: pass data=")
         self.device = resolve_device(device)
         self.epochs = epochs
+        self.bs = batch_size
         self.dtype = dtype
         self.seed = seed
         self.nosave = nosave
         self.out = Path(out_dir)
-        self.loader = loader
+        self.workers = workers
+        self.max_targets = max_targets
+        self.patience = patience
+        self.val_interval = val_interval
+        self.noval = noval
+        self.save_period = save_period
+        self.multi_scale = multi_scale
+        self.image_weights = image_weights
+        self.single_cls = single_cls
+        self.data = check_dataset(data) if data is not None else None
+        if self.data is not None:
+            nc = 1 if single_cls else self.data["nc"]
+        elif nc is None:
+            raise ValueError("nc is required with an in-memory loader")
         self.nc = nc
         # checkpoints are self-describing: the config path, or the dict
         self.cfg_ref = str(cfg) if isinstance(cfg, (str, Path)) else dict(cfg)
@@ -127,12 +185,36 @@ class Trainer:
         img_size = self.img_size = check_img_size(img_size, gs, floor=gs * 2)
 
         h = scale_hyp(hyp, self.model.head.nl, nc, img_size)
+        # device_aug: HSV and the lr-flip move into the train step; the
+        # host pipeline sees those hyp keys zeroed
+        self.device_aug = ({"hgain": h.get("hsv_h", 0.015), "sgain": h.get("hsv_s", 0.7),
+                            "vgain": h.get("hsv_v", 0.4), "fliplr": h.get("fliplr", 0.5)}
+                           if device_aug else None)
+        self.train_ds = None
+        if self.data is not None:
+            host_h = dict(h)
+            if device_aug:
+                host_h.update(hsv_h=0.0, hsv_s=0.0, hsv_v=0.0, fliplr=0.0)
+            self.train_ds = DetectionDataset(
+                self.data["train"], img_size=img_size, augment=True, hyp=host_h, stride=gs,
+                nc=self.data["nc"], batch_size=batch_size, seed=seed, single_cls=single_cls,
+                cache_images=(cache_images == "ram" or cache_images is True),
+                cache_disk=(cache_images == "disk"),
+                rect=rect)  # rectangular training: no mosaic
+            loader = DataLoader(self.train_ds, batch_size, max_targets=max_targets,
+                                shuffle=not rect, workers=workers, seed=seed, quad=quad)
+        self.loader = loader
 
         # the optimizer steps once per `accumulate` loader batches (toward
         # the nominal batch 64), clamped to an epoch's batch count
         self.steps_per_epoch = len(loader)
         self.accumulate = int(accumulate) if accumulate else max(round(NBS / batch_size), 1)
         self.accumulate = max(min(self.accumulate, self.steps_per_epoch), 1)
+        if rect and self.accumulate > 1:
+            # rect batches differ in shape, so a group cannot be concatenated
+            print(f"rect: gradient accumulation disabled (was {self.accumulate}; "
+                  "rect batch shapes vary)")
+            self.accumulate = 1
         self.weight_decay = h.get("weight_decay", 5e-4) * batch_size * self.accumulate / NBS
 
         # resume: the trained anchors go in before the loss reads them
@@ -147,9 +229,10 @@ class Trainer:
         if assignment not in ("anchor", "tal"):
             raise ValueError(f"unknown assignment {assignment!r}")
         if autoanchor and assignment == "anchor" and not resumed_anchors:
-            if not (hasattr(loader, "shapes") and hasattr(loader, "labels")):
+            ds = self.train_ds if self.train_ds is not None else loader
+            if not (hasattr(ds, "shapes") and hasattr(ds, "labels")):
                 raise ValueError("autoanchor needs the loader's dataset .shapes and .labels")
-            maybe_autoanchor(self.model, loader, img_size, thr=h.get("anchor_t", 4.0))
+            maybe_autoanchor(self.model, ds, img_size, thr=h.get("anchor_t", 4.0))
         if assignment == "tal":
             if not isinstance(head, TDetect):
                 raise ValueError("assignment 'tal' needs a TDetect head")
@@ -174,6 +257,7 @@ class Trainer:
         # caller and accumulation is in play at all
         self.accum_ramp = accumulate is None and self.accumulate > 1
         self._steps = {}  # accumulate -> train step
+        self._pulled = None  # (optimizer step, the state's trees on the host)
 
         # init / pretrained / resume
         self.model.init_with_priors(torch.Generator().manual_seed(seed))
@@ -197,6 +281,9 @@ class Trainer:
             self.start_epoch = meta.get("epoch", -1) + 1
             self.best_fitness = meta.get("best_fitness", 0.0)
             print(f"resumed from {resume_from} at epoch {self.start_epoch}")
+        if self.train_ds is not None:
+            self.class_weights = labels_to_class_weights(self.train_ds.labels, nc)
+        self.maps = np.zeros(nc)  # per-class mAP, for image-weight resampling
         self.out.mkdir(parents=True, exist_ok=True)
         self.csv_path = self.out / "results.csv"
 
@@ -205,8 +292,18 @@ class Trainer:
         """The train step for one accumulate value, made once and kept."""
         if acc not in self._steps:
             self._steps[acc] = make_train_step(self.loss, self.sched, dtype=self.dtype,
-                                               accumulate=acc)
+                                               accumulate=acc, device_aug=self.device_aug)
         return self._steps[acc]
+
+    def validate(self, use_ema: bool = True):
+        """`run_validation` of the EMA model (or the model) on the val split."""
+        if self.data is None:
+            raise ValueError("validation needs the Trainer's data=")
+        return run_validation(
+            self.state.ema if use_ema else self.state.model, self.data["val"],
+            img_size=self.img_size, batch_size=self.bs, nc=self.nc, dtype=self.dtype,
+            max_targets=self.max_targets, single_cls=self.single_cls, workers=self.workers,
+            device=self.device)
 
     def _save(self, name: str, epoch: int):
         meta = {"epoch": epoch, "best_fitness": float(self.best_fitness),
@@ -214,12 +311,19 @@ class Trainer:
                 "nc": self.nc, "cfg": self.cfg_ref}
         if isinstance(self.model.head, Detect):  # the live anchors, in stride units
             meta["anchors"] = np.asarray(self.model.head.anchors, np.float32).tolist()
-        save_checkpoint(self.out / name, meta=meta, half=True, **state_trees(self.state))
+        # one device-to-host pull an optimizer step, shared by its best and last
+        if self._pulled is None or self._pulled[0] != self.state.step:
+            self._pulled = (self.state.step, state_trees(self.state))
+        save_checkpoint(self.out / name, meta=meta, half=True, **self._pulled[1])
 
     def _log_csv(self, row: Dict):
         new = not self.csv_path.exists()
+        keys = list(row)
+        if self.data is not None:  # the metrics columns, empty on epochs not validated
+            keys = [k for k in keys if k not in METRIC_KEYS and k != "time_s"] \
+                + list(METRIC_KEYS) + ["time_s"]
         with open(self.csv_path, "a", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=list(row))
+            w = csv.DictWriter(f, fieldnames=keys, restval="")
             if new:
                 w.writeheader()
             w.writerow(row)
@@ -236,6 +340,8 @@ class Trainer:
     def train(self, log_every: int = 10):
         """Run the epochs; returns the train state."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        stopper = EarlyStopping(self.patience)
+        gs = int(self.model.stride.max())
         t_start = time.time()
         self._pending = []  # the accumulation group, carried across epochs
         # the global batch counter ni drives the ramp and, on that path,
@@ -245,6 +351,11 @@ class Trainer:
             t0 = time.time()
             running, nb, metrics = {}, 0, None
             opt_steps = max(self.steps_per_epoch // self.accumulate, 1)
+            if self.image_weights and self.train_ds is not None:
+                cw = self.class_weights * (1 - self.maps) ** 2 / self.nc
+                self.loader.sample_weights = labels_to_image_weights(self.train_ds.labels,
+                                                                     self.nc, cw)
+            ms_rng = random.Random(self.seed + epoch)
             for batch in self.loader:
                 self._pending.append(batch)
                 ni = self._ni
@@ -257,6 +368,10 @@ class Trainer:
                     continue
                 group, self._pending = self._pending, []
                 images, targets = self.to_device(group)
+                if self.multi_scale:  # a bucket of sizes bounds the shapes seen
+                    sz = int(round(self.img_size * ms_rng.choice(MULTI_SCALES) / gs) * gs)
+                    if sz != images.shape[1]:
+                        images = resize_batch(images, sz)
                 if self.accum_ramp:
                     metrics = self.get_step(len(group))(self.state, images, targets, gen,
                                                         ni=float(ni))
@@ -271,12 +386,35 @@ class Trainer:
                 running = {k: float(v) for k, v in metrics.items()}
             row = {"epoch": epoch, **{f"train/{k}": v for k, v in running.items()}}
             final_epoch = epoch == self.epochs - 1
-            if not self.nosave or final_epoch:
+            stop = False
+            if self.data is not None and ((epoch + 1) % self.val_interval == 0 or final_epoch) \
+                    and (not self.noval or final_epoch):
+                res = self.validate()
+                if res.maps is not None:
+                    self.maps = res.maps
+                print(f"epoch {epoch} val: {res.summary()}", flush=True)
+                fi = float(fitness(np.array([[res.mp, res.mr, res.map50, res.map]]))[0])
+                if fi > self.best_fitness:
+                    self.best_fitness = fi
+                    if not self.nosave:
+                        self._save("best", epoch)
+                row.update(zip(METRIC_KEYS, (res.mp, res.mr, res.map50, res.map, fi)))
+                stop = stopper(epoch, fi)
+            if stop:
+                print(f"early stopping at epoch {epoch}")
+            if not self.nosave or final_epoch or stop:
                 self._save("last", epoch)
+            if self.save_period > 0 and (epoch + 1) % self.save_period == 0:
+                self._save(f"epoch{epoch}", epoch)
+            self._pulled = None  # the host copy serves only this epoch's saves
             row["time_s"] = time.time() - t0
             self._log_csv(row)
-        # a stripped last is the finished-run marker
-        if (self.out / "last.npz").exists():
-            strip_checkpoint(self.out / "last")
-        print(f"training done in {(time.time() - t_start) / 3600:.2f}h")
+            if stop:
+                break
+        # stripped checkpoints mark a finished run
+        for name in ("last", "best"):
+            if (self.out / f"{name}.npz").exists():
+                strip_checkpoint(self.out / name)
+        print(f"training done in {(time.time() - t_start) / 3600:.2f}h; "
+              f"best fitness {self.best_fitness:.4f}")
         return self.state

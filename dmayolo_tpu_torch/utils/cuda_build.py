@@ -7,6 +7,11 @@ builds into its own shared library for `sm_90a`, at first use, under
 headers beside it (`*.cuh`) and its flags, so an edited source is rebuilt
 and an unchanged one is reused.
 `build()` starts one nvcc per source, all at once.
+
+The host library of the data path (`csrc/host/*.cpp`, plain C++ for the
+CPU) is built the same way with g++ (`load_host_library`).  Its JPEG
+codec is compiled in only where the system has `<jpeglib.h>`; the flag
+that says so is part of the library's name.
 """
 from __future__ import annotations
 
@@ -82,6 +87,49 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+_HOST_COMMON = ["-std=c++17", "-O3", "-fPIC", "-shared"]
+_headers: Dict[str, bool] = {}
+
+
+def has_header(header: str) -> bool:
+    """Whether g++ finds `<header>` on this machine."""
+    with _lock:
+        if header not in _headers:
+            proc = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                                  input=f"#include <cstdio>\n#include <{header}>\n", capture_output=True, text=True)
+            _headers[header] = proc.returncode == 0
+        return _headers[header]
+
+
+def host_library_path(name: str, cflags, libs) -> Path:
+    src = (CSRC / "host" / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(cflags + libs).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-host-{digest}.so"
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The host library `name`, built with g++ on first use and cached;
+    with the JPEG codec where the system's libjpeg header is found."""
+    jpeg = has_header("jpeglib.h")
+    cflags = _HOST_COMMON + (["-DIMGIO_JPEG"] if jpeg else [])
+    libs = ["-ljpeg"] if jpeg else []
+    out = host_library_path(name, cflags, libs)
+    with _lock:
+        lib = _libs.get(out.name)
+        if lib is None:
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+                proc = subprocess.run(
+                    ["g++", *cflags, "-o", str(tmp), str(CSRC / "host" / f"{name}.cpp"), *libs],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}")
+                os.replace(tmp, out)
+            lib = _libs[out.name] = ctypes.CDLL(str(out))
+        return lib
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,5 +1,7 @@
 """The port stands alone: no file of dmayolo_tpu_torch/ and not
-chip_smoke.py imports jax or the JAX package, by an AST walk."""
+chip_smoke.py imports jax or the JAX package, nor OpenCV, PIL or
+torchvision (the card's machine need not have them; the port reads and
+writes images with its own host library), by an AST walk."""
 import ast
 from pathlib import Path
 
@@ -7,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "dmayolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu", "cv2", "PIL", "torchvision")
 
 
 def _imported(tree):
