@@ -151,6 +151,23 @@ source, all at once), then:
    best.npz served on
    "matrix", K3 counted.  Last, device_aug on the card against its CPU
    version on the same batch, gains and flips (1e-5).
+10. The zoo (`zoo_phase`, run between 8 and 9): the whole DMA-YOLO, `yolov5l-ca-sppfcspc-
+   bifpn-scconv` (the flagship's backbone, BiFPN AdConcat2/3 in the neck,
+   C3STR Swin stacks on P3-P5), and TPH-YOLOv5, `yolov5l-xs-tph` (C3STR
+   on P2-P5, `anchors: 4` replaced by autoanchor), full width, nc 10,
+   built as the flagship is.  Each is served as in 5 (K2, then K3
+   counted), its three serving tails identical at conf 0.0, its raw head
+   on the card within 1e-3 of the CPU's at 256 px, bs128 timed and
+   profiled (kernel groups, and the profiler ranges "attention" and
+   "layernorm"/"gelu"/"window shuffle" of nn/transformer.py); and
+   evaluated as in 6 with one TTA batch of 8.  DMA-full is trained at the
+   flagship's recipe (train.sh:5-9) through the `Trainer` over 10
+   in-memory batches, as the SPD models are, its checkpoint served on
+   "matrix"; `TrainProbe` checks that every AdConcat `w` moved, that the
+   frozen parameters (the Swin bias tables) did not, that each DropPath
+   above rate 0 (the P5 stack: 512 hidden channels, 16 heads, 0.1) ran
+   in train mode and dropped samples, and that one generator seed gives
+   one loss.
 
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
@@ -196,6 +213,12 @@ PROFILE_GROUPS = [
     ("max pool", ("max_pool",)),
     ("concat", ("CatArray",)),
 ]
+# profiler ranges of nn/transformer.py (device time of the kernels inside),
+# an overlay on the groups above
+PROFILE_RANGES = [("attention matmuls and softmax", ("attention",)),
+                  ("LayerNorm / GELU / window shuffles", ("layernorm", "gelu", "window shuffle"))]
+# every record_function name of the port (nn/transformer.py, train/step.py)
+RANGE_KEYS = {k for _, keys in PROFILE_RANGES for k in keys} | {"loss", "optimizer", "ema"}
 NATIVE_SIZES = [(1080, 1920), (375, 500), (480, 640), (720, 1280),
                 (640, 640), (100, 100), (1000, 300), (333, 777)]
 STREAM_KS = (1025, 4096, 30000)  # K2 streaming: just past one block, to the eval's max_nms
@@ -1020,6 +1043,22 @@ def card_state():
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
+def annotation(e):
+    """A profiler range's own device-side event (`record_function` marks
+    its span on the card too): its time is its kernels', counted once."""
+    return e.key in RANGE_KEYS
+
+
+def range_ms(averages):
+    """Device time of the kernels inside each of `PROFILE_RANGES`, from
+    its host-side event."""
+    import torch
+
+    ops = {e.key: e.device_time_total / 1e3 for e in averages
+           if e.device_type == torch.autograd.DeviceType.CPU}
+    return {name: sum(ops.get(k, 0.0) for k in keys) for name, keys in PROFILE_RANGES}
+
+
 def profile_step(step, top=12):
     """Device time of one serving step by kernel name (torch.profiler),
     and the device's busy share of the step's wall time."""
@@ -1033,7 +1072,8 @@ def profile_step(step, top=12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not annotation(e)]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     groups = {}
@@ -1043,7 +1083,7 @@ def profile_step(step, top=12):
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms if rows else None,
             "kernels": len(rows), "launches": sum(r[2] for r in rows),
-            "groups_ms": groups,
+            "groups_ms": groups, "ranges_ms": range_ms(prof.key_averages()),
             "top": [{"kernel": k[:90], "ms": ms, "count": n, "share": ms / device_ms}
                     for k, ms, n in rows[:top]]}
 
@@ -1222,6 +1262,9 @@ TRAIN_PROFILE_GROUPS = [
     ("loss (forward)", "loss"),
     ("optimizer", "optimizer"),
     ("EMA", "ema"),
+    # nn/transformer.py's profiler ranges; their backward is in "other"
+    ("attention matmuls and softmax (forward)", ("attention",)),
+    ("LayerNorm / GELU / window shuffles (forward)", ("layernorm", "gelu", "window shuffle")),
 ]
 
 
@@ -1511,10 +1554,12 @@ def profile_train_step(step, groups=TRAIN_PROFILE_GROUPS, top=15):
         wall_ms = (time.perf_counter() - t0) * 1e3
     avg = prof.key_averages()
     device_ms = sum(e.self_device_time_total for e in avg
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not annotation(e)) / 1e3
     ops = {e.key: e.device_time_total / 1e3 for e in avg
            if e.device_type == torch.autograd.DeviceType.CPU and e.device_time_total > 0}
-    by_group = {name: ops.get(key, 0.0) for name, key in groups}
+    by_group = {name: sum(ops.get(k, 0.0) for k in ((key,) if isinstance(key, str) else key))
+                for name, key in groups}
     by_group["other"] = device_ms - sum(by_group.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms, "groups_ms": by_group,
@@ -1595,21 +1640,24 @@ def train_checks(device, cfg, nc, recipe, check_imgsz, seed, bf16_checks=True):
 
 def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
           n_batches=TRAIN_BATCHES, warmup_batches=TRAIN_WARMUP_BATCHES, accs=TRAIN_ACCS,
-          counters=(), seed=7, checks=("f32", "bf16")):
+          counters=(), seed=7, checks=("f32", "bf16"), probe=None):
     """The training path: the `checks` of `train_checks` ("f32": the card's
     f32 step against the host's; "bf16": the bf16 step's loss against f32
     and its backward layer by layer, with a control fault), the recipe's
     Trainer over an in-memory epoch (finite losses, the reference cadence,
     img/s after `warmup_batches`, peak memory), step times at `accs`, one
     step profiled, and the EMA checkpoint held against the live EMA and
-    served on "matrix" (K3 counted) equal to "scan".  On the CPU (a
-    rehearsal at a small `cfg` and size) nothing is timed."""
+    served on "matrix" (K3 counted) equal to "scan".  A `probe`
+    (`TrainProbe`) watches the Trainer's model over the epoch (`before`,
+    `after`; its findings in "probe").  On the CPU (a rehearsal at a small
+    `cfg` and size) nothing is timed."""
     import shutil
 
     import numpy as np
     import torch
 
     from dmayolo_tpu_torch.graph import DetectionModel, model_config
+    from dmayolo_tpu_torch.nn.primitives import lend_generator
     from dmayolo_tpu_torch.train.trainer import Trainer, load_hyp
     from dmayolo_tpu_torch.utils.weights import load_jax_checkpoint
 
@@ -1651,8 +1699,13 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
             return run
 
         tr.get_step = recorded
+        if probe is not None:
+            probe.before(tr)
         state = tr.train(log_every=n_batches)
         tr.get_step = step_for
+        if probe is not None:
+            out["probe"] = probe.after(tr, state, batches[0], dtype=torch.bfloat16
+                                       if on_card else torch.float32)
         # the EMA's and the model's tensors as `last.npz` holds them (the
         # timed steps below advance the state)
         ema_sd = {k: v.clone() for k, v in state.ema.state_dict().items()}
@@ -1678,15 +1731,16 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
         # ---- ms per optimizer step at two accumulates, and one profiled step
         if on_card:
             imgs, tg = tr.to_device(batches[:max(accs)])
+            gen = torch.Generator(device=device).manual_seed(seed)  # for Dropout and DropPath
             out["step_ms"] = {}
             for acc in accs:
                 n = acc * b
                 step = tr.get_step(acc)
                 out["step_ms"][acc] = cuda_ms(
-                    lambda: step(tr.state, imgs[:n], type(tg)(*(t[:n] for t in tg))), 2)
+                    lambda: step(tr.state, imgs[:n], type(tg)(*(t[:n] for t in tg)), gen), 2)
             step1 = tr.get_step(1)
             out["profile"] = profile_train_step(
-                lambda: step1(tr.state, imgs[:b], type(tg)(*(t[:b] for t in tg))))
+                lambda: step1(tr.state, imgs[:b], type(tg)(*(t[:b] for t in tg)), gen))
             del imgs, tg
         anchors = getattr(tr.model.head, "anchors", None)
         del tr, state
@@ -1710,9 +1764,11 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
         x, _ = rectangles(8, check_imgsz, nc, seed + 2)
         xf = torch.from_numpy(x).to(device).float() / 255.0
 
-        def head(state_dict):  # raw head, f32, unfused, BN on the batch's moments
+        def head(state_dict):  # raw head, f32, unfused, BN on the batch's moments, the
+            # same DropPath masks each time
             served.load_state_dict(state_dict, strict=True)
-            with torch.inference_mode():
+            g = torch.Generator(device=device).manual_seed(seed)
+            with torch.inference_mode(), lend_generator(served, g):
                 return served(xf, torch.float32)
 
         ema_head = head(ema_sd)
@@ -1779,11 +1835,12 @@ SPD_TRAIN_CHECKS = {"C3CASPD2": (), "CASPD_ODRTA": ("f32",)}  # TAL's f32 step v
 SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 8}  # TTA over TDetect's four levels
 
 
-def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64):
-    """`build_model` of an SPD yaml (or `cfg`); an anchor head's
-    placeholders are replaced by autoanchor on the labels of `n_images`
-    seeded rectangle images first (global NumPy seed `seed`).  Returns
-    (model, recall kept or None)."""
+def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64, hyp=None):
+    """`build_model` of an SPD or zoo yaml (or `cfg`); an anchor head's
+    placeholders (`anchors: n`) are replaced by autoanchor on the labels
+    of `n_images` seeded rectangle images first (global NumPy seed `seed`,
+    threshold from `hyp`, else the model's SPD recipe).  Returns (model,
+    recall kept or None)."""
     import types
 
     import numpy as np
@@ -1794,14 +1851,67 @@ def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64):
     from dmayolo_tpu_torch.train.trainer import load_hyp
 
     model = build_model(device, imgsz=imgsz, cfg=cfg or model_config(name), nc=nc)
-    if not isinstance(model.head, Detect):
+    if not isinstance(model.head, Detect) or float(np.min(model.head.anchors)) > 0:
         return model, None
     shapes, labels = labels_of(train_batches(1, n_images, imgsz, nc, 128, seed))
     np.random.seed(seed)
     bpr = maybe_autoanchor(model, types.SimpleNamespace(shapes=shapes, labels=labels), imgsz,
-                           thr=load_hyp(SPD_RECIPES[name]["hyp"])["anchor_t"], verbose=False)
+                           thr=load_hyp(hyp or SPD_RECIPES[name]["hyp"])["anchor_t"],
+                           verbose=False)
     check(float(np.min(model.head.anchors)) > 0, f"{name}: autoanchor left degenerate anchors")
     return model, bpr
+
+
+def serve_and_evaluate(device, label, model, counters, smi, imgsz, batch, tta_batch,
+                       check_imgsz):
+    """A model's serving on both kernels (K2, then K3 counted; a TDetect
+    head's serving tails counted on the lazy route, every Detect tail on
+    the eager one), the three serving tails identical, the raw head on the
+    card against the CPU's at `check_imgsz`, bs128 timed and profiled;
+    then the eval protocol on the three backends (identical, K2 streaming
+    and K3's blocked entry counted) with `tta_batch` TTA images.  Prints
+    the summary lines; returns (serving, eval)."""
+    from dmayolo_tpu_torch.nn.heads import TDetect
+
+    on_card = device.type == "cuda"
+    tdetect = isinstance(model.head, TDetect)
+    srv = serving(device, model, imgsz=imgsz, max_batch=batch, counters=counters,
+                  check_imgsz=check_imgsz)
+    print(f"{label} serving: " + json.dumps(srv), flush=True)
+    check(not on_card or srv["batcher_pallas"]["launches"]["nms_greedy"] > 0,
+          f"{label}: K2 did not launch on the serving path with backend 'pallas'")
+    check(srv["batcher_default"]["backend"] == "matrix"
+          and (not on_card or srv["batcher_default"]["launches"]["fixpoint_keep"] > 0),
+          f"{label}: K3 did not launch on the serving path with the default backend")
+    for key in ("batcher_pallas", "batcher_default"):
+        check((srv[key]["lazy_tails"] > 0) == tdetect,
+              f"{label}: the serving tail took the wrong route: {srv[key]['lazy_tails']} lazy")
+    for sfx, backend in (("", "pallas"), ("_matrix", "matrix")) if "serve_batch" in srv else ():
+        prof = srv["profile" + sfx]
+        print(f"{label} serving bs{srv['serve_batch']} 640px bf16 NMS '{backend}'"
+              f"{' (lazy tail)' if tdetect else ''}: {srv['serve_img_per_s' + sfx]:.1f} img/s "
+              f"({srv['serve_ms' + sfx]:.2f} ms/batch), peak {srv['peak_mem_gib' + sfx]:.2f} "
+              f"GiB; raw head card vs CPU f32 {srv['f32_card_vs_cpu_max_abs_err']:.2e} (max "
+              f"|head| {srv['f32_raw_max_abs']:.1f}); on {smi}", flush=True)
+        print(f"{label} serving profile ('{backend}'), device ms: "
+              + ", ".join(f"{g} {ms:.2f}" for g, ms in prof["groups_ms"].items())
+              + "; ranges: " + ", ".join(f"{g} {ms:.2f}" for g, ms in prof["ranges_ms"].items())
+              + f"; device {prof['device_ms']:.2f} ms, busy {prof['device_busy_share']:.3f}; "
+              f"on {smi}", flush=True)
+    ev = evaluate(device, model, imgsz=imgsz, batch=batch, counters=counters,
+                  tta_batch=tta_batch)
+    print(f"{label} eval: " + json.dumps(ev), flush=True)
+    if on_card:
+        check_eval_launches(label, ev)
+        print(f"{label} eval parts, ms: "
+              + ", ".join(f"{p} {ms:.2f}" for p, ms in ev["parts_ms"].items()), flush=True)
+    for backend, res in ev["backends"].items() if on_card else ():
+        print(f"{label} eval bs{ev['batch']} 640px bf16 max_nms 30000 NMS '{backend}': "
+              f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch), "
+              f"{res['detections']} detections; P {ev['metrics']['mp']:.4f} R "
+              f"{ev['metrics']['mr']:.4f} mAP@.5 {ev['metrics']['map50']:.4f}; on {smi}",
+              flush=True)
+    return srv, ev
 
 
 def spd_phase(device, name, counters, smi, sites, cfg=None, imgsz=640, batch=32,
@@ -1832,33 +1942,9 @@ def spd_phase(device, name, counters, smi, sites, cfg=None, imgsz=640, batch=32,
     # statistics of 640 px inputs, moves by 8.3e-4 and 2.9e-3 of its largest
     # value between f32 and f64 on the CPU alone, at 256 px by 3.1e-5
     # (chip_conditioning.py)
-    out["serving"] = srv = serving(device, model, imgsz=imgsz, max_batch=batch,
-                                   counters=counters, check_imgsz=min(256, imgsz))
-    print(f"{name} serving: " + json.dumps(srv), flush=True)
-    check(device.type != "cuda" or srv["batcher_pallas"]["launches"]["nms_greedy"] > 0,
-          f"{name}: K2 did not launch on the serving path with backend 'pallas'")
-    check(srv["batcher_default"]["backend"] == "matrix"
-          and (device.type != "cuda" or srv["batcher_default"]["launches"]["fixpoint_keep"] > 0),
-          f"{name}: K3 did not launch on the serving path with the default backend")
-    for key in ("batcher_pallas", "batcher_default"):
-        check((srv[key]["lazy_tails"] > 0) == tdetect,
-              f"{name}: the serving tail took the wrong route: {srv[key]['lazy_tails']} lazy")
-    for sfx, backend in (("", "pallas"), ("_matrix", "matrix")) if "serve_batch" in srv else ():
-        print(f"{name} serving bs{srv['serve_batch']} 640px bf16 NMS '{backend}'"
-              f"{' (lazy tail)' if tdetect else ''}: {srv['serve_img_per_s' + sfx]:.1f} img/s "
-              f"({srv['serve_ms' + sfx]:.2f} ms/batch); raw head card vs CPU f32 "
-              f"{srv['f32_card_vs_cpu_max_abs_err']:.2e}; on {smi}", flush=True)
-    out["eval"] = ev = evaluate(device, model, imgsz=imgsz, batch=batch, counters=counters,
-                                tta_batch=min(SPD_TTA_BATCH[name], batch))
-    print(f"{name} eval: " + json.dumps(ev), flush=True)
-    if device.type == "cuda":
-        check_eval_launches(name, ev)
-    for backend, res in ev["backends"].items() if device.type == "cuda" else ():
-        print(f"{name} eval bs{ev['batch']} 640px bf16 max_nms 30000 NMS '{backend}': "
-              f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch), "
-              f"{res['detections']} detections; P {ev['metrics']['mp']:.4f} R "
-              f"{ev['metrics']['mr']:.4f} mAP@.5 {ev['metrics']['map50']:.4f}; on {smi}",
-              flush=True)
+    out["serving"], out["eval"] = serve_and_evaluate(
+        device, name, model, counters, smi, imgsz=imgsz, batch=batch,
+        tta_batch=min(SPD_TTA_BATCH[name], batch), check_imgsz=min(256, imgsz))
     del model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -1958,6 +2044,150 @@ def print_train(label, tr, smi):
           + f"; device busy {prof['device_busy_share']:.3f} of {prof['wall_ms']:.1f} ms wall; "
           f"on {smi}", flush=True)
 
+
+
+# ---------------------------------------------------------------------------
+# the zoo: the whole DMA-YOLO and TPH-YOLOv5 (Swin, BiFPN)
+# ---------------------------------------------------------------------------
+
+ZOO_MODELS = {"yolov5l-ca-sppfcspc-bifpn-scconv": "DMA-full", "yolov5l-xs-tph": "TPH"}
+# DMA-full trains at the flagship's recipe (train.sh:5-9); TPH is served and
+# evaluated only.  TPH's `anchors: 4` are autoanchored at hyp VisDrone's
+# anchor_t (TPH-YOLOv5 is a VisDrone model)
+ZOO_RECIPES = {"yolov5l-ca-sppfcspc-bifpn-scconv": RECIPE}
+ZOO_HYP = "visdrone"
+ZOO_TTA_BATCH = 8
+SAME_SEED_LOSS_TOL = 1e-6  # relative, two train-mode losses from one generator seed
+
+
+class TrainProbe:
+    """What the zoo's training must show: every AdConcat `w` (optimizer
+    group g1) moved, every frozen parameter (the Swin bias tables) stayed,
+    each DropPath above rate 0 ran in train mode and dropped whole
+    samples, and one generator seed gives one loss (a train-mode forward
+    and loss of one batch, under `lend_generator`, twice from one seed and
+    once from another, on a copy of the trained model)."""
+
+    def before(self, tr):
+        import torch
+
+        from dmayolo_tpu_torch.nn.primitives import DropPath
+        from dmayolo_tpu_torch.train.optim import param_groups
+
+        labels = param_groups(tr.model)
+        named = dict(tr.model.named_parameters())
+        self.frozen = {k: named[k].detach().clone() for k, g in labels.items() if g == "frozen"}
+        self.bifpn = {k: named[k].detach().clone() for k, g in labels.items()
+                      if g == "g1" and k.endswith(".w")}
+        self.calls, self.dropped = {}, {}
+
+        def hook(name):
+            def count(m, args, out):
+                if m.training:
+                    self.calls[name] = self.calls.get(name, 0) + 1
+                    self.dropped[name] = (self.dropped.get(name, 0)
+                                          + (out.flatten(1) == 0).all(1).sum())
+            return count
+
+        self.handles = [m.register_forward_hook(hook(n)) for n, m in tr.model.named_modules()
+                        if isinstance(m, DropPath) and m.rate > 0]
+        self.rates = sorted({m.rate for m in tr.model.modules() if isinstance(m, DropPath)})
+
+    def after(self, tr, state, batch, dtype):
+        import copy
+
+        import torch
+
+        from dmayolo_tpu_torch.nn.primitives import lend_generator
+
+        for h in self.handles:
+            h.remove()
+        named = dict(state.model.named_parameters())
+        out = {"bifpn_w": {k: named[k].detach().cpu().tolist() for k in self.bifpn},
+               "bifpn_w_moved": sum(not torch.equal(named[k], v) for k, v in self.bifpn.items()),
+               "bifpn_w_tensors": len(self.bifpn), "frozen_tensors": len(self.frozen),
+               "frozen_changed": sum(not torch.equal(named[k], v)
+                                     for k, v in self.frozen.items()),
+               "droppath_rates": self.rates,
+               "droppath_layers": len(self.handles), "droppath_calls": sum(self.calls.values()),
+               "droppath_dropped_samples": int(sum(int(d) for d in self.dropped.values()))}
+        model = copy.deepcopy(state.model).train()
+        imgs, tg = tr.to_device([batch])
+        x = imgs.to(dtype) / 255.0
+        losses = []
+        with torch.no_grad():
+            for seed in (11, 11, 12):
+                g = torch.Generator(device=x.device).manual_seed(seed)
+                with lend_generator(model, g):
+                    losses.append(float(tr.loss(model(x, dtype), tg)[0]))
+        del model
+        out["seed_losses"] = losses
+        out["same_seed_rel_diff"] = abs(losses[1] - losses[0]) / abs(losses[0])
+        out["other_seed_rel_diff"] = abs(losses[2] - losses[0]) / abs(losses[0])
+        return out
+
+
+def zoo_phase(device, name, counters, smi, cfg=None, imgsz=640, batch=32, train_kw=None,
+              check_imgsz=256):
+    """One zoo model (its yaml, or `cfg`): serving on both kernels (K2,
+    then K3), the three serving tails and eval backends identical, the raw
+    head on the card against the CPU's at `check_imgsz`, eval with its
+    host mAP and one TTA batch; where it has a recipe, the Trainer over
+    in-memory batches watched by `TrainProbe` and the trained checkpoint
+    served on "matrix".  The sizes are for a CPU rehearsal."""
+    import torch
+
+    from dmayolo_tpu_torch.graph import model_config
+    from dmayolo_tpu_torch.nn.transformer import SwinTransformerLayer, TransformerLayer
+
+    label = ZOO_MODELS.get(name, name)
+    cfg = cfg or model_config(name)
+    on_card = device.type == "cuda"
+    model, bpr = spd_model(device, name, cfg, imgsz, hyp=ZOO_HYP)
+    out = {"label": label, "params": sum(p.numel() for p in model.parameters()),
+           "swin_layers": sum(isinstance(m, SwinTransformerLayer) for m in model.modules()),
+           "vit_layers": sum(isinstance(m, TransformerLayer) for m in model.modules()),
+           "autoanchor_bpr": bpr,
+           "anchors_px": (model.head.anchors * model.stride.reshape(-1, 1, 1)).round(2).tolist()}
+    out["serving"], out["eval"] = serve_and_evaluate(
+        device, label, model, counters, smi, imgsz=imgsz, batch=batch,
+        tta_batch=min(ZOO_TTA_BATCH, batch), check_imgsz=min(check_imgsz, imgsz))
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    if name not in ZOO_RECIPES:
+        return out
+    probe = TrainProbe()
+    kw = dict(dict(n_batches=SPD_TRAIN_BATCHES, warmup_batches=SPD_WARMUP_BATCHES, accs=(1,),
+                   checks=()), **(train_kw or {}))
+    out["train"] = tr = train(device, cfg=cfg, recipe=ZOO_RECIPES[name], counters=counters,
+                              probe=probe, **kw)
+    print(f"{label} train: " + json.dumps(tr), flush=True)
+    pr = tr["probe"]
+    check(pr["bifpn_w_tensors"] > 0 and pr["bifpn_w_moved"] == pr["bifpn_w_tensors"],
+          f"{label}: an AdConcat w did not move in training: {pr}")
+    check(pr["frozen_tensors"] > 0 and pr["frozen_changed"] == 0,
+          f"{label}: a frozen parameter moved in training: {pr}")
+    # a Swin layer's DropPath runs twice a forward: after the attention and the MLP
+    check(pr["droppath_calls"] == 2 * pr["droppath_layers"] * tr["batches"]
+          and (not on_card or (pr["droppath_layers"] > 0
+                               and pr["droppath_dropped_samples"] > 0)),
+          f"{label}: DropPath did not run in train mode: {pr}")
+    check(pr["same_seed_rel_diff"] <= SAME_SEED_LOSS_TOL,
+          f"{label}: one seed gave two losses: {pr['seed_losses']}")
+    check(not on_card or tr["checkpoint_serve"]["launches"]["fixpoint_keep"] > 0,
+          f"{label}: the trained checkpoint's serving on 'matrix': {tr['checkpoint_serve']}")
+    if on_card:
+        print_train(f"{label} train", tr, smi)
+        print(f"{label} train probe: {pr['bifpn_w_moved']}/{pr['bifpn_w_tensors']} AdConcat w "
+              f"moved, {pr['frozen_changed']}/{pr['frozen_tensors']} frozen tensors changed; "
+              f"DropPath rates {pr['droppath_rates']}: {pr['droppath_layers']} layers above 0 "
+              f"ran {pr['droppath_calls']} times in train mode, dropped "
+              f"{pr['droppath_dropped_samples']} samples; one seed's losses differ by "
+              f"{pr['same_seed_rel_diff']:.2e}, another seed's by "
+              f"{pr['other_seed_rel_diff']:.2e} (read)", flush=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2703,6 +2933,17 @@ def main():
               f"{sums['step_bound_ms']:.3f} ms; max scaled err {k1s['max_scaled_err']:.2e} "
               f"(images 0-1); on {smi}", flush=True)
 
+    # ---- the zoo: DMA-full served, evaluated and trained; TPH served and evaluated
+    # (before the data phase: run after it in one call, the zoo's training
+    # read 9.0 img/s against 15.9 run before it; the cause is not measured)
+    zoo = {}
+    for name in ZOO_MODELS:
+        t1 = time.perf_counter()
+        zoo[name] = zoo_phase(device, name, counters, smi)
+        zoo[name]["s"] = time.perf_counter() - t1
+        print(f"{ZOO_MODELS[name]} phase: {zoo[name]['s']:.1f} s", flush=True)
+    report["zoo"] = zoo
+
     # ---- the data path on disk: loader, run_validation, the data-built Trainer
     t1 = time.perf_counter()
     model = build_model(device)
@@ -2737,6 +2978,15 @@ def main():
                       for b, r in res["eval"]["backends"].items()})
         paths[f"{name} trained checkpoint served, matrix"] = \
             res["train"]["checkpoint_serve"]["launches"]
+    for name, res in zoo.items():
+        label = ZOO_MODELS[name]
+        paths.update({f"{label} serving {r['backend']}": r["launches"]
+                      for r in (res["serving"]["batcher_pallas"],
+                                res["serving"]["batcher_default"])})
+        paths.update({f"{label} eval {b}": r["launches"] for b, r in res["eval"]["backends"].items()})
+        if "train" in res:
+            paths[f"{label} trained checkpoint served, matrix"] = \
+                res["train"]["checkpoint_serve"]["launches"]
     paths.update({f"run_validation {b}": r["launches"] for b, r in dp["run_validation"].items()})
     for t in dp["train"]:
         paths[f"data-trained best.npz served, matrix, device_aug {int(t['device_aug'])}"] = \

@@ -19,12 +19,18 @@ import yaml
 from ..core.nms import NEG_INF, _top_k_candidates, nms_from_topk, nms_parts
 from ..nn.fuse import fuse_model
 from ..nn.heads import Detect, TDetect
-from ..nn.primitives import BatchNorm2d, Conv2d, Sequential
+from ..nn.blocks import AdConcat2
+from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear, Sequential
+from ..nn.transformer import MultiheadAttention, WindowAttention
 from ..utils.device import resolve_device
 from .registry import INSERT_N, REGISTRY, WIDTH_GAIN
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs" / "models"
 STRIDE_PROBE = 256  # input side of the shape-only forward that finds the strides
+# the modules that own parameters or statistics; `reset_parameters` fills
+# them after the meta-device build
+INITIALISED = (Conv2d, BatchNorm2d, Linear, LayerNorm, MultiheadAttention, WindowAttention,
+               AdConcat2)
 
 
 def model_config(name: str) -> Path:
@@ -149,7 +155,7 @@ class DetectionModel(nn.Module):
                 if name in INSERT_N:
                     args.insert(2, n)
                     n = 1
-            elif name == "Concat":
+            elif name in ("Concat", "AdConcat2", "AdConcat3"):
                 c2 = sum(ch[x] for x in f)
             elif name == "Detect":
                 args.append([ch[x] for x in f])
@@ -196,8 +202,10 @@ class DetectionModel(nn.Module):
 
     # -- weights ---------------------------------------------------------------
     def reset_parameters(self, generator: torch.Generator):
+        """Every parameter and statistic afresh, with the JAX package's
+        init, drawn from `generator` in module order."""
         for m in self.modules():
-            if isinstance(m, (Conv2d, BatchNorm2d)):
+            if isinstance(m, INITIALISED):
                 m.reset_parameters(generator)
 
     def init_with_priors(self, generator: torch.Generator):

@@ -9,16 +9,25 @@ from __future__ import annotations
 
 from ..nn import blocks as B
 from ..nn import heads as H
+from ..nn import transformer as T
 
 # name in yaml -> module class
 REGISTRY = {
     "Conv": B.ConvBN,
+    "Focus": B.Focus,
     "Bottleneck": B.Bottleneck,
+    "BottleneckCSP": B.BottleneckCSP,
     "C3": B.C3,
+    "C3TR": T.C3TR,
+    "C3STR": T.C3STR,
+    "SPP": B.SPP,
     "CABottleneck": B.CABottleneck,
     "C3CA": B.C3CA,
     "SPPF": B.SPPF,
+    "CBAM": B.CBAM,
     "Concat": B.Concat,
+    "AdConcat2": B.AdConcat2,
+    "AdConcat3": B.AdConcat3,
     "CoorAttention": B.CoorAttention,
     "CA": B.CoorAttention,  # alias, see the module docstring
     "SPPFCSPC": B.SPPFCSPC,

@@ -1,5 +1,7 @@
-"""The blocks of the flagship `ablation-ca-scconv-sppfcspc`, of YOLOv5 and
-of the SPD-Conv family (`C3CASPD2`, `CASPD_ODRTA`).
+"""The blocks of the flagship `ablation-ca-scconv-sppfcspc`, of YOLOv5
+(with Focus, SPP and BottleneckCSP), of the SPD-Conv family (`C3CASPD2`,
+`CASPD_ODRTA`), the BiFPN weighted concats and CBAM.  The transformer
+blocks (C3TR, C3STR) are in `nn/transformer.py`.
 
 Port of the matching classes of `dmayolo_tpu/nn/blocks.py`.  Attribute
 names equal the JAX path parts ("cv1", "conv", "bn", "m", "0", ...), so a
@@ -14,10 +16,13 @@ import torch.nn as nn
 from .primitives import (
     BatchNorm2d,
     Conv2d,
+    Linear,
     Sequential,
     adaptive_avg_pool_h,
     adaptive_avg_pool_w,
     avg_pool,
+    global_avg_pool,
+    global_max_pool,
     hardswish,
     max_pool,
     resize_nearest,
@@ -44,6 +49,17 @@ class ConvBN(nn.Module):
         return silu(y) if self.act else y
 
 
+class Focus(nn.Module):
+    """2x2 space-to-depth, then a ConvBN."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True):
+        super().__init__()
+        self.conv = ConvBN(c1 * 4, c2, k, s, p, g, act)
+
+    def forward(self, x, dtype):
+        return self.conv(space_to_depth_2x(x), dtype)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (+residual)."""
 
@@ -59,8 +75,29 @@ class Bottleneck(nn.Module):
         return x + y if self.residual else y
 
 
+class BottleneckCSP(nn.Module):
+    """The CSP stack of YOLOv5's first release.  `bn` normalises a concat,
+    so BN folding leaves it a BatchNorm2d (eval mode after `fuse()`)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv4 = ConvBN(2 * c_, c2, 1, 1)
+        self.bn = BatchNorm2d(2 * c_)
+        self.m = Sequential(*[Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
+
+    def forward(self, x, dtype):
+        y1 = self.cv3(self.m(self.cv1(x, dtype), dtype), dtype)
+        y2 = self.cv2(x, dtype)
+        return self.cv4(silu(self.bn(torch.cat([y1, y2], dim=1), dtype)), dtype)
+
+
 class C3(nn.Module):
-    """CSP bottleneck with 3 convs; `block` is the inner bottleneck."""
+    """CSP bottleneck with 3 convs; `make_inner` builds the inner stack, n
+    of `block` here."""
 
     block = Bottleneck
 
@@ -70,7 +107,10 @@ class C3(nn.Module):
         self.cv1 = ConvBN(c1, c_, 1, 1)
         self.cv2 = ConvBN(c1, c_, 1, 1)
         self.cv3 = ConvBN(2 * c_, c2, 1)
-        self.m = Sequential(*[self.block(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
+        self.m = self.make_inner(c_, n, shortcut, g)
+
+    def make_inner(self, c_, n, shortcut, g):
+        return Sequential(*[self.block(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
 
     def forward(self, x, dtype):
         return self.cv3(torch.cat([self.m(self.cv1(x, dtype), dtype),
@@ -95,6 +135,23 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat([x, y1, y2, y3], dim=1), dtype)
 
 
+class SPP(nn.Module):
+    """Parallel-pool SPP: max pools of each k in `k` (stride 1, k // 2
+    padding) beside the input."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x, dtype):
+        x = self.cv1(x, dtype)
+        return self.cv2(torch.cat([x] + [max_pool(x, k, 1, k // 2) for k in self.k], dim=1),
+                        dtype)
+
+
 class Concat(nn.Module):
     """Channel concat."""
 
@@ -103,6 +160,79 @@ class Concat(nn.Module):
 
     def forward(self, xs, dtype):
         return torch.cat(xs, dim=1)
+
+
+class AdConcat2(nn.Module):
+    """BiFPN fast-normalised weighted concat of 2 inputs: the learned `w`
+    (f32, ones at init) over sum(w) + 1e-4 scales each input.  Each
+    product is taken in f32 and rounded once to the activation dtype, the
+    value the JAX package's f32 concat has when the next conv rounds it
+    (torch's `w[i] * x` on a bf16 `x` would round `w[i]` to bf16 first)."""
+
+    n_in = 2
+
+    def __init__(self, dimension=1):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(self.n_in))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.w.fill_(1.0)
+
+    def forward(self, xs, dtype):
+        w = self.w / (self.w.sum() + 1e-4)
+        return torch.cat([(x.float() * w[i]).to(x.dtype) for i, x in enumerate(xs)], dim=1)
+
+
+class AdConcat3(AdConcat2):
+    """The 3-input variant."""
+
+    n_in = 3
+
+
+class ChannelAttentionModule(nn.Module):
+    """CBAM's channel gate: one MLP (Linear, ReLU, Linear; the ReLU at
+    index 1 holds no parameters) over the global average and max pools."""
+
+    def __init__(self, c1, reduction=16):
+        super().__init__()
+        mid = c1 // reduction
+        self.shared_MLP = nn.ModuleDict({"0": Linear(c1, mid), "2": Linear(mid, c1)})
+
+    def _mlp(self, x, dtype):
+        return self.shared_MLP["2"](torch.relu(self.shared_MLP["0"](x, dtype)), dtype)
+
+    def forward(self, x, dtype):
+        avg = self._mlp(global_avg_pool(x)[:, :, 0, 0], dtype)
+        mx = self._mlp(global_max_pool(x)[:, :, 0, 0], dtype)
+        return torch.sigmoid(avg + mx)[:, :, None, None]
+
+
+class SpatialAttentionModule(nn.Module):
+    """CBAM's spatial gate: a 7x7 conv with a bias over the channel mean
+    and max."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv2d = Conv2d(2, 1, 7, 1, p=3, bias=True)
+
+    def forward(self, x, dtype):
+        avg = x.mean(dim=1, keepdim=True)
+        mx = x.amax(dim=1, keepdim=True)
+        return torch.sigmoid(self.conv2d(torch.cat([avg, mx], dim=1), dtype))
+
+
+class CBAM(nn.Module):
+    """Channel, then spatial attention."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.channel_attention = ChannelAttentionModule(c1)
+        self.spatial_attention = SpatialAttentionModule()
+
+    def forward(self, x, dtype):
+        out = self.channel_attention(x, dtype) * x
+        return self.spatial_attention(out, dtype) * out
 
 
 class CoorAttention(nn.Module):

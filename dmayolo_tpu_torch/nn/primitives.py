@@ -1,4 +1,5 @@
-"""Leaf layers: conv, batchnorm, activations, pooling, resize.
+"""Leaf layers: conv, batchnorm, linear, layernorm, dropout, activations,
+pooling, resize.
 
 Port of `dmayolo_tpu/nn/primitives.py`.  Feature maps are NCHW tensors in
 `channels_last` memory (the JAX package's NHWC, seen through a permute);
@@ -7,6 +8,7 @@ conv weights are OIHW.  Every module's forward takes `(x, dtype)`, where
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
@@ -37,6 +39,11 @@ def silu(x):
 
 def hardswish(x):
     return F.hardswish(x)
+
+
+def gelu(x):
+    """The exact erf form (JAX `approximate=False`)."""
+    return F.gelu(x)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +170,108 @@ class Sequential(nn.Sequential):
         return x
 
 
+class Linear(nn.Module):
+    """nn.Linear's layout (`weight` (out, in)) with the JAX `Dense`'s
+    arithmetic: the product in `dtype`, the bias added in the output
+    dtype."""
+
+    def __init__(self, c1, c2, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c2, c1))
+        self.bias = nn.Parameter(torch.empty(c2)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator):
+        """U(+-1/sqrt(fan_in)) for the weight and the bias, from `generator`."""
+        bound = self.weight.shape[1] ** -0.5
+        for p in (self.weight, self.bias):
+            if p is not None:
+                p.data.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+    def forward(self, x, dtype):
+        y = torch.matmul(x.to(dtype), self.weight.to(dtype).t())
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, eps 1e-5: moments and affine in f32,
+    the result in the input dtype."""
+
+    def __init__(self, c, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x, dtype=None):
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class _Stochastic(nn.Module):
+    """A layer that draws a mask in train mode at a rate above 0, from the
+    generator that `lend_generator` gives it for the step, never from the
+    global RNG."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def draws(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def uniform(self, shape, x):
+        if self.generator is None:
+            raise RuntimeError(f"{type(self).__name__}({self.rate}) in train mode draws its "
+                               "mask from the step's generator: call it inside "
+                               "lend_generator(model, generator)")
+        return torch.rand(shape, dtype=x.dtype, device=x.device, generator=self.generator)
+
+
+class Dropout(_Stochastic):
+    """Each element kept with probability 1 - rate and scaled by
+    1 / (1 - rate); the identity in eval mode or at rate 0."""
+
+    def forward(self, x, dtype=None):
+        if not self.draws():
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(self.uniform(x.shape, x) < keep, x / keep, 0.0)
+
+
+class DropPath(_Stochastic):
+    """Stochastic depth: each sample (dim 0) kept whole with probability
+    1 - rate, as floor(keep + U), and scaled by 1 / keep."""
+
+    def forward(self, x, dtype=None):
+        if not self.draws():
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.floor(keep + self.uniform((x.shape[0],) + (1,) * (x.dim() - 1), x))
+        return x / keep * mask
+
+
+@contextlib.contextmanager
+def lend_generator(model: nn.Module, generator: Optional[torch.Generator]):
+    """Every Dropout and DropPath of `model` draws from `generator` inside
+    the block, and from nothing after it."""
+    mods = [m for m in model.modules() if isinstance(m, _Stochastic)]
+    for m in mods:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.generator = None
+
+
 # ---------------------------------------------------------------------------
 # pooling / resize (NCHW)
 # ---------------------------------------------------------------------------
@@ -187,6 +296,16 @@ def adaptive_avg_pool_h(x):
 def adaptive_avg_pool_w(x):
     """AdaptiveAvgPool2d((1, None)): mean over H -> (B, C, 1, W)."""
     return x.mean(dim=2, keepdim=True)
+
+
+def global_avg_pool(x):
+    """AdaptiveAvgPool2d(1) -> (B, C, 1, 1)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+def global_max_pool(x):
+    """AdaptiveMaxPool2d(1) -> (B, C, 1, 1)."""
+    return x.amax(dim=(2, 3), keepdim=True)
 
 
 def upsample_nearest(x, scale: int):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..nn.blocks import AdConcat2
 from ..nn.primitives import BatchNorm2d
 
 GROUPS = ("g0", "g1", "g2")  # BN weights, other weights (decayed), biases
@@ -23,9 +24,11 @@ GROUPS = ("g0", "g1", "g2")  # BN weights, other weights (decayed), biases
 
 def param_groups(model: nn.Module) -> Dict[str, str]:
     """Label every parameter name g0 (BN weight, no decay), g1 (other
-    weights, decay), g2 (biases, no decay) or "frozen" (any other
-    parameter, which the reference never optimizes)."""
+    weights, and the BiFPN `w` of AdConcat2/3; decay), g2 (biases, no
+    decay) or "frozen" (any other parameter, which the reference never
+    optimizes: the Swin bias tables, `in_proj_weight` and `in_proj_bias`)."""
     bn = {name for name, m in model.named_modules() if isinstance(m, BatchNorm2d)}
+    bifpn = {name for name, m in model.named_modules() if isinstance(m, AdConcat2)}
     labels = {}
     for name, _ in model.named_parameters():
         parent, _, leaf = name.rpartition(".")
@@ -33,6 +36,8 @@ def param_groups(model: nn.Module) -> Dict[str, str]:
             labels[name] = "g2"
         elif leaf == "weight":
             labels[name] = "g0" if parent in bn else "g1"
+        elif leaf == "w" and parent in bifpn:
+            labels[name] = "g1"
         else:
             labels[name] = "frozen"
     return labels

@@ -17,6 +17,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from ..data.device_aug import augment_batch, flip_targets_lr
+from ..nn.primitives import lend_generator
 from ..utils.weights import jax_from_state_dict, jax_paths, state_dict_from_jax, to_jax_layout
 from .loss import Targets
 from .optim import Schedule, ema_decay, ema_update, make_optimizer, set_schedule
@@ -64,8 +65,9 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
     accumulate ramp), steps the optimizer, and updates the EMA.  `freeze`
     leaves the parameters of model.0 .. model.{freeze - 1} and their
     optimizer state exactly as they were.  `generator` is the JAX step's
-    rng; no layer of the ported models and no loss draws from it, only
-    `device_aug`: {'hgain', 'sgain', 'vgain', 'fliplr'} moves the HSV
+    rng: every Dropout and DropPath of the model draws its masks from it
+    (`lend_generator`; a model with one at a rate above 0 needs it), and
+    so does `device_aug`: {'hgain', 'sgain', 'vgain', 'fliplr'} moves the HSV
     jitter and the left-right flip of each uint8 microbatch into the step
     (`data/device_aug.py`, on the images' device), the targets of flipped
     rows mirrored; the host pipeline must then leave them out.
@@ -93,7 +95,8 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
                 tgt = Targets(tgt.cls, flip_targets_lr(tgt.box, flipped), tgt.mask)
             else:
                 x = x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
-            raw = model(x, dtype)
+            with lend_generator(model, generator):
+                raw = model(x, dtype)
             with record_function("loss"):
                 tot, its = loss_fn(raw, tgt)
             tot.backward()

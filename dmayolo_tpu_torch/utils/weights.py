@@ -4,12 +4,17 @@ The JAX package keys every leaf by a path tuple that mirrors a torch module
 path (`("model", "3", "cv1", "conv", "kernel")`), and the port's module
 attribute names equal those path parts, so the map is mechanical:
 
-    JAX leaf          port key           layout
-    ----------------  -----------------  ---------------
-    kernel (4-D)      .weight (Conv2d)   HWIO <-> OIHW
-    scale             .weight (BN)       as is
-    bias              .bias              as is
-    mean / var        .running_mean/var  as is
+    JAX leaf                      port key                      layout
+    ----------------------------  ----------------------------  -------------
+    kernel (4-D)                  .weight (Conv2d)              HWIO <-> OIHW
+    kernel (2-D)                  .weight (Linear)              (in, out) <-> (out, in)
+    scale                         .weight (BN, LayerNorm)       as is
+    bias                          .bias                         as is
+    mean / var                    .running_mean/var             as is
+    in_proj_kernel                .in_proj_weight               (C, 3C) <-> (3C, C)
+    in_proj_bias                  .in_proj_bias                 as is
+    relative_position_bias_table  same name                     as is
+    w (AdConcat2/3)               same name                     as is
 
 `state_dict_from_jax` goes one way, `jax_from_state_dict` the other (a
 `.weight` is a kernel or a scale by the type of its module).
@@ -24,37 +29,62 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..nn.primitives import BatchNorm2d, Conv2d
+from ..nn.blocks import AdConcat2
+from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear
+from ..nn.transformer import MultiheadAttention, WindowAttention
 from .checkpoint import load_checkpoint
 from .device import resolve_device
 
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-         "var": "running_var"}
-# port leaf -> (JAX tree, JAX leaf), by module type
+         "var": "running_var", "in_proj_bias": "in_proj_bias",
+         "relative_position_bias_table": "relative_position_bias_table", "w": "w"}
+_AFFINE = {"weight": ("params", "scale"), "bias": ("params", "bias")}
+# port leaf -> (JAX tree, JAX leaf), by module type (a subclass takes its
+# base's entry)
 _TO_JAX = {Conv2d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
-           BatchNorm2d: {"weight": ("params", "scale"), "bias": ("params", "bias"),
-                         "running_mean": ("stats", "mean"), "running_var": ("stats", "var")}}
+           Linear: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+           BatchNorm2d: {**_AFFINE, "running_mean": ("stats", "mean"),
+                         "running_var": ("stats", "var")},
+           LayerNorm: _AFFINE,
+           MultiheadAttention: {"in_proj_weight": ("params", "in_proj_kernel"),
+                                "in_proj_bias": ("params", "in_proj_bias")},
+           WindowAttention: {"relative_position_bias_table":
+                             ("params", "relative_position_bias_table")},
+           AdConcat2: {"w": ("params", "w")}}
+_TRANSPOSED = ("kernel", "in_proj_kernel")  # JAX leaves stored (in, out)
 
 
 def _port_key(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     prefix, leaf = "".join(p + "." for p in path[:-1]), path[-1]
     if leaf == "kernel":
-        if arr.ndim != 4:
-            raise ValueError(f"{'.'.join(path)}: only 4-D conv kernels are ported")
-        return f"{prefix}weight", np.transpose(arr, (3, 2, 0, 1))
+        if arr.ndim == 4:
+            return f"{prefix}weight", np.transpose(arr, (3, 2, 0, 1))
+        if arr.ndim == 2:
+            return f"{prefix}weight", arr.T
+        raise ValueError(f"{'.'.join(path)}: a {arr.ndim}-D kernel has no port counterpart")
+    if leaf == "in_proj_kernel":
+        return f"{prefix}in_proj_weight", arr.T
     if leaf not in _LEAF:
         raise ValueError(f"{'.'.join(path)}: no port counterpart for leaf '{leaf}'")
     return f"{prefix}{_LEAF[leaf]}", arr
 
 
+def _leaves(module: nn.Module) -> Dict[str, Tuple[str, str]]:
+    for cls in type(module).__mro__:
+        if cls in _TO_JAX:
+            return _TO_JAX[cls]
+    return {}
+
+
 def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     """Every `state_dict` key of `model` -> (JAX tree "params" or "stats",
     JAX path).  Raises for a tensor with no JAX counterpart."""
-    types = {name: type(m) for name, m in model.named_modules()}
+    mods = dict(model.named_modules())
     out = {}
     for key in model.state_dict():
         prefix, _, leaf = key.rpartition(".")
-        tree, jleaf = _TO_JAX.get(types.get(prefix), {}).get(leaf, (None, None))
+        m = mods.get(prefix)
+        tree, jleaf = (_leaves(m) if m is not None else {}).get(leaf, (None, None))
         if tree is None:
             raise ValueError(f"{key}: no JAX counterpart")
         out[key] = (tree, (tuple(prefix.split(".")) if prefix else ()) + (jleaf,))
@@ -63,9 +93,11 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
 
 def to_jax_layout(path: Tuple[str, ...], t: torch.Tensor) -> np.ndarray:
     """A port tensor as the JAX leaf at `path` holds it (f32 on the host;
-    conv kernels OIHW -> HWIO)."""
+    conv kernels OIHW -> HWIO, Linear and in_proj weights transposed)."""
     arr = t.detach().float().cpu().numpy()
-    return np.ascontiguousarray(arr.transpose(2, 3, 1, 0)) if path[-1] == "kernel" else arr
+    if path[-1] not in _TRANSPOSED:
+        return arr
+    return np.ascontiguousarray(arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
 
 
 def jax_from_state_dict(model: nn.Module, state_dict: Optional[Mapping] = None):

@@ -32,8 +32,14 @@ def test_no_jax_import(path):
 
 
 def test_port_has_its_own_configs():
-    for kind, names in (("models", ("ablation-ca-scconv-sppfcspc", "yolov5n", "yolov5s")),
-                        ("hyp", ("scratch", "visdrone"))):
+    """Byte-identical copies of the 44 model yamls whose modules the port
+    has (tests/test_torch_zoo_models.py names them) and of the hyps."""
+    models = sorted(p.stem for p in (ROOT / "dmayolo_tpu_torch" / "configs" / "models").glob(
+        "*.yaml"))
+    assert len(models) == 44
+    assert {"ablation-ca-scconv-sppfcspc", "yolov5n", "yolov5s", "C3CASPD2", "CASPD_ODRTA",
+            "yolov5l-ca-sppfcspc-bifpn-scconv", "yolov5l-xs-tph"} <= set(models)
+    for kind, names in (("models", models), ("hyp", ("scratch", "visdrone"))):
         for name in names:
             ours = (ROOT / "dmayolo_tpu_torch" / "configs" / kind / f"{name}.yaml").read_bytes()
             assert ours == (ROOT / "dmayolo_tpu" / "configs" / kind / f"{name}.yaml").read_bytes()
