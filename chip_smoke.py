@@ -152,23 +152,35 @@ source, all at once), then:
    "matrix", K3 counted.  Last, device_aug on the card against its CPU
    version on the same batch, gains and flips (1e-5).
 10. The zoo (`zoo_phase`, run between 8 and 9): the whole DMA-YOLO, `yolov5l-ca-sppfcspc-
-   bifpn-scconv` (the flagship's backbone, BiFPN AdConcat2/3 in the neck,
-   C3STR Swin stacks on P3-P5), and TPH-YOLOv5, `yolov5l-xs-tph` (C3STR
-   on P2-P5, `anchors: 4` replaced by autoanchor), full width, nc 10,
-   built as the flagship is.  Each is served as in 5 (K2, then K3
-   counted), its three serving tails identical at conf 0.0, its raw head
-   on the card within 1e-3 of the CPU's at 256 px, bs128 timed and
-   profiled (kernel groups, and the profiler ranges "attention" and
-   "layernorm"/"gelu"/"window shuffle" of nn/transformer.py); and
-   evaluated as in 6 with one TTA batch of 8.  DMA-full is trained at the
-   flagship's recipe (train.sh:5-9) through the `Trainer` over 10
-   in-memory batches, as the SPD models are, its checkpoint served on
-   "matrix"; `TrainProbe` checks that every AdConcat `w` moved, that the
-   frozen parameters (the Swin bias tables) did not, that each DropPath
-   above rate 0 (the P5 stack: 512 hidden channels, 16 heads, 0.1) ran
-   in train mode and dropped samples, and that one generator seed gives
-   one loss.
+   bifpn-scconv` (DMA-full: the flagship's backbone, BiFPN AdConcat2/3 in
+   the neck, C3STR Swin stacks on P3-P5), TPH-YOLOv5, `yolov5l-xs-tph`
+   (C3STR on P2-P5), DMA-HorNet, `ca-sppfcspc-bifpn-scconv-adapt-hornet`
+   (DMA-full with C3HB HorNet stacks in place of the Swin ones), CADMM
+   (DMMConv downsampling, C3CA on P2-P5) and ghostnet (C3GhostV2 with the
+   DFC bilinear gate on P2-P5), full width, nc 10, built as the flagship
+   is, `anchors: 4` placeholders replaced by autoanchor.  Each is served as
+   in 5 (K2, then K3 counted), its three serving tails identical at conf
+   0.0, its raw head on the card within 1e-3 of the CPU's at 256 px, bs128
+   timed and profiled (kernel groups, and the profiler ranges "attention",
+   "layernorm"/"gelu"/"window shuffle", "depthwise conv", "gnconv" and
+   "horblock" of the port); and evaluated as in 6 with one TTA batch of 8.
+   DMA-full and DMA-HorNet are trained at the flagship's recipe
+   (train.sh:5-9) through the `Trainer` over 10 in-memory batches, as the
+   SPD models are, each checkpoint served on "matrix"; `TrainProbe` checks
+   that every BiFPN `w` moved, that the frozen parameters (the Swin bias
+   tables, HorBlock's LayerScale gammas) did not and every gamma stayed
+   at its 1e-6 init, that each DropPath above rate 0 (DMA-full's P5
+   stack: 512 hidden channels, 16 heads, 0.1) ran in train mode and
+   dropped samples, and that one generator seed gives one loss.
+11. The sweep (`sweep_model`, after 10): the other 22 yamls that came
+   with DMA-HorNet (the DM/SM downsamplers, HorNet, ConvMixer, the
+   adaptive fusions, Ghost v1, yolov3-tiny), each at full width, nc 10,
+   built on the card as in 10, BN calibrated and folded, one bs8 640 px
+   bf16 batch served through `MicroBatcher`'s step on "matrix" (K3
+   counted: one launch), and its f32 raw head at 256 px on the card
+   within 1e-3 of the CPU's; parameters, peak memory and seconds printed.
 
+Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result, when
@@ -216,8 +228,14 @@ PROFILE_GROUPS = [
 # profiler ranges of nn/transformer.py (device time of the kernels inside),
 # an overlay on the groups above
 PROFILE_RANGES = [("attention matmuls and softmax", ("attention",)),
-                  ("LayerNorm / GELU / window shuffles", ("layernorm", "gelu", "window shuffle"))]
-# every record_function name of the port (nn/transformer.py, train/step.py)
+                  ("LayerNorm / GELU / window shuffles", ("layernorm", "gelu", "window shuffle")),
+                  # nn/primitives.py's Conv2d, nn/hornet.py; a HorBlock holds a GnConv,
+                  # which holds a depthwise conv
+                  ("depthwise convs", ("depthwise conv",)),
+                  ("GnConv", ("gnconv",)),
+                  ("HorBlock (GnConv included)", ("horblock",))]
+# every record_function name of the port (nn/transformer.py, nn/primitives.py,
+# nn/hornet.py, train/step.py)
 RANGE_KEYS = {k for _, keys in PROFILE_RANGES for k in keys} | {"loss", "optimizer", "ema"}
 NATIVE_SIZES = [(1080, 1920), (375, 500), (480, 640), (720, 1280),
                 (640, 640), (100, 100), (1000, 300), (333, 777)]
@@ -1262,9 +1280,10 @@ TRAIN_PROFILE_GROUPS = [
     ("loss (forward)", "loss"),
     ("optimizer", "optimizer"),
     ("EMA", "ema"),
-    # nn/transformer.py's profiler ranges; their backward is in "other"
+    # the port's profiler ranges; their backward is in "other"
     ("attention matmuls and softmax (forward)", ("attention",)),
     ("LayerNorm / GELU / window shuffles (forward)", ("layernorm", "gelu", "window shuffle")),
+    ("HorBlock (forward, GnConv and its depthwise conv included)", ("horblock",)),
 ]
 
 
@@ -1835,12 +1854,15 @@ SPD_TRAIN_CHECKS = {"C3CASPD2": (), "CASPD_ODRTA": ("f32",)}  # TAL's f32 step v
 SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 8}  # TTA over TDetect's four levels
 
 
-def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64, hyp=None):
+def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64, hyp=None,
+              anchor_cache=None):
     """`build_model` of an SPD or zoo yaml (or `cfg`); an anchor head's
     placeholders (`anchors: n`) are replaced by autoanchor on the labels
     of `n_images` seeded rectangle images first (global NumPy seed `seed`,
-    threshold from `hyp`, else the model's SPD recipe).  Returns (model,
-    recall kept or None)."""
+    threshold from `hyp`, else the model's SPD recipe).  With an
+    `anchor_cache` dict, a head whose levels, anchors a level and strides
+    were autoanchored before takes that result (autoanchor's anchors
+    depend on nothing else here).  Returns (model, recall kept or None)."""
     import types
 
     import numpy as np
@@ -1853,12 +1875,20 @@ def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64, hyp
     model = build_model(device, imgsz=imgsz, cfg=cfg or model_config(name), nc=nc)
     if not isinstance(model.head, Detect) or float(np.min(model.head.anchors)) > 0:
         return model, None
+    head, strides = model.head, model.stride.reshape(-1, 1, 1)
+    key = (head.nl, head.na, tuple(model.stride.tolist()))
+    if anchor_cache is not None and key in anchor_cache:
+        px, bpr = anchor_cache[key]
+        head.anchors = (px / strides).astype(np.float32)
+        return model, bpr
     shapes, labels = labels_of(train_batches(1, n_images, imgsz, nc, 128, seed))
     np.random.seed(seed)
     bpr = maybe_autoanchor(model, types.SimpleNamespace(shapes=shapes, labels=labels), imgsz,
                            thr=load_hyp(hyp or SPD_RECIPES[name]["hyp"])["anchor_t"],
                            verbose=False)
-    check(float(np.min(model.head.anchors)) > 0, f"{name}: autoanchor left degenerate anchors")
+    check(float(np.min(head.anchors)) > 0, f"{name}: autoanchor left degenerate anchors")
+    if anchor_cache is not None:
+        anchor_cache[key] = (head.anchors * strides, bpr)
     return model, bpr
 
 
@@ -2050,23 +2080,51 @@ def print_train(label, tr, smi):
 # the zoo: the whole DMA-YOLO and TPH-YOLOv5 (Swin, BiFPN)
 # ---------------------------------------------------------------------------
 
-ZOO_MODELS = {"yolov5l-ca-sppfcspc-bifpn-scconv": "DMA-full", "yolov5l-xs-tph": "TPH"}
-# DMA-full trains at the flagship's recipe (train.sh:5-9); TPH is served and
-# evaluated only.  TPH's `anchors: 4` are autoanchored at hyp VisDrone's
-# anchor_t (TPH-YOLOv5 is a VisDrone model)
-ZOO_RECIPES = {"yolov5l-ca-sppfcspc-bifpn-scconv": RECIPE}
+DMA_HORNET = "ca-sppfcspc-bifpn-scconv-adapt-hornet"
+ZOO_MODELS = {"yolov5l-ca-sppfcspc-bifpn-scconv": "DMA-full", "yolov5l-xs-tph": "TPH",
+              DMA_HORNET: "DMA-HorNet", "CADMM": "CADMM", "ghostnet": "ghostnet"}
+# DMA-full and DMA-HorNet train at the flagship's recipe (train.sh:5-9); the
+# others are served and evaluated only.  `anchors: 4` placeholders (TPH,
+# CADMM, ghostnet) are autoanchored at hyp VisDrone's anchor_t (TPH-YOLOv5
+# is a VisDrone model)
+ZOO_RECIPES = {"yolov5l-ca-sppfcspc-bifpn-scconv": RECIPE, DMA_HORNET: RECIPE}
+# the other new yamls of the zoo, each built at full width on the card,
+# served once on "matrix" and its raw head held against the CPU's at 256
+# px, as `zoo_phase` holds its models': at 128 px CADM's head (C3CASPD2's
+# layout: a 3x3 conv then space-to-depth at each stride) differed by 1.9%
+# of its largest value (on an H100 80GB HBM3 at 700 W), the
+# ill-conditioning that chip_conditioning.py measured for C3CASPD2 at
+# 64-128 px on BN statistics calibrated at 640 px
+SWEEP_MODELS = ("C3CASPD6", "CADM", "CADMM2", "CASMM", "CASMMsiou", "CMCA", "CSPCM", "ConvMix",
+                "DM", "adaptadd", "adaptca", "adaptconcat",
+                "ca-sppfcspc-bifpn-scconv-adapt-gnconv", "hornet", "hornet2", "hornet3",
+                "spdconv", "spdconv2", "yolo_convmix", "yolo_cspcm", "yolov3-tiny",
+                "yolov5s-ghost")
+SWEEP_BATCH, SWEEP_CHECK_IMGSZ = 8, 256
+# where a head is ill-conditioned even at 256 px (CMCA: the CPU's f32 and
+# f64 heads 7.5e-3 of the largest value apart, the card's f32 head 7.3e-3
+# from the f64 one, on an H100 80GB HBM3 at 700 W), the card's f32 head is
+# held within this factor of the CPU's own f32-to-f64 distance (each f32
+# forward lies about one such distance from f64; in the f64 forward only
+# AdConcat's products round through f32)
+SWEEP_F64_FACTOR = 2
+# autoanchor's result by (levels, anchors a level, strides), for the zoo's
+# and the sweep's placeholder heads (one hyp, one label set: one result)
+ANCHOR_CACHE = {}
+HORBLOCK_GAMMA = 1e-6  # HorBlock's LayerScale init, never optimized (optimizer group "frozen")
 ZOO_HYP = "visdrone"
 ZOO_TTA_BATCH = 8
 SAME_SEED_LOSS_TOL = 1e-6  # relative, two train-mode losses from one generator seed
 
 
 class TrainProbe:
-    """What the zoo's training must show: every AdConcat `w` (optimizer
-    group g1) moved, every frozen parameter (the Swin bias tables) stayed,
-    each DropPath above rate 0 ran in train mode and dropped whole
-    samples, and one generator seed gives one loss (a train-mode forward
-    and loss of one batch, under `lend_generator`, twice from one seed and
-    once from another, on a copy of the trained model)."""
+    """What the zoo's training must show: every BiFPN `w` (AdConcat,
+    Adapt_Add; optimizer group g1) moved, every frozen parameter (the Swin
+    bias tables, HorBlock's gammas) stayed, each HorBlock gamma at its
+    1e-6 init, each DropPath above rate 0 ran in train mode and dropped
+    whole samples, and one generator seed gives one loss (a train-mode
+    forward and loss of one batch, under `lend_generator`, twice from one
+    seed and once from another, on a copy of the trained model)."""
 
     def before(self, tr):
         import torch
@@ -2103,7 +2161,10 @@ class TrainProbe:
         for h in self.handles:
             h.remove()
         named = dict(state.model.named_parameters())
-        out = {"bifpn_w": {k: named[k].detach().cpu().tolist() for k in self.bifpn},
+        gammas = [t for k, t in named.items() if k.endswith((".gamma1", ".gamma2"))]
+        out = {"horblock_gamma_tensors": len(gammas),
+               "horblock_gamma_off_init": sum(int((t != HORBLOCK_GAMMA).sum()) for t in gammas),
+               "bifpn_w": {k: named[k].detach().cpu().tolist() for k in self.bifpn},
                "bifpn_w_moved": sum(not torch.equal(named[k], v) for k, v in self.bifpn.items()),
                "bifpn_w_tensors": len(self.bifpn), "frozen_tensors": len(self.frozen),
                "frozen_changed": sum(not torch.equal(named[k], v)
@@ -2138,15 +2199,18 @@ def zoo_phase(device, name, counters, smi, cfg=None, imgsz=640, batch=32, train_
     import torch
 
     from dmayolo_tpu_torch.graph import model_config
+    from dmayolo_tpu_torch.nn.hornet import HorBlock
     from dmayolo_tpu_torch.nn.transformer import SwinTransformerLayer, TransformerLayer
 
     label = ZOO_MODELS.get(name, name)
     cfg = cfg or model_config(name)
     on_card = device.type == "cuda"
-    model, bpr = spd_model(device, name, cfg, imgsz, hyp=ZOO_HYP)
+    model, bpr = spd_model(device, name, cfg, imgsz, hyp=ZOO_HYP, anchor_cache=ANCHOR_CACHE)
     out = {"label": label, "params": sum(p.numel() for p in model.parameters()),
            "swin_layers": sum(isinstance(m, SwinTransformerLayer) for m in model.modules()),
            "vit_layers": sum(isinstance(m, TransformerLayer) for m in model.modules()),
+           "horblocks": sum(isinstance(m, HorBlock) for m in model.modules()),
+           "depthwise_convs": sum(getattr(m, "depthwise", False) for m in model.modules()),
            "autoanchor_bpr": bpr,
            "anchors_px": (model.head.anchors * model.stride.reshape(-1, 1, 1)).round(2).tolist()}
     out["serving"], out["eval"] = serve_and_evaluate(
@@ -2164,14 +2228,18 @@ def zoo_phase(device, name, counters, smi, cfg=None, imgsz=640, batch=32, train_
                               probe=probe, **kw)
     print(f"{label} train: " + json.dumps(tr), flush=True)
     pr = tr["probe"]
-    check(pr["bifpn_w_tensors"] > 0 and pr["bifpn_w_moved"] == pr["bifpn_w_tensors"],
-          f"{label}: an AdConcat w did not move in training: {pr}")
+    # each check where the model has the layers it reads; a model without
+    # any of them shows it in its counts
+    check(pr["bifpn_w_moved"] == pr["bifpn_w_tensors"],
+          f"{label}: a BiFPN w did not move in training: {pr}")
     check(pr["frozen_tensors"] > 0 and pr["frozen_changed"] == 0,
           f"{label}: a frozen parameter moved in training: {pr}")
+    check(pr["horblock_gamma_off_init"] == 0,
+          f"{label}: a HorBlock gamma left its init {HORBLOCK_GAMMA} in training: {pr}")
     # a Swin layer's DropPath runs twice a forward: after the attention and the MLP
     check(pr["droppath_calls"] == 2 * pr["droppath_layers"] * tr["batches"]
-          and (not on_card or (pr["droppath_layers"] > 0
-                               and pr["droppath_dropped_samples"] > 0)),
+          and (not on_card or pr["droppath_layers"] == 0
+               or pr["droppath_dropped_samples"] > 0),
           f"{label}: DropPath did not run in train mode: {pr}")
     check(pr["same_seed_rel_diff"] <= SAME_SEED_LOSS_TOL,
           f"{label}: one seed gave two losses: {pr['seed_losses']}")
@@ -2179,14 +2247,94 @@ def zoo_phase(device, name, counters, smi, cfg=None, imgsz=640, batch=32, train_
           f"{label}: the trained checkpoint's serving on 'matrix': {tr['checkpoint_serve']}")
     if on_card:
         print_train(f"{label} train", tr, smi)
-        print(f"{label} train probe: {pr['bifpn_w_moved']}/{pr['bifpn_w_tensors']} AdConcat w "
-              f"moved, {pr['frozen_changed']}/{pr['frozen_tensors']} frozen tensors changed; "
+        print(f"{label} train probe: {pr['bifpn_w_moved']}/{pr['bifpn_w_tensors']} BiFPN w "
+              f"moved, {pr['frozen_changed']}/{pr['frozen_tensors']} frozen tensors changed, "
+              f"{pr['horblock_gamma_off_init']} elements of {pr['horblock_gamma_tensors']} "
+              f"HorBlock gammas off {HORBLOCK_GAMMA}; "
               f"DropPath rates {pr['droppath_rates']}: {pr['droppath_layers']} layers above 0 "
               f"ran {pr['droppath_calls']} times in train mode, dropped "
               f"{pr['droppath_dropped_samples']} samples; one seed's losses differ by "
               f"{pr['same_seed_rel_diff']:.2e}, another seed's by "
               f"{pr['other_seed_rel_diff']:.2e} (read)", flush=True)
         torch.cuda.empty_cache()
+    return out
+
+
+def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
+                check_imgsz=SWEEP_CHECK_IMGSZ):
+    """One yaml (or `cfg`) of the zoo at its own width: built on the card
+    as the zoo's models are (seeded weights, head priors, BN calibrated,
+    placeholder anchors autoanchored), one uint8 batch served through
+    `MicroBatcher`'s serving step on "matrix" (BN folded; K3 counted from 0
+    just before), and the f32 raw head on the card against the host CPU's
+    at `check_imgsz`: within 1e-3 of max(1, the head's largest value), or,
+    where the CPU's f32 head lies further than that from its f64 one,
+    within `SWEEP_F64_FACTOR` times that distance.  Returns
+    its parameters, build and serve seconds, peak memory and launches."""
+    import copy
+
+    import torch
+
+    from dmayolo_tpu_torch.serve.batcher import MicroBatcher
+
+    torch.backends.cudnn.allow_tf32 = False  # the f32 card-vs-CPU check below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    model, bpr = spd_model(device, name, cfg, imgsz, hyp=ZOO_HYP, anchor_cache=ANCHOR_CACHE)
+    out = {"params": sum(p.numel() for p in model.parameters()), "levels": len(model.stride),
+           "autoanchor_bpr": bpr, "build_s": time.perf_counter() - t0}
+    dtype = torch.bfloat16 if on_card else torch.float32
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 256, (batch, imgsz, imgsz, 3), generator=g, dtype=torch.uint8).to(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    batcher = MicroBatcher(model, imgsz=imgsz, max_batch=batch, dtype=dtype, device=device)
+    del model
+    try:
+        t1 = time.perf_counter()
+        for c in counters:
+            c.launches = 0
+        d, v = batcher._serve(x)
+        valid = int(v.sum())
+        out["launches"] = {c.__name__: c.launches for c in counters}
+        out["serve_s"] = time.perf_counter() - t1
+    finally:
+        batcher.close()
+    out["backend"], out["detections"] = batcher._serve_kw["backend"], valid
+    check(d.shape == (batch, 300, 6) and bool(torch.isfinite(d).all()),
+          f"{name}: bad serving output {tuple(d.shape)}")
+    check(out["backend"] == "matrix" and (not on_card or out["launches"]["fixpoint_keep"] == 1),
+          f"{name}: K3 did not launch once serving one batch on 'matrix': {out['launches']}")
+    if on_card:
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    fused = batcher.model
+    xs = torch.rand(1, check_imgsz, check_imgsz, 3, generator=g)
+    with torch.inference_mode():
+        want = [r.float() for r in fused.to("cpu").apply(xs, fused=True)]
+        fused.to(device)
+        got = [r.float().cpu() for r in fused.apply(xs.to(device), fused=True)]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.abs().max()) for b in want)
+    out["f32_card_vs_cpu_max_abs_err"], out["f32_raw_max_abs"] = err, scale
+    tol = 1e-3 * max(1.0, scale)
+    if err > tol:
+        # an ill-conditioned head: the CPU's own f32 rounding, its distance
+        # to the f64 forward, bounds what any f32 forward can hold to
+        m64 = copy.deepcopy(fused).to("cpu").double()
+        with torch.inference_mode():
+            f64 = m64.apply(xs.double(), dtype=torch.float64, fused=True)
+        out["cpu_f32_vs_f64_max_abs"] = max(float((a.double() - b).abs().max())
+                                            for a, b in zip(want, f64))
+        tol = max(tol, SWEEP_F64_FACTOR * out["cpu_f32_vs_f64_max_abs"])
+        del m64
+    out["f32_tol"] = tol
+    check(err <= tol, f"{name}: raw head on the card differs from the CPU by {err} (tol {tol}, "
+          f"max |head| {scale})")
+    del batcher, fused
+    if on_card:
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return out
 
 
@@ -2833,6 +2981,8 @@ def main():
                 print(f"  {name}: {line.strip()}")
 
     report = {"card": smi, "build_s": build_s}
+    phases = report["phase_s"] = {"build": build_s}
+    t0 = time.perf_counter()
     report["k2"] = k2 = check_nms(device)
     print("K2 nms_greedy: " + json.dumps(k2), flush=True)
     report["k3"] = k3 = check_fixpoint(device)
@@ -2854,6 +3004,8 @@ def main():
         print(f"{label}: call {ms:.4f} ms, kernel {kms:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"on {smi}", flush=True)
     print(f"K2 (8, 1024): kernel {k2['k1024_kernel_ms']:.4f} ms on {smi}", flush=True)
+    phases["K2, K3 checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     report["k1"] = k1 = check_conv(device)
     for c in k1:
         print("K1 conv3x3_s1: " + json.dumps(c), flush=True)
@@ -2865,10 +3017,11 @@ def main():
         {"cases": len(k1_ragged), "max_scaled_err": max(c["max_scaled_err"] for c in k1_ragged)}),
         flush=True)
 
+    phases["K1 checks"] = time.perf_counter() - t0
     stream_cluster = Counter(nms_greedy_stream, "cluster_launches", "nms_greedy_stream_cluster")
     counters = (nms_greedy, nms_greedy_stream, stream_cluster, fixpoint_keep,
                 fixpoint_keep_blocked, conv3x3_s1)
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     model = build_model(device)
     report["model_build_s"] = time.perf_counter() - t0
     # the flagship's 3x3 stride-1 convs at the serving batch, for the
@@ -2911,13 +3064,18 @@ def main():
               f"{res['img_per_s']:.1f} img/s ({res['step_ms']:.2f} ms/batch) on {smi}")
     del model
     torch.cuda.empty_cache()
+    phases["flagship: K1 at its convs, serving, eval"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
     report["train"] = tr = train(device, counters=counters)
     print("train: " + json.dumps(tr), flush=True)
     check(tr["checkpoint_serve"]["launches"]["fixpoint_keep"] > 0,
           "K3 did not launch serving the trained checkpoint on 'matrix'")
     print_train("train", tr, smi)
 
+    phases["flagship: train"] = time.perf_counter() - t0
+
     # ---- the SPD-Conv family: both models served, evaluated and trained
+    t0 = time.perf_counter()
     spd, spd_sites = {}, {}
     for name in SPD_MODELS:
         t1 = time.perf_counter()
@@ -2933,22 +3091,39 @@ def main():
               f"{sums['step_bound_ms']:.3f} ms; max scaled err {k1s['max_scaled_err']:.2e} "
               f"(images 0-1); on {smi}", flush=True)
 
-    # ---- the zoo: DMA-full served, evaluated and trained; TPH served and evaluated
-    # (before the data phase: run after it in one call, the zoo's training
-    # read 9.0 img/s against 15.9 run before it; the cause is not measured)
+    phases["SPD models"] = time.perf_counter() - t0
+
+    # ---- the zoo: DMA-full and DMA-HorNet served, evaluated and trained;
+    # TPH, CADMM and ghostnet served and evaluated (before the data phase:
+    # run after it in one call, the zoo's training read 9.0 img/s against
+    # 15.9 run before it; the cause is not measured)
     zoo = {}
     for name in ZOO_MODELS:
         t1 = time.perf_counter()
         zoo[name] = zoo_phase(device, name, counters, smi)
-        zoo[name]["s"] = time.perf_counter() - t1
+        zoo[name]["s"] = phases[ZOO_MODELS[name]] = time.perf_counter() - t1
         print(f"{ZOO_MODELS[name]} phase: {zoo[name]['s']:.1f} s", flush=True)
     report["zoo"] = zoo
+
+    # ---- the sweep: every other new yaml built, served once, its head held
+    t0 = time.perf_counter()
+    sweep = report["sweep"] = {}
+    for name in SWEEP_MODELS:
+        sweep[name] = r = sweep_model(device, name, counters)
+        print(f"sweep {name}: {r['params'] / 1e6:.2f} M parameters, {r['levels']} levels; "
+              f"bs{SWEEP_BATCH} 640px bf16 on 'matrix': {r['detections']} detections, K3 "
+              f"{r['launches']['fixpoint_keep']} launch, peak {r['peak_mem_gib']:.2f} GiB; raw "
+              f"head card vs CPU f32 at {SWEEP_CHECK_IMGSZ}px "
+              f"{r['f32_card_vs_cpu_max_abs_err']:.2e} (tol {r['f32_tol']:.2e}, max |head| "
+              f"{r['f32_raw_max_abs']:.1f}); build {r['build_s']:.1f} s, serve "
+              f"{r['serve_s']:.2f} s, all {r['s']:.1f} s; on {smi}", flush=True)
+    phases["sweep"] = time.perf_counter() - t0
 
     # ---- the data path on disk: loader, run_validation, the data-built Trainer
     t1 = time.perf_counter()
     model = build_model(device)
     report["data"] = dp = data_phase(device, counters, model)
-    dp["s"] = time.perf_counter() - t1
+    dp["s"] = phases["data"] = time.perf_counter() - t1
     del model
     torch.cuda.empty_cache()
     print_data(dp, ev, tr, smi)
@@ -2987,6 +3162,7 @@ def main():
         if "train" in res:
             paths[f"{label} trained checkpoint served, matrix"] = \
                 res["train"]["checkpoint_serve"]["launches"]
+    paths.update({f"sweep {name} serving matrix": r["launches"] for name, r in sweep.items()})
     paths.update({f"run_validation {b}": r["launches"] for b, r in dp["run_validation"].items()})
     for t in dp["train"]:
         paths[f"data-trained best.npz served, matrix, device_aug {int(t['device_aug'])}"] = \
@@ -3048,6 +3224,7 @@ def main():
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

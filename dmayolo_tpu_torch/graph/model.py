@@ -17,9 +17,12 @@ import torch.nn as nn
 import yaml
 
 from ..core.nms import NEG_INF, _top_k_candidates, nms_from_topk, nms_parts
+from ..nn.activations import AconC, MetaAconC
+from ..nn.blocks import AdConcat2, Sum
 from ..nn.fuse import fuse_model
+from ..nn.fusion import AdaptAdd2
 from ..nn.heads import Detect, TDetect
-from ..nn.blocks import AdConcat2
+from ..nn.hornet import HorBlock
 from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear, Sequential
 from ..nn.transformer import MultiheadAttention, WindowAttention
 from ..utils.device import resolve_device
@@ -30,7 +33,7 @@ STRIDE_PROBE = 256  # input side of the shape-only forward that finds the stride
 # the modules that own parameters or statistics; `reset_parameters` fills
 # them after the meta-device build
 INITIALISED = (Conv2d, BatchNorm2d, Linear, LayerNorm, MultiheadAttention, WindowAttention,
-               AdConcat2)
+               AdConcat2, AdaptAdd2, HorBlock, Sum, AconC, MetaAconC)
 
 
 def model_config(name: str) -> Path:
@@ -155,16 +158,52 @@ class DetectionModel(nn.Module):
                 if name in INSERT_N:
                     args.insert(2, n)
                     n = 1
+            elif name == "nn.BatchNorm2d":
+                args = [ch[f]]
+                c2 = ch[f]
             elif name in ("Concat", "AdConcat2", "AdConcat3"):
                 c2 = sum(ch[x] for x in f)
+            elif name in ("ConvMix", "CSPCM"):
+                c1, c2 = ch[f], args[0]
+                if c2 != no:
+                    c2 = make_divisible(c2 * gw, 8)
+                args = [c1, c2, *args[1:]]
+            elif name in ("AdaptConcat", "AdaptADD"):
+                c2 = sum(ch[x] for x in f)
+                args = [len(f), *args]
+            elif name in ("Adapt_Add2", "Adapt_Add3"):
+                c2 = max(ch[x] for x in f)
+            elif name == "C3GhostV2":
+                c1, c2 = ch[f], args[0]
+                if c2 != no:
+                    c2 = make_divisible(c2 * gw, 8)
+                args = [c1, c2, n, *args[1:]]
+                n = 1
             elif name == "Detect":
                 args.append([ch[x] for x in f])
                 if isinstance(args[1], int):  # 'anchors: N' auto-anchor mode
                     args[1] = [list(range(args[1] * 2))] * len(f)
             elif name == "TDetect":
                 args.append([ch[x] for x in f])
+            elif name == "Contract":
+                c2 = ch[f] * args[0] ** 2
+            elif name == "Expand":
+                c2 = ch[f] // args[0] ** 2
             elif name == "space_to_depth":
                 c2 = 4 * ch[f]
+            elif name in ("SMMConv", "DMConv"):
+                c1, c2 = ch[f], 4 * args[0]
+                args = [c1, args[0]]
+            elif name == "DMMConv":
+                c1, c2 = ch[f], 5 * args[0]
+                args = [c1, args[0]]
+            elif name == "DMMConv2":
+                c1 = ch[f]
+                c2 = args[0] + 4 * c1
+                args = [c1, args[0]]
+            elif name == "Classify":
+                c1, c2 = ch[f], args[0]
+                args = [c1, c2, *args[1:]]
             else:
                 c2 = ch[f] if isinstance(f, int) else ch[f[0]]
             mod = Sequential(*[cls(*args) for _ in range(n)]) if n > 1 else cls(*args)
@@ -235,10 +274,11 @@ class DetectionModel(nn.Module):
         return self.head.decode_parts(raw, class_mask, ref_order=ref_order)
 
     def decode_topk(self, raw, k: int = 512, conf_thres: float = 0.25, class_mask=None):
-        """Lazy serving decode of a TDetect head: the conf gate and top-k on
-        the best-class scores, then the DFL boxes of the K survivors only
-        (`decode_scores`, `decode_at`).  Equal to `decode_parts` followed by
-        `nms_parts`' candidate selection; feed it to `nms_from_topk`.
+        """Lazy serving decode: the conf gate and top-k on the best-class
+        scores, then the boxes of the K survivors only (the head's
+        `decode_scores`, `decode_at`; DFL boxes for TDetect).  Equal to
+        `decode_parts` followed by `nms_parts`' candidate selection; feed
+        it to `nms_from_topk`.
         Returns (top_boxes (B, K, 4), top_scores (B, K), top_cls (B, K))."""
         scores = self.head.decode_scores(raw, class_mask)
         cand = torch.where(scores > conf_thres, scores, torch.full_like(scores, NEG_INF))

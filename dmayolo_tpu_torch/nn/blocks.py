@@ -1,7 +1,11 @@
 """The blocks of the flagship `ablation-ca-scconv-sppfcspc`, of YOLOv5
-(with Focus, SPP and BottleneckCSP), of the SPD-Conv family (`C3CASPD2`,
-`CASPD_ODRTA`), the BiFPN weighted concats and CBAM.  The transformer
-blocks (C3TR, C3STR) are in `nn/transformer.py`.
+(with Focus, SPP, ASPP, C3SPP, SPPCSPC and BottleneckCSP), of the
+SPD-Conv family (`C3CASPD2`, `CASPD_ODRTA`), the DM/SM downsamplers,
+ConvMixer (`ConvMix`, `CSPCM`), the BiFPN weighted concats, CBAM, the
+experimental blocks (CrossConv, Sum, MixConv2d, Classify) and the hub
+rows (MaxPool2d, ZeroPad2d).  The transformer blocks (C3TR, C3STR) are
+in `nn/transformer.py`, Ghost v1 and v2 in `nn/ghost.py`, HorNet in
+`nn/hornet.py`, the adaptive fusions in `nn/fusion.py`.
 
 Port of the matching classes of `dmayolo_tpu/nn/blocks.py`.  Attribute
 names equal the JAX path parts ("cv1", "conv", "bn", "m", "0", ...), so a
@@ -10,10 +14,15 @@ JAX parameter path is a `state_dict` key after the leaf rename of
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .primitives import (
+    ACTIVATIONS,
     BatchNorm2d,
     Conv2d,
     Linear,
@@ -21,6 +30,7 @@ from .primitives import (
     adaptive_avg_pool_h,
     adaptive_avg_pool_w,
     avg_pool,
+    gelu,
     global_avg_pool,
     global_max_pool,
     hardswish,
@@ -33,20 +43,27 @@ from .primitives import (
 
 
 class ConvBN(nn.Module):
-    """Conv2d + BN + SiLU, the reference's `Conv`.  After BN folding
-    (`nn/fuse.py`) `bn` is an Identity."""
+    """Conv2d + BN + activation, the reference's `Conv`: `act` True is
+    SiLU, False or None none, a string a key of `ACTIVATIONS`.  After BN
+    folding (`nn/fuse.py`) `bn` is an Identity."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True):
         super().__init__()
         self.conv = Conv2d(c1, c2, k, s, p, g=g, bias=False)
         self.bn = BatchNorm2d(c2)
-        if act not in (True, False, None):
-            raise ValueError(f"only act=True/False is ported, got {act!r}")
-        self.act = act is True
+        self.act = "silu" if act is True else "identity" if act in (False, None) else act
+        if self.act not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {act!r}")
 
     def forward(self, x, dtype):
-        y = self.bn(self.conv(x, dtype), dtype)
-        return silu(y) if self.act else y
+        return ACTIVATIONS[self.act](self.bn(self.conv(x, dtype), dtype))
+
+
+class DWConv(ConvBN):
+    """ConvBN with groups gcd(c1, c2)."""
+
+    def __init__(self, c1, c2, k=1, s=1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
 
 
 class Focus(nn.Module):
@@ -150,6 +167,67 @@ class SPP(nn.Module):
         x = self.cv1(x, dtype)
         return self.cv2(torch.cat([x] + [max_pool(x, k, 1, k // 2) for k in self.k], dim=1),
                         dtype)
+
+
+class C3SPP(C3):
+    """C3 with an SPP inside.  Note the argument order (c1, c2, k, n, ...)."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13), n=1, shortcut=True, g=1, e=0.5):
+        self._k = tuple(k)
+        super().__init__(c1, c2, n, shortcut, g, e)
+
+    def make_inner(self, c_, n, shortcut, g):
+        return SPP(c_, c_, self._k)
+
+
+class ASPP(nn.Module):
+    """Atrous SPP: the input, a 3x3 max pool and one dilated 3x3 conv a
+    rate in `k` ((k - 1) // 2), concatenated.  `m` holds the convs (keys
+    "0", "1", ...), each applied to the input."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.m = Sequential(*[Conv2d(c_, c_, 3, 1, p=(r - 1) // 2, d=(r - 1) // 2, bias=False)
+                              for r in k])
+        self.cv2 = ConvBN(c_ * (len(k) + 2), c2, 1, 1)
+
+    def forward(self, x, dtype):
+        x = self.cv1(x, dtype)
+        branches = [x, max_pool(x, 3, 1, 1)] + [m(x, dtype) for m in self.m]
+        return self.cv2(torch.cat(branches, dim=1), dtype)
+
+
+class Contract(nn.Module):
+    """Space to channels, the channels ordered (s1, s2, c) as the
+    reference's: (B, C, H, W) -> (B, s*s*C, H/s, W/s)."""
+
+    def __init__(self, gain=2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x, dtype):
+        b, c, h, w = x.shape
+        s = self.gain
+        v = x.permute(0, 2, 3, 1).reshape(b, h // s, s, w // s, s, c)
+        v = v.permute(0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
+        return v.permute(0, 3, 1, 2)
+
+
+class Expand(nn.Module):
+    """Channels to space, the inverse of `Contract`."""
+
+    def __init__(self, gain=2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x, dtype):
+        b, c, h, w = x.shape
+        s = self.gain
+        v = x.permute(0, 2, 3, 1).reshape(b, h, w, s, s, c // s ** 2)
+        v = v.permute(0, 1, 3, 2, 4, 5).reshape(b, h * s, w * s, c // s ** 2)
+        return v.permute(0, 3, 1, 2)
 
 
 class Concat(nn.Module):
@@ -280,6 +358,32 @@ class C3CA(C3):
     block = CABottleneck
 
 
+class BAM(C3CA):
+    """The reference's duplicate of C3CA, under its own name."""
+
+
+class SPPCSPC(nn.Module):
+    """CSP-SPP with parallel pools (YOLOv7's)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5, k=(5, 9, 13)):
+        super().__init__()
+        c_ = int(2 * c2 * e)
+        self.k = tuple(k)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.cv3 = ConvBN(c_, c_, 3, 1)
+        self.cv4 = ConvBN(c_, c_, 1, 1)
+        self.cv5 = ConvBN(4 * c_, c_, 1, 1)
+        self.cv6 = ConvBN(c_, c_, 3, 1)
+        self.cv7 = ConvBN(2 * c_, c2, 1, 1)
+
+    def forward(self, x, dtype):
+        x1 = self.cv4(self.cv3(self.cv1(x, dtype), dtype), dtype)
+        pools = [max_pool(x1, k, 1, k // 2) for k in self.k]
+        y1 = self.cv6(self.cv5(torch.cat([x1] + pools, dim=1), dtype), dtype)
+        return self.cv7(torch.cat([y1, self.cv2(x, dtype)], dim=1), dtype)
+
+
 class SpaceToDepth(nn.Module):
     """SPD-Conv `space_to_depth`: (B, C, H, W) -> (B, 4C, H/2, W/2)."""
 
@@ -363,3 +467,226 @@ class Upsample(nn.Module):
 
     def forward(self, x, dtype):
         return upsample_nearest(x, self.scale)
+
+
+# ---------------------------------------------------------------------------
+# the DM/SM downsamplers
+# ---------------------------------------------------------------------------
+
+class SM(SpaceToDepth):
+    """`space_to_depth` under the name the DM yamls give it."""
+
+
+class MP(nn.Module):
+    """MaxPool2d(k, k)."""
+
+    def __init__(self, k=2):
+        super().__init__()
+        self.k = k
+
+    def forward(self, x, dtype):
+        return max_pool(x, self.k, self.k, 0)
+
+
+class SMMConv(nn.Module):
+    """A 3x3 and a 5x5 ConvBN to c1 / 2 each, concatenated, then 2x2
+    space-to-depth: 4 * c2 channels out (c2 = c1 here)."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        c_ = int(c1 / 2)
+        self.cv1 = ConvBN(c1, c_, 3, 1)
+        self.cv2 = ConvBN(c1, c_, 5, 1)
+
+    def forward(self, x, dtype):
+        return space_to_depth_2x(torch.cat([self.cv1(x, dtype), self.cv2(x, dtype)], dim=1))
+
+
+class DMMConv2(nn.Module):
+    """space-to-depth of the input beside a 1x1 ConvBN of its 2x2 max
+    pool: 4 * c1 + c2 channels out."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+
+    def forward(self, x, dtype):
+        x1 = self.cv1(max_pool(x, 2, 2, 0), dtype)
+        return torch.cat([space_to_depth_2x(x), x1], dim=1)
+
+
+class DMMConv(nn.Module):
+    """space-to-depth of a 3x3 ConvBN beside a 1x1 ConvBN of the 2x2 max
+    pool: 5 * c2 channels out."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.cv2 = ConvBN(c1, c2, 3, 1)
+
+    def forward(self, x, dtype):
+        x1 = self.cv1(max_pool(x, 2, 2, 0), dtype)
+        return torch.cat([space_to_depth_2x(self.cv2(x, dtype)), x1], dim=1)
+
+
+class DMConv(nn.Module):
+    """space-to-depth of a 3x3 ConvBN: 4 * c2 channels out."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 3, 1)
+
+    def forward(self, x, dtype):
+        return space_to_depth_2x(self.cv1(x, dtype))
+
+
+class DMMixConv2d(nn.Module):
+    """Mixed-kernel conv: one conv a kernel size in `k` (groups gcd(c1,
+    its channels)), their channels split equally or by equal parameter
+    counts, concatenated, then BN and SiLU.  `bn` normalises the concat,
+    so BN folding leaves it a BatchNorm2d."""
+
+    def __init__(self, c1, c2, k=(1, 3), s=1, equal_ch=True):
+        super().__init__()
+        n = len(k)
+        if equal_ch:
+            idx = np.floor(np.linspace(0, n - 1e-6, c2))
+            c_ = [int((idx == g).sum()) for g in range(n)]
+        else:
+            b = [c2] + [0] * n
+            a = np.eye(n + 1, n, k=-1)
+            a -= np.roll(a, 1, axis=1)
+            a *= np.array(k) ** 2
+            a[0] = 1
+            c_ = np.linalg.lstsq(a, b, rcond=None)[0].round().astype(int)
+        self.m = Sequential(*[Conv2d(c1, int(ci), ki, s, p=ki // 2, g=math.gcd(c1, int(ci)),
+                                     bias=False) for ki, ci in zip(k, c_)])
+        self.bn = BatchNorm2d(c2)
+
+    def forward(self, x, dtype):
+        return silu(self.bn(torch.cat([m(x, dtype) for m in self.m], dim=1), dtype))
+
+
+class MixConv2d(DMMixConv2d):
+    """The experimental MixConv2d: DMMixConv2d's arithmetic."""
+
+
+# ---------------------------------------------------------------------------
+# ConvMixer
+# ---------------------------------------------------------------------------
+
+class GELU(nn.Module):
+    """The GELU slot of ConvMix's Sequentials (no parameters)."""
+
+    def forward(self, x, dtype):
+        return gelu(x)
+
+
+class ConvMix(nn.Module):
+    """ConvMixer block: x + BN(GELU(depthwise k x k conv(x))), then
+    BN(GELU(1x1 conv)).  `Resnet` and `Conv_1x1` are [conv, GELU, BN], so
+    their keys read Resnet.0 and Resnet.2 as the JAX paths do; a GELU
+    sits between conv and BN, so BN folding leaves both BNs."""
+
+    def __init__(self, dim, dim1, kernel_size=9):
+        super().__init__()
+        self.Resnet = Sequential(Conv2d(dim, dim, kernel_size, 1, p=kernel_size // 2, g=dim,
+                                        bias=True), GELU(), BatchNorm2d(dim))
+        self.Conv_1x1 = Sequential(Conv2d(dim, dim, 1, bias=True), GELU(), BatchNorm2d(dim))
+
+    def forward(self, x, dtype):
+        return self.Conv_1x1(x + self.Resnet(x, dtype), dtype)
+
+
+class CSPCM(nn.Module):
+    """CSP of ConvMix blocks."""
+
+    def __init__(self, c1, c2, n=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.cv3 = ConvBN(2 * c_, c2, 1)
+        self.m = Sequential(*[ConvMix(c_, c_) for _ in range(n)])
+
+    def forward(self, x, dtype):
+        return self.cv3(torch.cat([self.m(self.cv1(x, dtype), dtype), self.cv2(x, dtype)],
+                                  dim=1), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the experimental blocks and the hub rows
+# ---------------------------------------------------------------------------
+
+class CrossConv(nn.Module):
+    """1 x k then k x 1 ConvBN (+residual)."""
+
+    def __init__(self, c1, c2, k=3, s=1, g=1, e=1.0, shortcut=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, (1, k), (1, s))
+        self.cv2 = ConvBN(c_, c2, (k, 1), (s, 1), g=g)
+        self.residual = shortcut and c1 == c2
+
+    def forward(self, x, dtype):
+        y = self.cv2(self.cv1(x, dtype), dtype)
+        return x + y if self.residual else y
+
+
+class Sum(nn.Module):
+    """Sum of n inputs; weighted, input i > 0 scaled by 2 sigmoid(w[i -
+    1]) (f32 `w`, -arange(1, n) / 2 at init, so the sum promotes to f32
+    as JAX's does)."""
+
+    def __init__(self, n, weight=False):
+        super().__init__()
+        self.n = n
+        self.w = nn.Parameter(torch.empty(n - 1)) if weight else None
+
+    def reset_parameters(self, generator=None):
+        if self.w is not None:
+            with torch.no_grad():
+                self.w.copy_(-torch.arange(1.0, self.n) / 2)
+
+    def forward(self, xs, dtype):
+        y = xs[0]
+        w = None if self.w is None else torch.sigmoid(self.w) * 2
+        for i in range(self.n - 1):
+            y = y + (xs[i + 1] if w is None else xs[i + 1] * w[i:i + 1])
+        return y
+
+
+class Classify(nn.Module):
+    """Second-stage classification head: global average pools of the
+    inputs, concatenated, through a conv -> (B, c2)."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1):
+        super().__init__()
+        self.conv = Conv2d(c1, c2, k, s, p, g=g, bias=True)
+
+    def forward(self, x, dtype):
+        xs = x if isinstance(x, list) else [x]
+        z = torch.cat([global_avg_pool(t) for t in xs], dim=1)
+        return self.conv(z, dtype)[:, :, 0, 0]
+
+
+class MaxPool2d(nn.Module):
+    """nn.MaxPool2d(k, s, p) rows of the hub yamls."""
+
+    def __init__(self, k, s=None, p=0):
+        super().__init__()
+        self.k, self.s, self.p = k, k if s is None else s, p
+
+    def forward(self, x, dtype):
+        return max_pool(x, self.k, self.s, self.p)
+
+
+class ZeroPad2d(nn.Module):
+    """nn.ZeroPad2d(padding) rows: (left, right, top, bottom)."""
+
+    def __init__(self, padding):
+        super().__init__()
+        self.p = tuple(padding) if isinstance(padding, (list, tuple)) else (padding,) * 4
+
+    def forward(self, x, dtype):
+        return F.pad(x, self.p)

@@ -6,9 +6,14 @@ for every conv whose output feeds a BatchNorm directly,
     W' = W * scale / sqrt(var + eps)        (per out-channel; OIHW, so dim 0)
     b' = (b_conv - mean) * scale / sqrt(var + eps) + bias_bn
 
-and the BN becomes an Identity.  Folded pairs: `ConvBN`, the
-`CoorAttention` conv1 -> bn1 pair, and Conv2d -> BatchNorm2d adjacency
-inside a Sequential (SCConv k2/k3/k4).
+and the BN becomes an Identity.  Folded pairs: `ConvBN` (and `DWConv`),
+`AddConvBlock` (conv -> batch_norm), GhostNet v2's `ConvUnit` (conv ->
+bn), the `CoorAttention` conv1 -> bn1 pair, and Conv2d -> BatchNorm2d
+adjacency inside a Sequential (SCConv k2/k3/k4).
+
+Not folded, as in JAX: a BN that normalises a concat (`BottleneckCSP.bn`,
+`DMMixConv2d.bn`) or sits after a GELU (`ConvMix`); those run the BN's
+eval path.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import torch
 import torch.nn as nn
 
 from .blocks import ConvBN, CoorAttention
+from .fusion import AddConvBlock
+from .ghost import ConvUnit
 from .primitives import BatchNorm2d, Conv2d, Identity, Sequential
 
 
@@ -25,8 +32,10 @@ def _conv_bn_pairs(model: nn.Module) -> List[Tuple[nn.Module, str, Conv2d]]:
     """(parent, BN attribute name, conv) for every BN fed by a conv."""
     pairs = []
     for m in model.modules():
-        if isinstance(m, ConvBN):
+        if isinstance(m, (ConvBN, ConvUnit)):
             pairs.append((m, "bn", m.conv))
+        elif isinstance(m, AddConvBlock):
+            pairs.append((m, "batch_norm", m.conv))
         elif isinstance(m, CoorAttention):
             pairs.append((m, "bn1", m.conv1))
         elif isinstance(m, Sequential):

@@ -110,6 +110,60 @@ class Detect(nn.Module):
                 cls_.append(bc.reshape(b, na * ny * nx))
         return torch.cat(bxs, 1), torch.cat(scs, 1), torch.cat(cls_, 1)
 
+    def decode_scores(self, raw: Sequence[torch.Tensor], class_mask=None) -> torch.Tensor:
+        """Lazy decode, pass 1: best-class scores (B, N) in f32 in the
+        reference (a, y, x) order, the values of `decode_parts`' scores,
+        with no box decode."""
+        outs = []
+        for x in raw:
+            b, ny, nx, na, _ = x.shape
+            best = (torch.sigmoid(x[..., 4].float())
+                    * torch.sigmoid(torch.amax(x[..., 5:], dim=-1).float()))
+            if class_mask is not None:
+                bc = torch.argmax(x[..., 5:], dim=-1)
+                best = torch.where(class_mask[bc], best, torch.zeros_like(best))
+            outs.append(best.permute(0, 3, 1, 2).reshape(b, na * ny * nx))
+        return torch.cat(outs, 1)
+
+    def _candidate_constants(self, shapes, device=None) -> torch.Tensor:
+        """(N, 5) [grid_x, grid_y, anchor_w_px, anchor_h_px, stride] per
+        candidate in the reference (level, a, y, x) order."""
+        rows = []
+        for i, (ny, nx) in enumerate(shapes):
+            # grid (1, ny, nx, 1, 2), anchor_px (1, 1, 1, na, 2)
+            grid, anchor_px = self._grid_anchor(i, ny, nx, device)
+            t = torch.empty(self.na, ny, nx, 5, device=device)
+            t[..., 0:2] = grid[0].permute(2, 0, 1, 3)
+            t[..., 2:4] = anchor_px[0, 0, 0][:, None, None, :]
+            t[..., 4] = float(self.stride[i])
+            rows.append(t.reshape(-1, 5))
+        return torch.cat(rows, 0)
+
+    def decode_at(self, raw: Sequence[torch.Tensor], idx: torch.Tensor):
+        """Lazy decode, pass 2: the boxes and best classes of the
+        candidates `idx` (B, K), indices in the reference order, only ->
+        (boxes xyxy (B, K, 4), cls (B, K) f32).  Each level's rows are
+        gathered from its natural (y, x, a) layout, never transposed."""
+        b, no = raw[0].shape[0], raw[0].shape[-1]
+        rows, off = None, 0
+        for x in raw:
+            _, ny, nx, na, _ = x.shape
+            n_i = na * ny * nx
+            li = (idx - off).clamp(0, n_i - 1)
+            nat = (li % (ny * nx)) * na + li // (ny * nx)
+            got = torch.gather(x.reshape(b, n_i, no), 1, nat[..., None].expand(-1, -1, no))
+            pick = (idx >= off) & (idx < off + n_i)
+            rows = got if rows is None else torch.where(pick[..., None], got, rows)
+            off += n_i
+        shapes = [(x.shape[1], x.shape[2]) for x in raw]
+        cv = self._candidate_constants(shapes, idx.device)[idx]  # (B, K, 5)
+        y = torch.sigmoid(rows[..., 0:4].float())
+        xy = (y[..., 0:2] * 2 - 0.5 + cv[..., 0:2]) * cv[..., 4:5]
+        wh = (y[..., 2:4] * 2) ** 2 * cv[..., 2:4]
+        half = wh * 0.5
+        boxes = torch.cat([xy - half, xy + half], dim=-1)
+        return boxes, torch.argmax(rows[..., 5:], dim=-1).float()
+
 
 def dfl_expectation(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     """Distribution-focal decode, in f32: the softmax expectation over

@@ -14,6 +14,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 KernelSize = Union[int, Tuple[int, int]]
 
@@ -46,13 +47,36 @@ def gelu(x):
     return F.gelu(x)
 
 
+def leaky_relu(x, slope=0.1):
+    return F.leaky_relu(x, slope)
+
+
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+# the string activations of the yamls and `ConvBN(act=...)`
+ACTIVATIONS = {
+    "silu": silu,
+    "hardswish": hardswish,
+    "leaky0.1": lambda x: leaky_relu(x, 0.1),
+    "relu": torch.relu,
+    "gelu": gelu,
+    "mish": mish,
+    "sigmoid": torch.sigmoid,
+    "identity": lambda x: x,
+}
+
+
 # ---------------------------------------------------------------------------
 # conv / norm
 # ---------------------------------------------------------------------------
 
 class Conv2d(nn.Module):
     """Raw conv.  Weight and input are cast to the compute dtype; the bias
-    is added in the output dtype, as the JAX Conv2d does."""
+    is added in the output dtype, as the JAX Conv2d does.  A depthwise
+    conv (one input channel a group, groups > 1) runs inside the profiler
+    range "depthwise conv"."""
 
     def __init__(self, c1, c2, k: KernelSize = 1, s: KernelSize = 1, p=None,
                  g: int = 1, d: int = 1, bias: bool = True):
@@ -64,6 +88,7 @@ class Conv2d(nn.Module):
         self.d = _pair(d)
         self.weight = nn.Parameter(torch.empty(c2, c1 // g, *self.k))
         self.bias = nn.Parameter(torch.empty(c2)) if bias else None
+        self.depthwise = 1 < g == c1
 
     def reset_parameters(self, generator: torch.Generator):
         """torch's default init, U(+-1/sqrt(fan_in)), drawn from `generator`."""
@@ -75,10 +100,11 @@ class Conv2d(nn.Module):
                 p.data.copy_(v)
 
     def forward(self, x, dtype):
-        y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.s, self.p,
-                     self.d, self.g)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)[None, :, None, None]
+        with record_function("depthwise conv") if self.depthwise else contextlib.nullcontext():
+            y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.s, self.p,
+                         self.d, self.g)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)[None, :, None, None]
         return y
 
 
@@ -195,8 +221,8 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, eps 1e-5: moments and affine in f32,
-    the result in the input dtype."""
+    """LayerNorm over the last axis, eps 1e-5: moments and affine in f32
+    (f64 for an f64 input), the result in the input dtype."""
 
     def __init__(self, c, eps: float = 1e-5):
         super().__init__()
@@ -210,8 +236,8 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x, dtype=None):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return F.layer_norm(xf, self.weight.shape, self.weight, self.bias, self.eps).to(x.dtype)
 
 
 class _Stochastic(nn.Module):
@@ -283,9 +309,10 @@ def max_pool(x, k: int, s: int = 1, p: Optional[int] = None):
     return F.max_pool2d(x, k, s, p)
 
 
-def avg_pool(x, k: int, s: Optional[int] = None):
-    """AvgPool2d(k, s) without padding."""
-    return F.avg_pool2d(x, k, k if s is None else s)
+def avg_pool(x, k: int, s: Optional[int] = None, p: int = 0):
+    """AvgPool2d(k, s, p), the padding counted in the mean
+    (count_include_pad)."""
+    return F.avg_pool2d(x, k, k if s is None else s, p, count_include_pad=True)
 
 
 def adaptive_avg_pool_h(x):
@@ -323,6 +350,29 @@ def resize_nearest(x, size: Tuple[int, int]):
     rows = torch.arange(th, device=x.device) * h // th
     cols = torch.arange(tw, device=x.device) * w // tw
     return x[:, :, rows][:, :, :, cols]
+
+
+def bilinear_resize_align_corners(x, size: Tuple[int, int]):
+    """F.interpolate(mode="bilinear", align_corners=True) with the JAX
+    package's arithmetic: f32 source coordinates and weights, so a bf16
+    map comes back f32, as JAX's promotion gives; a 1 x 1 map is
+    broadcast and keeps its dtype.  Works on the NHWC view, so a
+    `channels_last` map gives a `channels_last` one."""
+    b, c, h, w = x.shape
+    th, tw = size
+    if h == 1 and w == 1:
+        return x.expand(b, c, th, tw)
+    ys = torch.linspace(0.0, h - 1.0, th, device=x.device)
+    xs = torch.linspace(0.0, w - 1.0, tw, device=x.device)
+    y0, x0 = ys.floor().long(), xs.floor().long()
+    y1, x1 = (y0 + 1).clamp(max=h - 1), (x0 + 1).clamp(max=w - 1)
+    wy = (ys - y0)[None, :, None, None]
+    wx = (xs - x0)[None, None, :, None]
+    v = x.permute(0, 2, 3, 1)  # (B, H, W, C)
+    r0, r1 = v[:, y0], v[:, y1]
+    top = r0[:, :, x0] * (1 - wx) + r0[:, :, x1] * wx
+    bot = r1[:, :, x0] * (1 - wx) + r1[:, :, x1] * wx
+    return (top * (1 - wy) + bot * wy).permute(0, 3, 1, 2)
 
 
 def space_to_depth_2x(x):

@@ -33,8 +33,10 @@ from .primitives import Dropout, DropPath, LayerNorm, Linear, Sequential, gelu
 
 
 def _logits(q, k):
-    """q·kᵀ over the last two axes, in f32 from inputs in any dtype."""
-    return torch.matmul(q.float(), k.float().transpose(-1, -2))
+    """q·kᵀ over the last two axes, in f32 from inputs in any dtype (f64
+    from f64 inputs)."""
+    dt = torch.promote_types(q.dtype, torch.float32)
+    return torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..nn.blocks import AdConcat2
+from ..nn.fusion import AdaptAdd2
 from ..nn.primitives import BatchNorm2d
 
 GROUPS = ("g0", "g1", "g2")  # BN weights, other weights (decayed), biases
@@ -24,11 +25,14 @@ GROUPS = ("g0", "g1", "g2")  # BN weights, other weights (decayed), biases
 
 def param_groups(model: nn.Module) -> Dict[str, str]:
     """Label every parameter name g0 (BN weight, no decay), g1 (other
-    weights, and the BiFPN `w` of AdConcat2/3; decay), g2 (biases, no
-    decay) or "frozen" (any other parameter, which the reference never
-    optimizes: the Swin bias tables, `in_proj_weight` and `in_proj_bias`)."""
+    weights, and the BiFPN `w` of AdConcat2/3 and AdaptAdd2/3; decay), g2
+    (biases, no decay) or "frozen" (any other parameter, which the
+    reference never optimizes: the Swin bias tables, `in_proj_weight` and
+    `in_proj_bias`, HorBlock's `gamma1`/`gamma2`, the weighted Sum's `w`,
+    the ACON `p1`/`p2`/`beta`)."""
     bn = {name for name, m in model.named_modules() if isinstance(m, BatchNorm2d)}
-    bifpn = {name for name, m in model.named_modules() if isinstance(m, AdConcat2)}
+    bifpn = {name for name, m in model.named_modules()
+             if isinstance(m, (AdConcat2, AdaptAdd2))}
     labels = {}
     for name, _ in model.named_parameters():
         parent, _, leaf = name.rpartition(".")

@@ -14,7 +14,11 @@ attribute names equal those path parts, so the map is mechanical:
     in_proj_kernel                .in_proj_weight               (C, 3C) <-> (3C, C)
     in_proj_bias                  .in_proj_bias                 as is
     relative_position_bias_table  same name                     as is
-    w (AdConcat2/3)               same name                     as is
+    w (AdConcat2/3, AdaptAdd2/3,  same name                     as is
+      weighted Sum)
+    gamma1, gamma2 (HorBlock)     same name                     as is
+    p1, p2, beta (AconC,          same name                     as is, (1, 1, 1, C)
+      MetaAconC)
 
 `state_dict_from_jax` goes one way, `jax_from_state_dict` the other (a
 `.weight` is a kernel or a scale by the type of its module).
@@ -29,7 +33,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..nn.blocks import AdConcat2
+from ..nn.activations import AconC, MetaAconC
+from ..nn.blocks import AdConcat2, Sum
+from ..nn.fusion import AdaptAdd2
+from ..nn.hornet import HorBlock
 from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear
 from ..nn.transformer import MultiheadAttention, WindowAttention
 from .checkpoint import load_checkpoint
@@ -37,7 +44,8 @@ from .device import resolve_device
 
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var", "in_proj_bias": "in_proj_bias",
-         "relative_position_bias_table": "relative_position_bias_table", "w": "w"}
+         "relative_position_bias_table": "relative_position_bias_table",
+         **{leaf: leaf for leaf in ("w", "gamma1", "gamma2", "p1", "p2", "beta")}}
 _AFFINE = {"weight": ("params", "scale"), "bias": ("params", "bias")}
 # port leaf -> (JAX tree, JAX leaf), by module type (a subclass takes its
 # base's entry)
@@ -50,7 +58,12 @@ _TO_JAX = {Conv2d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
                                 "in_proj_bias": ("params", "in_proj_bias")},
            WindowAttention: {"relative_position_bias_table":
                              ("params", "relative_position_bias_table")},
-           AdConcat2: {"w": ("params", "w")}}
+           AdConcat2: {"w": ("params", "w")},
+           AdaptAdd2: {"w": ("params", "w")},
+           Sum: {"w": ("params", "w")},
+           HorBlock: {g: ("params", g) for g in ("gamma1", "gamma2")},
+           AconC: {p: ("params", p) for p in ("p1", "p2", "beta")},
+           MetaAconC: {p: ("params", p) for p in ("p1", "p2")}}
 _TRANSPOSED = ("kernel", "in_proj_kernel")  # JAX leaves stored (in, out)
 
 

@@ -32,13 +32,16 @@ def test_no_jax_import(path):
 
 
 def test_port_has_its_own_configs():
-    """Byte-identical copies of the 44 model yamls whose modules the port
-    has (tests/test_torch_zoo_models.py names them) and of the hyps."""
+    """Byte-identical copies of all 69 model yamls of the JAX package
+    (tests/test_torch_zoo_models.py names them) and of the hyps."""
     models = sorted(p.stem for p in (ROOT / "dmayolo_tpu_torch" / "configs" / "models").glob(
         "*.yaml"))
-    assert len(models) == 44
+    assert len(models) == 69
+    assert models == sorted(p.stem for p in (ROOT / "dmayolo_tpu" / "configs" / "models").glob(
+        "*.yaml"))
     assert {"ablation-ca-scconv-sppfcspc", "yolov5n", "yolov5s", "C3CASPD2", "CASPD_ODRTA",
-            "yolov5l-ca-sppfcspc-bifpn-scconv", "yolov5l-xs-tph"} <= set(models)
+            "yolov5l-ca-sppfcspc-bifpn-scconv", "yolov5l-xs-tph",
+            "ca-sppfcspc-bifpn-scconv-adapt-hornet", "ghostnet", "yolov3-tiny"} <= set(models)
     for kind, names in (("models", models), ("hyp", ("scratch", "visdrone"))):
         for name in names:
             ours = (ROOT / "dmayolo_tpu_torch" / "configs" / kind / f"{name}.yaml").read_bytes()

@@ -165,8 +165,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 def test_unknown_module_raises_keyerror():
     cfg = small_cfg()
-    cfg["backbone"][1] = [-1, 1, "C3Ghost", [128]]  # not ported yet
-    with pytest.raises(KeyError, match="C3Ghost"):
+    cfg["backbone"][1] = [-1, 1, "C3Unknown", [128]]  # in neither package's registry
+    with pytest.raises(KeyError, match="C3Unknown"):
         DetectionModel(cfg, device="cpu")
 
 

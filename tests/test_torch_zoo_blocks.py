@@ -269,10 +269,22 @@ def test_swin_on_the_meta_device():
 
 def test_weights_round_trip_for_the_new_leaves():
     """JAX -> port -> JAX is the identity on a module with every new leaf:
-    Dense kernels, LayerNorm scales, in_proj, the bias table, AdConcat w."""
+    Dense kernels, LayerNorm scales, in_proj, the bias table, AdConcat w;
+    HorBlock's gamma1/gamma2, Adapt_Add2/3's and the weighted Sum's w, the
+    ACON p1/p2/beta."""
+    from dmayolo_tpu.nn import activations as ja
+    from dmayolo_tpu_torch.nn import activations as pa
+    from dmayolo_tpu_torch.nn import fusion as pf
+    from dmayolo_tpu_torch.nn import hornet as ph
+
     for jmod, pmod in ((jb.C3TR(32, 32, 1), pt.C3TR(32, 32, 1)),
                        (jb.C3STR(64, 64, 1), pt.C3STR(64, 64, 1)),
-                       (jb.AdConcat3(), pb.AdConcat3()), (jb.CBAM(32, 32), pb.CBAM(32, 32))):
+                       (jb.AdConcat3(), pb.AdConcat3()), (jb.CBAM(32, 32), pb.CBAM(32, 32)),
+                       (jb.C3HB(64, 64, 2), ph.C3HB(64, 64, 2)),
+                       (jb.AdaptAdd2(), pf.AdaptAdd2()),
+                       (jb.AdaptAdd3(16, 16, 24), pf.AdaptAdd3(16, 16, 24)),
+                       (jb.Sum(3, True), pb.Sum(3, True)), (ja.AconC(16), pa.AconC(16)),
+                       (ja.MetaAconC(32), pa.MetaAconC(32))):
         params, stats = zoo_vars(jmod)
         port_with(pmod, params, stats)
         p2, s2 = jax_from_state_dict(pmod)
