@@ -180,6 +180,32 @@ source, all at once), then:
    counted: one launch), and its f32 raw head at 256 px on the card
    within 1e-3 of the CPU's; parameters, peak memory and seconds printed.
 
+12. The CLIs (`cli_phase`, after 9, on its files): `cli.model` (the
+   flagship's layer table, 78.26 M parameters at nc 10, GFLOPs at 640
+   px; then its per-layer profile at bs128 640 px bf16 fused, 3
+   iterations a prefix, the five slowest layers printed); `cli.train` at
+   the author's recipe (train.sh:5-9: 1536 px, bs4, Adam, hyp VisDrone,
+   --fastload --device-aug --remat) from the eval weights on the 64 train
+   files, validated on 16 val files labelled with the EMA's own
+   detections, stopped after its first epoch (as a kill between epochs
+   would) and `--resume`d for the second: the resumed run continues the
+   step count and `main` returns the fitness best.npz records; remat's
+   1536 px bs4 bf16 step against the plain one from one state (grads and
+   BN statistics within `REMAT_TOL` or twice the plain step's own spread;
+   peak GiB of both, remat's not larger; ms a step); `--batch-size -1` at
+   the recipe (the probe ladder, the chosen batch, and one real step at
+   it peaking under 0.9 of the budget); `cli.val` at the author's eval
+   recipe (val.sh:4-6: 1996 px, rounded to 2016, TTA, bs8, --save-txt
+   --save-conf --verbose) on the 96 val files from the trained best.npz,
+   then `--save-json` on "scan" and one run each on "pallas" and "matrix"
+   at 1536 px on the first 32 (each run's img/s for the whole run and
+   after its first batch; counted: K2's cluster kernel and K3's blocked entry once a
+   batch; the three backends' label files identical); last, best.npz
+   written as the reference's own `.pt` (stub classes, f16, EMA and
+   model, its anchors x1.3) and loaded through
+   `load_model_from_checkpoint`: one served batch on "matrix" (K3
+   counted) equal to the `.npz` path's with the anchors swapped.
+
 Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
@@ -1720,7 +1746,8 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
         tr.get_step = recorded
         if probe is not None:
             probe.before(tr)
-        state = tr.train(log_every=n_batches)
+        tr.train(log_every=n_batches)
+        state = tr.state
         tr.get_step = step_for
         if probe is not None:
             out["probe"] = probe.after(tr, state, batches[0], dtype=torch.bfloat16
@@ -2754,8 +2781,9 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
     """The data path on disk: generate, time the loader alone, run
     `run_validation` on the three backends (counted), check known answers
     on the files, train from the data yaml with device_aug off and on, and
-    hold device_aug against its CPU version.  Writes under build/ and
-    removes what it wrote."""
+    hold device_aug against its CPU version.  Writes under build/
+    (DATA_DIR), which the caller removes once the CLI phase has read it
+    (this phase removes it only when it fails)."""
     import os
     import shutil
 
@@ -2889,8 +2917,9 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
 
         # ---- 6. device_aug on the card against its CPU version
         out["device_aug"] = device_aug_check(device, val_images)
-    finally:
+    except BaseException:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+        raise
     return out
 
 
@@ -2947,6 +2976,598 @@ def print_data(dp, ev, tr_mem, smi):
     da = dp["device_aug"]
     print(f"device_aug on the card vs its CPU version: max abs err {da['max_abs_err']:.2e} "
           f"(tol {da['tol']})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the CLI core: model, train (resume, remat, autobatch), val, the .pt load
+# ---------------------------------------------------------------------------
+
+# val.sh's recipe reads the data phase's `recipe_val` unique val files; the
+# --save-json and backend runs the first `n_val` of them
+CLI = dict(train_imgsz=1536, train_batch=4, epochs=2, train_val=16, val_imgsz=1996,
+           val_batch=8, recipe_val=96, n_val=32, backend_imgsz=1536, profile_batch=128,
+           profile_iters=3, remat_imgsz=1536, remat_batch=4, model_nc=10)
+CLI_DIR = DATA_DIR / "cli"
+PT_ANCHOR_SCALE = 1.3  # the .pt's trained anchors: the checkpoint's, scaled
+# remat's step against the plain one, both bf16 from one state: within
+# twice the plain step's own spread between two runs (cuDNN's backward
+# adds in a nondeterministic order), or this much (max |a - b| over 1 +
+# max |b|) where the spread is smaller
+REMAT_TOL = 1e-3
+AUTOBATCH_FRACTION = 0.9
+
+
+class BatchClock:
+    """`run_validation`'s loader, clocked from the loop: `asked[i]` is when
+    the loop asked for batch i (the one before it checked, its detections
+    on the host), the last entry when the loop ended.  The images after the
+    first batch (which carries the builds and cuDNN's autotuning) over the
+    time from asking for the second batch to the end is the run's rate
+    after the first batch, the loader included."""
+
+    def __init__(self, loader):
+        self.loader, self.asked, self.sizes = loader, [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            self.asked.append(time.perf_counter())
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.sizes.append(batch.images.shape[0])
+            yield batch
+
+    def rate_after_first(self):
+        if len(self.sizes) < 2:
+            return None
+        return sum(self.sizes[1:]) / (self.asked[-1] - self.asked[1])
+
+
+class Interrupted(Exception):
+    """Stops the first CLI training run after its first epoch, as a kill
+    between epochs would: last.npz keeps the optimizer state."""
+
+
+def reference_pt(model, path, anchor_scale=PT_ANCHOR_SCALE):
+    """`model`'s weights written as the reference's own training
+    checkpoint: {'epoch', 'model', 'ema'} of modules whose classes cannot
+    be imported when the file is read (a module made for the write and
+    removed after it), f16, with the yaml, BN `num_batches_tracked`, and
+    the Detect layer's `anchors` (stride units, x `anchor_scale`) and
+    `anchor_grid` buffers.  'model' holds the weights halved, so a reader
+    that takes it over the EMA serves other detections."""
+    import types
+
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    mod = types.ModuleType("reference_models_stub")
+    exec("import torch.nn as nn\nclass Model(nn.Module):\n    pass\n"
+         "class Layer(nn.Module):\n    pass\n", mod.__dict__)
+    sys.modules[mod.__name__] = mod
+    try:
+        buffers = {k for k, _ in model.named_buffers()}
+
+        def tree(scale):
+            root = mod.Model()
+            for key, v in model.state_dict().items():
+                *parents, leaf = key.split(".")
+                m = root
+                for part in parents:
+                    if not hasattr(m, part):
+                        m.add_module(part, mod.Layer())
+                    m = getattr(m, part)
+                v = v.detach().cpu()
+                if key in buffers:
+                    m.register_buffer(leaf, v.clone())
+                    if leaf == "running_var":
+                        m.register_buffer("num_batches_tracked", torch.tensor(100))
+                else:
+                    m.register_parameter(leaf, nn.Parameter(v * scale))
+            head = root.model.get_submodule(str(len(model.model) - 1))
+            head.register_buffer("anchors", torch.from_numpy(
+                np.asarray(model.head.anchors, np.float32) * anchor_scale))
+            head.register_buffer("anchor_grid", torch.zeros(1))
+            root.yaml = dict(model.yaml)
+            return root.half()
+
+        torch.save({"epoch": 1, "model": tree(0.5), "ema": tree(1.0)}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def remat_step(device, cfg, nc, sd, batch, remat, dtype, timed_steps):
+    """One step of the recipe's program (Adam, hyp VisDrone, device_aug)
+    from the weights `sd` on `batch`, with or without remat: grads and BN
+    running statistics on the host, the step's peak GiB above what the
+    process held before the step's model was built (so with the model,
+    EMA and Adam state), then ms a step over `timed_steps` more."""
+    import gc
+
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.train.loss import Targets
+    from dmayolo_tpu_torch.train.optim import Schedule, param_groups
+    from dmayolo_tpu_torch.train.step import init_train_state, make_train_step
+    from dmayolo_tpu_torch.train.trainer import load_hyp, scale_hyp
+
+    on_card = device.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+    model = DetectionModel(cfg, nc=nc, device=device)
+    model.load_state_dict(sd)
+    model.remat = remat
+    imgsz = batch.images.shape[1]
+    h = scale_hyp(load_hyp("visdrone"), model.head.nl, nc, imgsz)
+    state = init_train_state(model, param_groups(model), h["weight_decay"], adam=True,
+                             momentum=h["momentum"])
+    aug = {"hgain": h["hsv_h"], "sgain": h["hsv_s"], "vgain": h["hsv_v"], "fliplr": h["fliplr"]}
+    step = make_train_step(make_loss(model, h, nc, "anchor"),
+                           Schedule(h, epochs=1, steps_per_epoch=1, adam=True,
+                                    batch_size=imgsz), dtype=dtype, device_aug=aug)
+    imgs = torch.from_numpy(batch.images).to(device)
+    tg = Targets(*(torch.from_numpy(t).to(device) for t in batch.targets))
+    grads = {}
+
+    def pre_step(*_):
+        grads.update({k: p.grad.float().cpu() for k, p in model.named_parameters()
+                      if p.grad is not None})
+
+    hook = state.optimizer.register_step_pre_hook(pre_step)
+    gen = torch.Generator(device=device).manual_seed(3)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    step(state, imgs, tg, gen)
+    hook.remove()
+    out = {"grads": grads, "stats": {k: v.float().cpu() for k, v in model.named_buffers()
+                                     if "running_" in k}}
+    if on_card:
+        torch.cuda.synchronize()
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        out["ms"] = cuda_ms(lambda: step(state, imgs, tg, gen), timed_steps, warmup=1)
+    del state, model, step, imgs, tg
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_check(device, cfg, nc, imgsz, batch, timed_steps=3):
+    """The recipe's step at `imgsz`, batch `batch`, with and without
+    remat from one state: grads and BN statistics within REMAT_TOL (or
+    twice the plain step's spread), peak memory not larger with remat."""
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+
+    on_card = device.type == "cuda"
+    dtype = torch.bfloat16 if on_card else torch.float32
+    model = DetectionModel(cfg, nc=nc, device="cpu").init_with_priors(
+        torch.Generator().manual_seed(4))
+    sd = model.state_dict()
+    b = train_batches(1, batch, imgsz, nc, 128, seed=21)[0]
+    runs = {name: remat_step(device, cfg, nc, sd, b, remat, dtype, timed_steps)
+            for name, remat in (("plain", False), ("plain_again", False), ("remat", True))}
+    p, q, r = runs["plain"], runs["plain_again"], runs["remat"]
+    out = {"imgsz": imgsz, "batch": batch, "dtype": str(dtype),
+           "grads_spread": scaled_err(q["grads"], p["grads"]),
+           "grads_err": scaled_err(r["grads"], p["grads"]),
+           "stats_spread": scaled_err(q["stats"], p["stats"]),
+           "stats_err": scaled_err(r["stats"], p["stats"])}
+    for kind in ("grads", "stats"):
+        tol = max(2 * out[f"{kind}_spread"], REMAT_TOL)
+        out[f"{kind}_tol"] = tol
+        check(out[f"{kind}_err"] <= tol,
+              f"remat's {kind} off the plain step's: {out[f'{kind}_err']} > {tol}")
+    if on_card:
+        out.update(peak_gib=p["peak_gib"], remat_peak_gib=r["peak_gib"], ms=p["ms"],
+                   remat_ms=r["ms"])
+        check(r["peak_gib"] <= p["peak_gib"], f"remat's peak is larger: {out}")
+    return out
+
+
+def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=10,
+              workers=None):
+    """The CLIs driven in process through their `main(argv)` on the data
+    phase's set (its files, labels and `start.npz`), as a user runs them:
+    `cli.model` (the layer table, parameters, GFLOPs, the bs128 bf16 fused
+    profile); `cli.train` at the flagship's recipe with `--remat`, stopped
+    after its first epoch and resumed for the second; remat's step against
+    the plain one; `--batch-size -1`; `cli.val` at the author's eval
+    recipe (1996 px, TTA) from the trained best.npz, with `--save-json`,
+    and on "pallas" and "matrix" at `backend_imgsz` (counted; the three
+    backends' detections identical); and the same weights as a
+    reference-layout `.pt` loaded and served against the `.npz` path."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.cli import common as cli_common
+    from dmayolo_tpu_torch.cli import model as cli_model
+    from dmayolo_tpu_torch.cli import train as cli_train
+    from dmayolo_tpu_torch.cli import val as cli_val
+    from dmayolo_tpu_torch.data.datasets import DetectionDataset
+    from dmayolo_tpu_torch.data.loader import DataLoader
+    from dmayolo_tpu_torch.eval import validator as validator_mod
+    from dmayolo_tpu_torch.train import autobatch as autobatch_mod
+    from dmayolo_tpu_torch.train import trainer as trainer_mod
+    from dmayolo_tpu_torch.utils import model_info
+    from dmayolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    on_card = device.type == "cuda"
+    workers = workers or min(8, os.cpu_count() or 1)
+    dev = [] if on_card else ["--device", "cpu"]
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    if cfg is None:
+        cfg_arg = f"{FLAGSHIP}.yaml"  # resolved by name, as the recipe does
+    else:
+        cfg_arg = str(CLI_DIR / "model.yaml")
+        Path(cfg_arg).write_text(json.dumps(cfg))  # JSON is YAML
+    cfg_path = cli_common.resolve_config(cfg_arg, "models")
+    val_files = sorted((data_dir / "images" / "val").iterdir())
+    train_val = CLI_DIR / "train_val.txt"
+    train_val.write_text("".join(f"{f}\n" for f in val_files[:sizes["train_val"]]))
+    check(len(val_files) >= sizes["recipe_val"] >= sizes["n_val"],
+          f"{len(val_files)} val files for the CLI's val runs")
+    cli_val_list = CLI_DIR / "val.txt"
+    cli_val_list.write_text("".join(f"{f}\n" for f in val_files[:sizes["n_val"]]))
+    recipe_val_list = CLI_DIR / "val_recipe.txt"
+    recipe_val_list.write_text("".join(f"{f}\n" for f in val_files[:sizes["recipe_val"]]))
+    data_yaml = CLI_DIR / "data.yaml"
+    data_yaml.write_text(f"path: {data_dir}\ntrain: images/train\nval: {train_val}\n"
+                         f"nc: {nc}\n")
+    val_yaml = CLI_DIR / "val.yaml"
+    val_yaml.write_text(f"path: {data_dir}\nval: {cli_val_list}\nnc: {nc}\n")
+    recipe_yaml = CLI_DIR / "val_recipe.yaml"
+    recipe_yaml.write_text(f"path: {data_dir}\nval: {recipe_val_list}\nnc: {nc}\n")
+    out, t_phase = {}, time.perf_counter()
+
+    # ---- 1. cli.model: the table, parameters, GFLOPs; the layer profile
+    printed = []
+    real_info, real_profile = model_info.model_info, model_info.profile_layers
+    try:
+        model_info.model_info = lambda *a, **k: printed.append(real_info(*a, **k)) or printed[-1]
+        t0 = time.perf_counter()
+        m = cli_model.main(["--cfg", cfg_arg, "--nc", str(sizes["model_nc"]), "--verbose",
+                            *dev])
+        out["model"] = {"s": time.perf_counter() - t0, "info": printed[-1],
+                        "params": sum(p.numel() for p in m.parameters())}
+        del m
+        profiles = []
+        model_info.profile_layers = lambda *a, **k: profiles.append(
+            real_profile(*a, **{**k, "iters": sizes["profile_iters"]})) or profiles[-1]
+        t0 = time.perf_counter()
+        cli_model.main(["--cfg", cfg_arg, "--nc", str(sizes["model_nc"]), "--profile",
+                        "--batch", str(sizes["profile_batch"]), "--bf16", "--fused", *dev])
+        rows = profiles[-1]
+        out["model"].update(profile_s=time.perf_counter() - t0, profile_batch=sizes[
+            "profile_batch"], profile_total_ms=rows[-1][3],
+            slowest=[{"i": i, "name": n, "ms": d} for i, n, d, _ in
+                     sorted(rows, key=lambda r: -r[2])[:5]])
+    finally:
+        model_info.model_info, model_info.profile_layers = real_info, real_profile
+    if on_card:
+        torch.cuda.empty_cache()
+    print("cli model: " + json.dumps(out["model"]), flush=True)
+
+    # ---- 2. cli.train: the recipe, stopped after epoch 0, then --resume
+    trainers, vals, steps = [], [], []
+    real_make, real_val = cli_train._make_trainer, trainer_mod.run_validation
+
+    def make(opt, hyp, out_dir):
+        tr = real_make(opt, hyp, out_dir)
+        trainers.append(tr)
+        get_step = tr.get_step
+
+        def timed(acc):  # each optimizer step's end, on the host clock after a sync
+            s = get_step(acc)
+
+            def run(*a, **k):
+                r = s(*a, **k)
+                if on_card:
+                    torch.cuda.synchronize()
+                steps.append((len(trainers), time.perf_counter(), a[1].shape[0]))
+                return r
+            return run
+
+        tr.get_step = timed
+        if len(trainers) == 1:  # the first run ends after its first epoch
+            log = tr._log_csv
+
+            def log_then_stop(row):
+                log(row)
+                raise Interrupted(f"stopped after epoch {row['epoch']}")
+
+            tr._log_csv = log_then_stop
+        return tr
+
+    def labelled(model, data_path, **k):
+        # the known answer: the EMA's own detections as the labels (the
+        # start weights score under the conf gate on the generated ones)
+        own_labels(model, data_path, k["img_size"], k["batch_size"], k["dtype"], workers)
+        vals.append(real_val(model, data_path, **k))
+        return vals[-1]
+
+    def recipe(batch):  # train.sh:5-9, the epochs, data and names aside
+        return ["--imgsz", str(sizes["train_imgsz"]), "--adam", "--batch-size", str(batch),
+                "--hyp", "visdrone", "--fastload", "--device-aug", "--remat"]
+
+    run_dir = CLI_DIR / "runs" / "flagship"
+    argv = ["--cfg", cfg_arg, "--data", str(data_yaml), "--epochs", str(sizes["epochs"]),
+            *recipe(sizes["train_batch"]), "--weights", str(data_dir / "start.npz"), "--project",
+            str(CLI_DIR / "runs"), "--name", "flagship", "--workers", str(workers), *dev]
+    cli_train._make_trainer, trainer_mod.run_validation = make, labelled
+    try:
+        t0 = time.perf_counter()
+        try:
+            cli_train.main(argv)
+            check(False, "the first training run was not stopped after its first epoch")
+        except Interrupted:
+            pass
+        first_s = time.perf_counter() - t0
+        trees, meta0 = load_checkpoint(run_dir / "last.npz")
+        check("opt_mom" in trees and meta0["epoch"] == 0,
+              f"the stopped run's last.npz is not resumable: epoch {meta0.get('epoch')}")
+        t0 = time.perf_counter()
+        best = cli_train.main(["--resume", str(run_dir / "last.npz"), *dev])
+        resume_s = time.perf_counter() - t0
+    finally:
+        cli_train._make_trainer, trainer_mod.run_validation = real_make, real_val
+    first, second = trainers
+    _, best_meta = load_checkpoint(run_dir / "best.npz")
+    n_train = len(first.train_ds)
+    out["train"] = {
+        "first_s": first_s, "resume_s": resume_s, "images_an_epoch": n_train,
+        "steps_first": meta0["step"], "resumed_at_epoch": second.start_epoch,
+        "steps_after_resume": second.state.step, "returned_fitness": best,
+        "best_meta": {k: best_meta.get(k) for k in ("epoch", "best_fitness")},
+        "val": [{k: getattr(v, k) for k in ("mp", "mr", "map50", "map")} for v in vals],
+        "remat": bool(first.model.remat and second.model.remat),
+        "accumulate": first.accumulate}
+    for run in (1, 2):
+        t = [(ts, n) for r, ts, n in steps if r == run]
+        if len(t) > 2:  # after the first step (builds, cuDNN's autotuning)
+            out["train"][f"img_per_s_run{run}"] = sum(n for _, n in t[1:]) / (t[-1][0] - t[0][0])
+    check(second.start_epoch == 1 and second.state.step > meta0["step"] > 0,
+          f"the resumed run does not continue the first: {out['train']}")
+    check(best == best_meta["best_fitness"] and best > 0,
+          f"main's return is not best.npz's fitness: {best} vs {best_meta}")
+    check(out["train"]["remat"], "--remat did not reach the Trainer's model")
+    print("cli train: " + json.dumps(out["train"]), flush=True)
+    del first, second, trainers
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 3. remat against the plain step, one state
+    t0 = time.perf_counter()
+    out["remat"] = remat_check(device, cfg or cli_common.resolve_config(cfg_arg, "models"), nc,
+                               sizes["remat_imgsz"], sizes["remat_batch"])
+    out["remat"]["s"] = time.perf_counter() - t0
+    print("cli remat: " + json.dumps(out["remat"]), flush=True)
+
+    # ---- 4. --batch-size -1 at the recipe (--epochs 0: the search and the
+    # Trainer's build, no training)
+    real_find, found = autobatch_mod.find_train_batch_size, {}
+
+    def logged(model, *a, **k):
+        found["budget"] = autobatch_mod.device_memory_budget(next(model.parameters()).device)
+        found["ladder"] = []
+        found["batch"] = real_find(model, *a, **{**k, "log": found["ladder"],
+                                                 "hbm_bytes": found["budget"]})
+        return found["batch"]
+
+    autobatch_mod.find_train_batch_size = logged
+    try:
+        t0 = time.perf_counter()
+        cli_train.main(["--cfg", cfg_arg, "--data", str(data_yaml), "--epochs", "0",
+                        *recipe(-1),
+                        "--project", str(CLI_DIR / "runs"), "--name", "autobatch",
+                        "--workers", str(workers), *dev])
+        ab = {"s": time.perf_counter() - t0, "batch": found.get("batch")}
+    finally:
+        autobatch_mod.find_train_batch_size = real_find
+    if on_card:
+        bs = found["batch"]
+        ab.update(budget_gib=found["budget"] / 2 ** 30,
+                  ladder=[{"bs": b, "status": s, "gib": None if m is None else m / 2 ** 30}
+                          for b, s, m in found["ladder"]])
+        # one real step at the chosen batch, at the deployed accumulate
+        acc = max(round(64 / bs), 1)
+        peak = autobatch_step(device, cfg_path, nc, sizes["train_imgsz"], bs, acc)
+        ab.update(step_accumulate=acc, step_peak_gib=peak,
+                  limit_gib=AUTOBATCH_FRACTION * found["budget"] / 2 ** 30)
+        check(peak < AUTOBATCH_FRACTION * found["budget"] / 2 ** 30,
+              f"autobatch's batch {bs} peaks over {AUTOBATCH_FRACTION} of the budget: {ab}")
+    else:
+        check(found.get("batch") == 16, f"--batch-size -1 off the card is not 16: {found}")
+    out["autobatch"] = ab
+    print("cli autobatch: " + json.dumps(ab), flush=True)
+
+    # ---- 5. cli.val: the author's eval recipe, --save-json, the kernels
+    best_npz = str(run_dir / "best.npz")
+    vals_out = {}
+
+    clocks, real_loader = [], validator_mod.DataLoader
+
+    def clocked(*a, **k):
+        clocks.append(BatchClock(real_loader(*a, **k)))
+        return clocks[-1]
+
+    def val(name, yaml_file, n, *flags):
+        for c in counters:
+            c.launches = 0
+        validator_mod.DataLoader = clocked
+        try:
+            t0 = time.perf_counter()
+            res = cli_val.main(["--weights", best_npz, "--data", str(yaml_file), "--project",
+                                str(CLI_DIR / "val"), "--name", name, "--exist-ok", *flags,
+                                *dev])
+            wall = time.perf_counter() - t0
+        finally:
+            validator_mod.DataLoader = real_loader
+        check(sum(clocks[-1].sizes) == n, f"val '{name}' read {clocks[-1].sizes}, not {n} images")
+        r = {"images": n, "s": wall, "img_per_s": n / wall,
+             "img_per_s_after_first_batch": clocks[-1].rate_after_first(),
+             "speed_ms": res.speed_ms, "launches": {c.__name__: c.launches for c in counters},
+             **{k: getattr(res, k) for k in ("mp", "mr", "map50", "map", "nt")}}
+        check(all(np.isfinite(r[k]) for k in ("mp", "mr", "map50", "map")) and r["nt"] > 0,
+              f"bad val result '{name}': {r}")
+        vals_out[name] = r
+        return res
+
+    val("recipe", recipe_yaml, sizes["recipe_val"], "--imgsz", str(sizes["val_imgsz"]),
+        "--augment", "--save-txt", "--save-conf", "--task", "val", "--batch-size",
+        str(sizes["val_batch"]), "--verbose")
+    at = ("--imgsz", str(sizes["backend_imgsz"]), "--batch-size", str(sizes["val_batch"]),
+          "--save-txt", "--save-conf")
+    res = val("json", val_yaml, sizes["n_val"], *at, "--save-json")
+    check(res.used_image_ids is not None and len(res.used_image_ids) == sizes["n_val"]
+          and (CLI_DIR / "val" / "json" / "coco_gt.json").exists(),
+          "--save-json wrote no COCO ground truth or scoped no images")
+    for backend in ("pallas", "matrix"):
+        val(backend, val_yaml, sizes["n_val"], *at, "--nms-backend", backend)
+    txt = {name: {p.name: p.read_text() for p in (CLI_DIR / "val" / name / "labels").iterdir()}
+           for name in ("json", "pallas", "matrix")}
+    check(txt["json"] == txt["pallas"] == txt["matrix"] and txt["json"],
+          "the val CLI's detections differ between 'scan', 'pallas' and 'matrix'")
+    n_batches = -(-sizes["n_val"] // sizes["val_batch"])
+    if on_card:
+        lp, lm = vals_out["pallas"]["launches"], vals_out["matrix"]["launches"]
+        check(lp["nms_greedy_stream_cluster"] == n_batches,
+              f"val on 'pallas': K2's cluster kernel once a batch? {lp}")
+        check(lm["fixpoint_keep_blocked"] == n_batches,
+              f"val on 'matrix': K3's blocked entry once a batch? {lm}")
+    out["val"] = vals_out
+    print("cli val: " + json.dumps(vals_out), flush=True)
+
+    # ---- 6. the same weights as the reference's .pt, through the loader
+    t0 = time.perf_counter()
+    npz_model = cli_common.load_model_from_checkpoint(best_npz, device=device)
+    pt = CLI_DIR / "best.pt"
+    reference_pt(npz_model, pt)
+    pt_model = cli_common.load_model_from_checkpoint(str(pt), device=device)
+    want_anchors = (np.asarray(npz_model.head.anchors, np.float32)
+                    * PT_ANCHOR_SCALE).astype(np.float16).astype(np.float32)
+    check(np.array_equal(pt_model.head.anchors, want_anchors),
+          "the .pt's trained anchors did not reach the head")
+    npz_model.head.anchors = pt_model.head.anchors.copy()
+    dtype = torch.bfloat16 if on_card else torch.float32
+    b = next(iter(DataLoader(
+        DetectionDataset(str(cli_val_list), img_size=sizes["backend_imgsz"],
+                         stride=int(npz_model.stride.max()), nc=nc),
+        sizes["val_batch"], shuffle=False, workers=workers)))
+    x = torch.from_numpy(b.images).to(device).to(dtype) / 255.0
+    served = {}
+    with torch.inference_mode():
+        for name, m in (("npz", npz_model), ("pt", pt_model)):
+            m.fuse()
+            raw = m.apply(x, dtype=dtype, fused=True)
+            conf = min(0.25, 0.5 * float(m.decode_parts(raw)[1].amax(1).min()))
+            for c in counters:
+                c.launches = 0
+            dets, valid = m.serve_detections(raw, conf_thres=conf, backend="matrix")
+            served[name] = (dets[valid].float().cpu(), int(valid.sum()),
+                            {c.__name__: c.launches for c in counters}, conf)
+    out["pt"] = {"s": time.perf_counter() - t0, "detections": served["pt"][1],
+                 "conf_thres": served["pt"][3], "launches": served["pt"][2],
+                 "file_mb": pt.stat().st_size / 2 ** 20}
+    check(served["pt"][1] > 0 and served["pt"][1] == served["npz"][1]
+          and torch.equal(served["pt"][0], served["npz"][0]),
+          f"the .pt and the .npz serve other detections: {out['pt']}")
+    if on_card:
+        check(served["pt"][2]["fixpoint_keep"] > 0, "K3 did not launch serving the .pt")
+    print("cli pt: " + json.dumps(out["pt"]), flush=True)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def autobatch_step(device, cfg_path, nc, imgsz, bs, acc):
+    """Peak GiB of one step of the recipe's program at batch `bs` and
+    accumulate `acc`, from a fresh state (the model, EMA and Adam state
+    included)."""
+    import gc
+
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.train.autobatch import probe_targets
+    from dmayolo_tpu_torch.train.optim import Schedule, param_groups
+    from dmayolo_tpu_torch.train.step import init_train_state, make_train_step
+    from dmayolo_tpu_torch.train.trainer import load_hyp, scale_hyp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = DetectionModel(cfg_path, nc=nc, device=device).init_with_priors(
+        torch.Generator().manual_seed(0))
+    model.remat = True
+    h = scale_hyp(load_hyp("visdrone"), model.head.nl, nc, imgsz)
+    state = init_train_state(model, param_groups(model), h["weight_decay"], adam=True,
+                             momentum=h["momentum"])
+    aug = {"hgain": h["hsv_h"], "sgain": h["hsv_s"], "vgain": h["hsv_v"], "fliplr": h["fliplr"]}
+    step = make_train_step(make_loss(model, h, nc, "anchor"),
+                           Schedule(h, epochs=1, steps_per_epoch=1, adam=True, batch_size=bs,
+                                    step_scale=acc),
+                           dtype=torch.bfloat16, accumulate=acc, device_aug=aug)
+    gen = torch.Generator(device=device).manual_seed(0)
+    n = acc * bs
+    imgs = torch.randint(0, 256, (n, imgsz, imgsz, 3), dtype=torch.uint8, device=device,
+                         generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, imgs, probe_targets(n, 128, device), gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, model, step, imgs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def print_cli(cp, smi):
+    """The CLI phase's summary lines."""
+    md, tr, ab, vl = cp["model"], cp["train"], cp["autobatch"], cp["val"]
+    print(f"cli model: {md['info'].splitlines()[-1]}; profile bs{md['profile_batch']} 640px "
+          f"bf16 fused, whole graph {md['profile_total_ms']:.2f} ms; slowest layers: "
+          + ", ".join(f"{r['i']} {r['name']} {r['ms']:.2f} ms" for r in md["slowest"])
+          + f" (cli.model {md['s']:.1f} s, profile {md['profile_s']:.1f} s); on {smi}")
+    print(f"cli train (recipe, --remat, {tr['images_an_epoch']} images an epoch, accumulate "
+          f"{tr['accumulate']}): epoch 0 {tr['first_s']:.1f} s at "
+          f"{tr.get('img_per_s_run1', float('nan')):.2f} img/s, resumed epoch 1 "
+          f"{tr['resume_s']:.1f} s at {tr.get('img_per_s_run2', float('nan')):.2f} img/s; "
+          f"steps {tr['steps_first']} -> {tr['steps_after_resume']}; returned fitness "
+          f"{tr['returned_fitness']:.5f} = best.npz's; on {smi}")
+    rm = cp["remat"]
+    print(f"cli remat {rm['imgsz']}px bs{rm['batch']} {rm['dtype']}: peak "
+          f"{rm.get('peak_gib', float('nan')):.2f} GiB plain, "
+          f"{rm.get('remat_peak_gib', float('nan')):.2f} GiB remat; "
+          f"{rm.get('ms', float('nan')):.1f} / {rm.get('remat_ms', float('nan')):.1f} ms a step; "
+          f"grads {rm['grads_err']:.2e} (plain's spread {rm['grads_spread']:.2e}, tol "
+          f"{rm['grads_tol']:.1e}), BN stats {rm['stats_err']:.2e} (spread "
+          f"{rm['stats_spread']:.2e}); on {smi}")
+    if "ladder" in ab:
+        print(f"cli --batch-size -1: budget {ab['budget_gib']:.2f} GiB, ladder "
+              + ", ".join(f"bs{r['bs']} {r['status']}"
+                          + ("" if r["gib"] is None else f" {r['gib']:.2f} GiB")
+                          for r in ab["ladder"])
+              + f"; chose {ab['batch']}; one step at it (accumulate {ab['step_accumulate']}) "
+              f"peaks {ab['step_peak_gib']:.2f} GiB < {ab['limit_gib']:.2f}; {ab['s']:.1f} s; "
+              f"on {smi}")
+    for name, r in vl.items():
+        print(f"cli val '{name}': {r['images']} images, {r['img_per_s']:.2f} img/s "
+              f"({r['s']:.1f} s), {r['img_per_s_after_first_batch'] or float('nan'):.2f} img/s "
+              f"after the first batch, mAP@.5 {r['map50']:.4f}, speed {r['speed_ms']}; on {smi}")
 
 
 def main():
@@ -3119,14 +3740,23 @@ def main():
               f"{r['serve_s']:.2f} s, all {r['s']:.1f} s; on {smi}", flush=True)
     phases["sweep"] = time.perf_counter() - t0
 
-    # ---- the data path on disk: loader, run_validation, the data-built Trainer
-    t1 = time.perf_counter()
-    model = build_model(device)
-    report["data"] = dp = data_phase(device, counters, model)
-    dp["s"] = phases["data"] = time.perf_counter() - t1
-    del model
-    torch.cuda.empty_cache()
-    print_data(dp, ev, tr, smi)
+    # ---- the data path on disk: loader, run_validation, the data-built
+    # Trainer; then the CLIs on the same files
+    import shutil
+
+    try:
+        t1 = time.perf_counter()
+        model = build_model(device)
+        report["data"] = dp = data_phase(device, counters, model)
+        dp["s"] = phases["data"] = time.perf_counter() - t1
+        del model
+        torch.cuda.empty_cache()
+        print_data(dp, ev, tr, smi)
+        report["cli"] = cp = cli_phase(device, counters, smi)
+        phases["cli"] = cp["s"]
+        print_cli(cp, smi)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     # K1's headline: one bf16 call at each of the four shapes, summed; the
     # bound of that sum is the larger of its summed byte and operation
@@ -3167,6 +3797,8 @@ def main():
     for t in dp["train"]:
         paths[f"data-trained best.npz served, matrix, device_aug {int(t['device_aug'])}"] = \
             t["best_serve"]["launches"]
+    paths.update({f"cli val {name}": r["launches"] for name, r in cp["val"].items()})
+    paths["cli .pt served, matrix"] = cp["pt"]["launches"]
 
     def launches(counter):
         by_path = {p: n[counter.__name__] for p, n in paths.items() if n[counter.__name__]}

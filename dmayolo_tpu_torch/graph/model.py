@@ -2,8 +2,9 @@
 
 Port of `dmayolo_tpu/graph/model.py::DetectionModel`: the same
 `[from, number, module, args]` rows, depth and width gains, channel rules
-and save list.  The stride probe is a forward on PyTorch's `meta` device
-(shapes only, no memory), the analogue of the JAX `eval_shape` probe.
+and save list, and the same `LayerSpec` record of each layer.  The stride
+probe is a forward on PyTorch's `meta` device (shapes only, no memory),
+the analogue of the JAX `eval_shape` probe.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..nn.fuse import fuse_model
 from ..nn.fusion import AdaptAdd2
 from ..nn.heads import Detect, TDetect
 from ..nn.hornet import HorBlock
-from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear, Sequential
+from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear, Sequential, remat_layer
 from ..nn.transformer import MultiheadAttention, WindowAttention
 from ..utils.device import resolve_device
 from .registry import INSERT_N, REGISTRY, WIDTH_GAIN
@@ -64,6 +65,22 @@ def _eval_arg(a, scope: Dict[str, Any]):
     return a  # a plain string such as 'nearest'
 
 
+class LayerSpec:
+    """One parsed yaml row: index, from, registry name, the displayed
+    repeat count, the final constructor args and the output channels."""
+
+    def __init__(self, i, f, name, n, args, c2):
+        self.i = i
+        self.f = f
+        self.name = name
+        self.n = n
+        self.args = args
+        self.c2 = c2
+
+    def __repr__(self):
+        return f"[{self.i:>3}] from={self.f!s:>12} n={self.n} {self.name:<16} args={self.args}"
+
+
 def check_anchor_order(anchors: np.ndarray, strides) -> np.ndarray:
     """Flip anchors if their area order disagrees with the stride order."""
     areas = anchors.prod(-1).mean(-1)
@@ -87,7 +104,10 @@ class DetectionModel(nn.Module):
     `model.train()` is the JAX `apply(train=True)`: every BN normalises
     with its batch moments and updates its running statistics in place,
     so the JAX `(raw, new_stats)` pair is the raw head and the module's
-    buffers.  `model.eval()` switches back."""
+    buffers.  `model.eval()` switches back.  With `remat` set, a forward
+    in train mode that records gradients recomputes each graph layer's
+    activations in the backward (the JAX `apply(remat=True)`; see
+    `nn/primitives.py::remat_layer`)."""
 
     def __init__(self, cfg: Union[str, Path, dict], ch: int = 3,
                  nc: Optional[int] = None, anchors=None, device=None):
@@ -96,8 +116,10 @@ class DetectionModel(nn.Module):
         if isinstance(cfg, (str, Path)):
             with open(cfg, errors="ignore") as f:
                 self.yaml = yaml.safe_load(f)
+            self.yaml_file = str(cfg)
         else:
             self.yaml = dict(cfg)
+            self.yaml_file = "<dict>"
         self.ch = self.yaml.get("ch", ch)
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
@@ -106,6 +128,7 @@ class DetectionModel(nn.Module):
                                     else anchors)
         self.nc = self.yaml["nc"]
         self.fused = False
+        self.remat = False
         self.lazy_tails = 0  # serving tails that took the lazy route
 
         with torch.device("meta"):
@@ -142,6 +165,7 @@ class DetectionModel(nn.Module):
         no = na * (nc + 5)
         scope = {"nc": nc, "anchors": anchors, "None": None}
         layers: List[nn.Module] = []
+        self.specs: List[LayerSpec] = []
         save: List[int] = []
         ch = [self.ch]
         for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
@@ -149,7 +173,7 @@ class DetectionModel(nn.Module):
             if cls is None:
                 raise KeyError(f"unknown module '{name}' in config (layer {i})")
             args = [_eval_arg(a, scope) for a in args]
-            n = max(round(n * gd), 1) if n > 1 else n
+            n_disp = n = max(round(n * gd), 1) if n > 1 else n
             if name in WIDTH_GAIN:
                 c1, c2 = ch[f], args[0]
                 if c2 != no:
@@ -209,6 +233,7 @@ class DetectionModel(nn.Module):
             mod = Sequential(*[cls(*args) for _ in range(n)]) if n > 1 else cls(*args)
             mod.f, mod.i = f, i
             layers.append(mod)
+            self.specs.append(LayerSpec(i, f, name, n_disp, args, c2))
             save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
             if i == 0:
                 ch = []
@@ -222,12 +247,13 @@ class DetectionModel(nn.Module):
         head.  `dtype` is the compute dtype of every conv."""
         x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last if x is NHWC-contiguous
         y: Dict[int, torch.Tensor] = {}
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for mod in self.model:
             f = mod.f
             if f != -1:
                 x = (y[f % mod.i] if isinstance(f, int)
                      else [x if j == -1 else y[j % mod.i] for j in f])
-            x = mod(x, dtype)
+            x = remat_layer(mod, x, dtype) if remat else mod(x, dtype)
             if mod.i in self.save:
                 y[mod.i] = x
         return x
@@ -260,6 +286,13 @@ class DetectionModel(nn.Module):
         fuse_model(self)
         self.fused = True
         return self
+
+    def describe(self) -> str:
+        """The config, layer count, nc and strides, then one line a layer."""
+        lines = [f"{self.yaml_file}: {len(self.model)} layers, nc={self.nc}, "
+                 f"stride={self.stride.tolist()}"]
+        lines += [repr(s) for s in self.specs]
+        return "\n".join(lines)
 
     # -- decode and serving tail ---------------------------------------------
     def decode(self, raw):
@@ -315,3 +348,8 @@ class DetectionModel(nn.Module):
                          iou_thres=iou_thres, agnostic=agnostic,
                          max_det=max_det, max_nms=min(max_nms, boxes.shape[1]),
                          backend=backend)
+
+
+def load_model(cfg, ch: int = 3, nc: Optional[int] = None, anchors=None,
+               device=None) -> DetectionModel:
+    return DetectionModel(cfg, ch=ch, nc=nc, anchors=anchors, device=device)

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 KernelSize = Union[int, Tuple[int, int]]
 
@@ -148,7 +149,9 @@ class BatchNorm2d(nn.Module):
     and applied in the activation dtype, as the JAX eval path does.  Train
     mode (`module.train()`, the JAX `ctx.train`): batch moments in f32
     (`_BatchNormTrain`), and the running mean and the unbiased variance
-    (factor n / (n - 1)) updated in place with momentum 0.03."""
+    (factor n / (n - 1)) updated in place with momentum 0.03, except in
+    the backward's recompute of a rematerialised layer (`remat_layer`
+    sets `recomputing`), whose forward has updated them already."""
 
     def __init__(self, c, eps: float = 1e-3, momentum: float = 0.03):
         super().__init__()
@@ -158,6 +161,7 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.recomputing = False
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -169,6 +173,8 @@ class BatchNorm2d(nn.Module):
     def forward(self, x, dtype):
         if self.training:
             y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            if self.recomputing:
+                return y
             n = x.numel() // x.shape[1]
             m = self.momentum
             with torch.no_grad():
@@ -383,3 +389,50 @@ def space_to_depth_2x(x):
     return torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
                       x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]], dim=1)
 
+
+class _Recompute:
+    """The context of one layer's recompute in the backward: its BNs leave
+    their running statistics alone, and its Dropout and DropPath draw from
+    the generator they were lent in the forward, restored to the state it
+    had when the forward reached the layer, so they draw the same masks.
+    The generator's own state is put back on exit."""
+
+    def __init__(self, bns, stochastic, generator, state):
+        self.bns, self.stochastic = bns, stochastic
+        self.generator, self.state = generator, state
+
+    def __enter__(self):
+        for m in self.bns:
+            m.recomputing = True
+        self.lent = [m.generator for m in self.stochastic]
+        for m in self.stochastic:
+            m.generator = self.generator
+        if self.generator is not None:
+            self.after = self.generator.get_state()
+            self.generator.set_state(self.state)
+
+    def __exit__(self, *exc):
+        if self.generator is not None:
+            self.generator.set_state(self.after)
+        for m, g in zip(self.stochastic, self.lent):
+            m.generator = g
+        for m in self.bns:
+            m.recomputing = False
+
+
+def remat_layer(layer: nn.Module, x, dtype):
+    """`layer(x, dtype)` whose activations are recomputed in the backward
+    instead of kept (`torch.utils.checkpoint`, non-reentrant): the port of
+    the JAX `jax.checkpoint` a graph layer.  The recompute reproduces the
+    forward exactly (see `_Recompute`)."""
+    bns = [m for m in layer.modules() if isinstance(m, BatchNorm2d)]
+    stochastic = [m for m in layer.modules() if isinstance(m, _Stochastic)]
+    lent = {m.generator for m in stochastic if m.draws()}
+    if len(lent) > 1:
+        raise RuntimeError("the layer's Dropout and DropPath hold different generators")
+    generator = lent.pop() if lent else None
+    state = generator.get_state() if generator is not None else None
+    return checkpoint(
+        layer, x, dtype, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _Recompute(bns, stochastic, generator, state)))

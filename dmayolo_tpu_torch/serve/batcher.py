@@ -180,7 +180,7 @@ class MicroBatcher:
                 tiles.append(letterbox(req.img, (sz, sz), auto=False,
                                        device=self.device)[0])
                 ok.append(req)
-            except Exception as e:  # this request fails alone
+            except BaseException as e:  # this request fails alone, whatever it raised
                 req.error = e
                 req.event.set()
         batch = ok
@@ -203,7 +203,7 @@ class MicroBatcher:
             self.stats_counters["batches"] += 1
             self.stats_counters["batch_hist"][len(batch)] += 1
             self.stats_counters["padded_rows"] += bucket - len(batch)
-        except Exception as e:  # to every waiter of this batch; keep serving
+        except BaseException as e:  # to every waiter of this batch; keep serving
             for req in batch:
                 if not req.event.is_set():
                     req.error = e

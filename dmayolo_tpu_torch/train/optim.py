@@ -23,13 +23,13 @@ from ..nn.primitives import BatchNorm2d
 GROUPS = ("g0", "g1", "g2")  # BN weights, other weights (decayed), biases
 
 
-def param_groups(model: nn.Module) -> Dict[str, str]:
+def param_groups(model: nn.Module, train_ungrouped: bool = False) -> Dict[str, str]:
     """Label every parameter name g0 (BN weight, no decay), g1 (other
     weights, and the BiFPN `w` of AdConcat2/3 and AdaptAdd2/3; decay), g2
     (biases, no decay) or "frozen" (any other parameter, which the
     reference never optimizes: the Swin bias tables, `in_proj_weight` and
     `in_proj_bias`, HorBlock's `gamma1`/`gamma2`, the weighted Sum's `w`,
-    the ACON `p1`/`p2`/`beta`)."""
+    the ACON `p1`/`p2`/`beta`); `train_ungrouped` puts those in g1."""
     bn = {name for name, m in model.named_modules() if isinstance(m, BatchNorm2d)}
     bifpn = {name for name, m in model.named_modules()
              if isinstance(m, (AdConcat2, AdaptAdd2))}
@@ -43,7 +43,7 @@ def param_groups(model: nn.Module) -> Dict[str, str]:
         elif leaf == "w" and parent in bifpn:
             labels[name] = "g1"
         else:
-            labels[name] = "frozen"
+            labels[name] = "g1" if train_ungrouped else "frozen"
     return labels
 
 

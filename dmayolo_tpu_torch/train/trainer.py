@@ -17,9 +17,16 @@ sources:
 
 The trainer scales the hyp, picks the accumulation, builds the loss, the
 schedule and the train state, and runs the epochs: the warmup accumulate
-ramp, a `last` checkpoint in the JAX `.npz` format and a CSV row each
-epoch.  `device_aug` (HSV and flip) and `multi_scale` (a bilinear resize
-of the batch) run on the model's device.
+ramp (`accum_ramp=False` keeps a fixed cadence), a `last` checkpoint in
+the JAX `.npz` format and a CSV row each epoch; the epoch on which early
+stopping fires saves `last` and ends the run without a row or an
+`epoch{N}` checkpoint, as in JAX.  `device_aug` (HSV and flip) and
+`multi_scale` (a bilinear resize of the batch) run on the model's device.
+`remat` recomputes each graph layer's activations in the backward
+(`DetectionModel.remat`); `freeze` keeps model.0 .. model.{freeze - 1}
+as they are; `train_ungrouped` optimizes the parameters the reference
+leaves out (`param_groups`); `linear_lr` takes the linear epoch schedule
+in place of the cosine one.
 """
 from __future__ import annotations
 
@@ -147,6 +154,11 @@ class Trainer:
         quad: bool = False,
         cache_images=False,       # False, True or "ram", or "disk"
         single_cls: bool = False,
+        linear_lr: bool = False,
+        train_ungrouped: bool = False,
+        accum_ramp: bool = True,
+        freeze: int = 0,
+        remat: bool = False,
     ):
         if (loader is None) == (data is None):
             raise ValueError("pass exactly one source of batches: loader= or data=")
@@ -251,11 +263,14 @@ class Trainer:
             self.loss = ComputeLoss(head.anchors, h, nc=nc)
         self.sched = Schedule(
             h, epochs=epochs, steps_per_epoch=self.steps_per_epoch, adam=adam,
-            batch_size=batch_size, step_scale=self.accumulate,
+            linear=linear_lr, batch_size=batch_size, step_scale=self.accumulate,
         )
-        # warmup accumulate ramp: when the cadence is not pinned by the
-        # caller and accumulation is in play at all
-        self.accum_ramp = accumulate is None and self.accumulate > 1
+        # warmup accumulate ramp: when asked for, the cadence is not pinned
+        # by the caller and accumulation is in play at all
+        self.accum_ramp = bool(accum_ramp and accumulate is None and self.accumulate > 1)
+        self.freeze = freeze
+        if freeze:
+            print(f"freezing model.0..model.{freeze - 1}")
         self._steps = {}  # accumulate -> train step
         self._pulled = None  # (optimizer step, the state's trees on the host)
 
@@ -271,8 +286,10 @@ class Trainer:
             n_params = sum(1 for _ in self.model.parameters())
             n_hit = sum(1 for k, _ in self.model.named_parameters() if k in hits)
             print(f"pretrained: matched {n_hit}/{n_params} tensors")
-        self.state = init_train_state(self.model, param_groups(self.model),
-                                      self.weight_decay, adam=adam, momentum=h["momentum"])
+        self.model.remat = remat
+        self.state = init_train_state(
+            self.model, param_groups(self.model, train_ungrouped=train_ungrouped),
+            self.weight_decay, adam=adam, momentum=h["momentum"])
         self.start_epoch = 0
         self.best_fitness = 0.0
         if resume is not None:
@@ -292,7 +309,8 @@ class Trainer:
         """The train step for one accumulate value, made once and kept."""
         if acc not in self._steps:
             self._steps[acc] = make_train_step(self.loss, self.sched, dtype=self.dtype,
-                                               accumulate=acc, device_aug=self.device_aug)
+                                               accumulate=acc, freeze=self.freeze,
+                                               device_aug=self.device_aug)
         return self._steps[acc]
 
     def validate(self, use_ema: bool = True):
@@ -337,8 +355,9 @@ class Trainer:
                             for i in range(3)))
         return images, targets
 
-    def train(self, log_every: int = 10):
-        """Run the epochs; returns the train state."""
+    def train(self, log_every: int = 10) -> float:
+        """Run the epochs; returns the best fitness (the state stays on
+        `self.state`)."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         stopper = EarlyStopping(self.patience)
         gs = int(self.model.stride.max())
@@ -386,7 +405,6 @@ class Trainer:
                 running = {k: float(v) for k, v in metrics.items()}
             row = {"epoch": epoch, **{f"train/{k}": v for k, v in running.items()}}
             final_epoch = epoch == self.epochs - 1
-            stop = False
             if self.data is not None and ((epoch + 1) % self.val_interval == 0 or final_epoch) \
                     and (not self.noval or final_epoch):
                 res = self.validate()
@@ -399,22 +417,21 @@ class Trainer:
                     if not self.nosave:
                         self._save("best", epoch)
                 row.update(zip(METRIC_KEYS, (res.mp, res.mr, res.map50, res.map, fi)))
-                stop = stopper(epoch, fi)
-            if stop:
-                print(f"early stopping at epoch {epoch}")
-            if not self.nosave or final_epoch or stop:
+                if stopper(epoch, fi):  # as JAX: `last` saved, no row, no epoch{N}
+                    print(f"early stopping at epoch {epoch}")
+                    self._save("last", epoch)
+                    break
+            if not self.nosave or final_epoch:
                 self._save("last", epoch)
             if self.save_period > 0 and (epoch + 1) % self.save_period == 0:
                 self._save(f"epoch{epoch}", epoch)
             self._pulled = None  # the host copy serves only this epoch's saves
             row["time_s"] = time.time() - t0
             self._log_csv(row)
-            if stop:
-                break
         # stripped checkpoints mark a finished run
         for name in ("last", "best"):
             if (self.out / f"{name}.npz").exists():
                 strip_checkpoint(self.out / name)
         print(f"training done in {(time.time() - t_start) / 3600:.2f}h; "
               f"best fitness {self.best_fitness:.4f}")
-        return self.state
+        return self.best_fitness

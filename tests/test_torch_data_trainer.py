@@ -113,8 +113,8 @@ def test_best_and_early_stopping(data_yaml, tmp_path, monkeypatch):
     tr = make(data_yaml, tmp_path, epochs=len(seq), patience=1)
     tr.train()
     rows = list(csv.DictReader(open(tmp_path / "results.csv")))
-    assert [int(r["epoch"]) for r in rows] == list(range(stop_at + 1))
-    np.testing.assert_allclose([float(r["fitness"]) for r in rows], seq[:stop_at + 1], rtol=1e-12)
+    assert [int(r["epoch"]) for r in rows] == list(range(stop_at))  # JAX: no row on the stop epoch
+    np.testing.assert_allclose([float(r["fitness"]) for r in rows], seq[:stop_at], rtol=1e-12)
     _, best = jax_load_checkpoint(tmp_path / "best")
     _, last = jax_load_checkpoint(tmp_path / "last")
     assert best["epoch"] == 1 and best["best_fitness"] == pytest.approx(0.5, rel=1e-12)
@@ -155,7 +155,8 @@ def test_device_aug(data_yaml, tmp_path):
                              "fliplr": h["fliplr"]}
     assert all(tr.train_ds.hyp[k] == 0.0 for k in ("hsv_h", "hsv_s", "hsv_v", "fliplr"))
     shapes = seen_shapes(tr)
-    state = tr.train()
+    tr.train()
+    state = tr.state
     assert shapes and all(dt == torch.uint8 for _, dt in shapes)  # augmented inside the step
     assert state.step > 0
 

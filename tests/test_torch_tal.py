@@ -216,7 +216,8 @@ def test_trainer_tal_checkpoint_is_read_by_jax(tmp_path):
               dtype=torch.float32, device="cpu", accumulate=1)
     tr = Trainer(odrta_cfg(), loader, load_hyp("scratch"), out_dir=str(tmp_path), **kw)
     assert isinstance(tr.loss, pt.ComputeLossTAL)
-    state = tr.train()
+    tr.train()
+    state = tr.state
     assert state.step == 2
     header, row = (tmp_path / "results.csv").read_text().splitlines()[:2]
     assert {"train/box", "train/cls", "train/dfl", "train/loss"} <= set(header.split(","))
