@@ -119,7 +119,7 @@ source, all at once), then:
    it (image modules found, not imported; JPEG, PNG and zlib headers and
    libraries; nvJPEG; g++): the port's generator writes a
    VisDrone-analog set at 1536 px (64 train and 96 val images, JPEG at
-   quality 85 where the host library has libjpeg, else PNG) under
+   quality 85 through the machine's JPEG route: nvJPEG on the card) under
    build/data_smoke/ (removed at the end); the val passes read each val
    file through 8 symlinked copies (768 images, 24 batches of 32), so
    that 8 loader threads, each taking a whole batch, stay busy.  The
@@ -138,8 +138,9 @@ source, all at once), then:
    a batch on "pallas", img/s of the whole run beside the device step
    alone of 6.  Then the recipe's `Trainer` built from a data yaml (1536
    px, bs4, Adam, hyp VisDrone, one epoch of 64 batches over the train
-   files read 4x at accumulate 4, validated on 32 val images), with device_aug off and
-   on, each from the eval weights as `pretrained` and validated on its
+   files read 4x at accumulate 4, validated on 32 val images), with device_aug off
+   (on is the CLI phase's `--device-aug` run), from the eval weights as
+   `pretrained` and validated on its
    EMA's own detections written as the val labels (a fresh init scores
    under the conf gate and keeps no best.npz): finite losses, validation
    at the epoch's end, last.npz and best.npz and the CSV's metrics; img/s
@@ -205,6 +206,38 @@ source, all at once), then:
    model, its anchors x1.3) and loaded through
    `load_model_from_checkpoint`: one served batch on "matrix" (K3
    counted) equal to the `.npz` path's with the anchors swapped.
+
+0. JPEG (`jpeg_phase`, right after the build): this machine's JPEG route
+   (`imageio.jpeg_codec()`; nvJPEG on the card, whose machine has no
+   libjpeg) decodes every fixture of tests/torch_data/jpeg (baseline 4:2:0
+   and 4:4:4, grey, progressive, restart markers, 37x23, a 1536x864
+   VisDrone-analog frame at q85) against libjpeg's pixels (pixels.npz):
+   max and mean |difference| and the share over 2 levels, within
+   `JPEG_BOUNDS` (the two libraries upsample 4:2:0 chroma differently);
+   the frame's decode time beside PNG's of the same pixels; the encoder's
+   q95 round trip (PSNR at least `JPEG_PSNR_MIN`).  The data phase (9)
+   writes its sets as JPEG through the same route and times PNG beside it.
+13. The inference tools (`tools_phase`, after 12, on its files): on the
+   CLI phase's trained flagship (its EMA `last.npz`) over the 96 val
+   JPEGs, `cli.detect` at 1536 px bs16 (conf 0.25, max_det 1000,
+   --save-txt --save-conf --save-crop): img/s of the run and after its
+   first batch, K3's blocked entry counted once a batch and held against
+   its plain version on the run's own first (16, 30,000) candidates at
+   max_det 1000 (timed, with its bound), the labels equal to
+   `serve_detections` of the same batches; the frame decoded by nvJPEG
+   and by libjpeg served to the same detections; `--augment` on 16
+   files; `cli.export --include torch_export npz torch` at bs8, detect on
+   the `.pt2` (equal to its model's decode through `batched_nms`; the
+   exported program equal to the model), the `.pt` loaded back to the
+   same weights and the fused `.npz` to the same head; `hub.load`,
+   `AutoShape` on 8 files, `Detections.crop`, `save`, `tolist`; the REST
+   server on 127.0.0.1 (`--batch-serve 16`, 640 px): 32 concurrent JPEG
+   uploads through `example_request.detect` against the batcher called
+   directly (p50, p99, the batch histogram), a few per request against
+   `AutoShape`, an undecodable upload a 400; `cli.gradcam` on 2 images at
+   640 px for `model_17_cv3_act`, both methods, in f32 with TF32 off,
+   the first CAM against the host CPU's (`CAM_TOL`); `cli.wbf` over the
+   detect run's labels and a second run's at 1280 px.
 
 Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
@@ -593,7 +626,7 @@ def check_fixpoint_blocked(device, b=32, ks=BLOCKED_KS, max_dets=BLOCKED_MAX_DET
     (b, max(ks), max(max_dets))."""
     import torch
 
-    from dmayolo_tpu_torch.core.fixpoint_kernel import (_blocked_plain, fixpoint_keep_blocked,
+    from dmayolo_tpu_torch.core.fixpoint_kernel import (fixpoint_keep_blocked,
                                                         fixpoint_keep_blocked_plain)
     from dmayolo_tpu_torch.core.nms import NEG_INF, _keep_to_idx, nms_matrix_blocked
 
@@ -638,32 +671,42 @@ def check_fixpoint_blocked(device, b=32, ks=BLOCKED_KS, max_dets=BLOCKED_MAX_DET
     timed = [(name, boxes, scores)] + [c for c in stream_cases(device, b, ks)
                                        if c[0] == f"clustered{ks[1]}"]
     for name, boxes, scores in timed:
-        valid = scores > NEG_INF / 2
-        keep, walked, alive = _blocked_plain(boxes, valid, thr, max_det, block)
-        bb, k, _ = boxes.shape
-        blocks, pairs, cross = blocked_work(keep, walked, alive, valid, block)
-        # each IoU test ~15 flops; the walked blocks' boxes and flags read
-        # once, every keep flag and the walked counts written once
-        ops = (pairs + cross) * 15
-        nbytes = int(sum(min(block, k - m * block) * 17 for w in walked.tolist()
-                         for m in range(w))) + bb * k + bb * 4
-        res = dict(case=name, shape=[bb, k, max_det], blocks_walked=blocks, pairs=pairs,
-                   cross_tests=cross, keepers=int(keep.sum()), ops=ops, bytes=nbytes)
+        res = blocked_timing(device, name, boxes, scores > NEG_INF / 2, thr, max_det, block)
         if device.type == "cuda":
-            res["ms"] = cuda_ms(lambda: fixpoint_keep_blocked(boxes, valid, thr, max_det, block),
-                                20)
-            res["kernel_ms"] = graph_ms(
-                lambda: fixpoint_keep_blocked(boxes, valid, thr, max_det, block), 20)
             res["nms_ms"] = cuda_ms(lambda: nms_matrix_blocked(boxes, scores, thr, max_det,
                                                                block), 20)
-            res["plain_ms"] = cuda_ms(
-                lambda: fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block), 3)
-            res["bound_ms"], res["bound_by"] = bound(nbytes, ops, "f32")
         if name == timed[0][0]:
             out.update(res)
         else:
             out["walk_all"] = res
     return out
+
+
+def blocked_timing(device, name, boxes, valid, thr, max_det, block):
+    """The work K3's blocked entry must do on these inputs (from its plain
+    version) and, on the card, its time as a call and alone, the plain
+    version's, and the bound."""
+    from dmayolo_tpu_torch.core.fixpoint_kernel import (_blocked_plain, fixpoint_keep_blocked,
+                                                        fixpoint_keep_blocked_plain)
+
+    keep, walked, alive = _blocked_plain(boxes, valid, thr, max_det, block)
+    bb, k, _ = boxes.shape
+    blocks, pairs, cross = blocked_work(keep, walked, alive, valid, block)
+    # each IoU test ~15 flops; the walked blocks' boxes and flags read
+    # once, every keep flag and the walked counts written once
+    ops = (pairs + cross) * 15
+    nbytes = int(sum(min(block, k - m * block) * 17 for w in walked.tolist()
+                     for m in range(w))) + bb * k + bb * 4
+    res = dict(case=name, shape=[bb, k, max_det], blocks_walked=blocks, pairs=pairs,
+               cross_tests=cross, keepers=int(keep.sum()), ops=ops, bytes=nbytes)
+    if device.type == "cuda":
+        res["ms"] = cuda_ms(lambda: fixpoint_keep_blocked(boxes, valid, thr, max_det, block), 20)
+        res["kernel_ms"] = graph_ms(
+            lambda: fixpoint_keep_blocked(boxes, valid, thr, max_det, block), 20)
+        res["plain_ms"] = cuda_ms(
+            lambda: fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block), 3)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, ops, "f32")
+    return res
 
 
 def check_nms_stream(device, b=32, ks=STREAM_KS, max_det=300, thr=0.6, big=STREAM_BIG):
@@ -2387,7 +2430,7 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 DATA = dict(img_size=1536, n_train=64, n_val=96, val_copies=8, train_copies=4, val_imgsz=640,
             val_batch=32, train_batch=4, train_accumulate=4, train_val=32,
             one_worker_batches={"val": 1, "train": 2}, train_timed=(8, 32),
-            train_profiled=(32, 40), train_device_aug=(False, True))
+            train_profiled=(32, 40), train_device_aug=(False,))  # on: cli.train --device-aug
 DATA_DIR = ROOT / "build" / "data_smoke"
 DEVICE_AUG_TOL = 1e-5  # device_aug on the card against its CPU version, same gains and flips
 TARGET_TOL_PX = 1e-3  # the loader's targets mapped back to native pixels, against the labels
@@ -2754,7 +2797,7 @@ def machine_probe():
 
     from torch.utils.cpp_extension import CUDA_HOME
 
-    from dmayolo_tpu_torch.data.imageio import jpeg_available
+    from dmayolo_tpu_torch.data.imageio import jpeg_available, jpeg_codec
 
     cuda = Path(CUDA_HOME or "/usr/local/cuda")
     libs = ""
@@ -2763,7 +2806,8 @@ def machine_probe():
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
     return {
         "modules_found": {m: importlib.util.find_spec(m) is not None
-                          for m in ("cv2", "PIL", "torchvision", "triton")},
+                          for m in ("cv2", "PIL", "torchvision", "triton", "matplotlib",
+                                    "pandas", "onnx")},
         "cpu_count": os.cpu_count(),
         "headers": {h: Path(h).exists() for h in ("/usr/include/jpeglib.h",
                                                    "/usr/include/turbojpeg.h",
@@ -2773,14 +2817,14 @@ def machine_probe():
                             if any(k in line for k in ("jpeg", "png", "libz."))}),
         "nvjpeg_libs": sorted(p.name for p in (cuda / "lib64").glob("libnvjpeg*")),
         "gxx": gxx.stdout.splitlines()[0],
-        "host_library_jpeg": jpeg_available(),
+        "jpeg": jpeg_available() and jpeg_codec(),
     }
 
 
 def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=None):
     """The data path on disk: generate, time the loader alone, run
     `run_validation` on the three backends (counted), check known answers
-    on the files, train from the data yaml with device_aug off and on, and
+    on the files, train from the data yaml (`sizes["train_device_aug"]`), and
     hold device_aug against its CPU version.  Writes under build/
     (DATA_DIR), which the caller removes once the CLI phase has read it
     (this phase removes it only when it fails)."""
@@ -2791,7 +2835,7 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
     import torch
 
     from dmayolo_tpu_torch.data.datasets import DetectionDataset
-    from dmayolo_tpu_torch.data.imageio import imread, jpeg_available
+    from dmayolo_tpu_torch.data.imageio import imread, imwrite, jpeg_codec
     from dmayolo_tpu_torch.data.synthetic import generate_visdrone_analog
     from dmayolo_tpu_torch.eval.validator import run_validation
     from dmayolo_tpu_torch.graph import model_config
@@ -2802,9 +2846,11 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
     on_card = device.type == "cuda"
     cpus = os.cpu_count() or 1
     workers = workers or min(8, cpus)
-    ext = "jpg" if jpeg_available() else "png"
-    out = {"cpu_count": cpus, "workers": workers, "format": ext, "sizes": dict(sizes),
-           "probe": machine_probe()}
+    # JPEG through this machine's route (nvJPEG on the card); raises where
+    # there is none: no PNG set in its place
+    ext = "jpg"
+    out = {"cpu_count": cpus, "workers": workers, "format": ext, "jpeg_codec": jpeg_codec(),
+           "sizes": dict(sizes), "probe": machine_probe()}
     print("data probe: " + json.dumps(out["probe"]), flush=True)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     try:
@@ -2824,6 +2870,16 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
             imread(f)
         out["decode_ms"] = (time.perf_counter() - t0) / len(files) * 1e3
         out["file_mb"] = sum(f.stat().st_size for f in files) / len(files) / 2 ** 20
+        # the same pixels as PNG, decoded in the same way, for the comparison
+        pngs = DATA_DIR / "png_probe"
+        pngs.mkdir()
+        for f in files:
+            imwrite(pngs / f"{f.stem}.png", imread(f))
+        t0 = time.perf_counter()
+        for f in files:
+            imread(pngs / f"{f.stem}.png")
+        out["png_decode_ms"] = (time.perf_counter() - t0) / len(files) * 1e3
+        shutil.rmtree(pngs)
 
         # ---- 2. the loader alone: val (letterbox) and train (the recipe's hyp)
         stride = int(model.stride.max())
@@ -2893,7 +2949,7 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
 
         print("data run_validation: " + json.dumps(out["run_validation"]), flush=True)
 
-        # ---- 5. the Trainer from the data yaml, device_aug off and on, each
+        # ---- 5. the Trainer from the data yaml, device_aug off (and on, if asked), each
         # from the eval weights above as its pretrained checkpoint: a fresh
         # init's head priors keep every score under the protocol's conf
         # gate, so no fitness above 0 and no best.npz
@@ -2929,12 +2985,13 @@ def print_data(dp, ev, tr_mem, smi):
     s, w, pr = dp["sizes"], dp["workers"], dp["probe"]
     print(f"data probe of the card's host: found {pr['modules_found']} (none imported); "
           f"headers {[h for h, ok in pr['headers'].items() if ok]}; libraries "
-          f"{pr['ldconfig']} {pr['nvjpeg_libs']}; {pr['gxx']}; the port's host library "
-          f"{'with' if pr['host_library_jpeg'] else 'without'} JPEG; on {smi}", flush=True)
+          f"{pr['ldconfig']} {pr['nvjpeg_libs']}; {pr['gxx']}; JPEG through "
+          f"{pr['jpeg'] or 'nothing'}; on {smi}", flush=True)
     print(f"data: host cpu_count {dp['cpu_count']}, {w} loader workers; "
           f"{s['n_train']} train + {s['n_val']} val VisDrone-analog images at {s['img_size']} px "
           f"as {dp['format'].upper()} ({dp['file_mb']:.2f} MiB each), generated in "
-          f"{dp['generate_s']:.1f} s; decode {dp['decode_ms']:.1f} ms an image on one thread",
+          f"{dp['generate_s']:.1f} s; decode {dp['decode_ms']:.1f} ms an image on one thread "
+          f"({dp['jpeg_codec']}; the same pixels as PNG {dp['png_decode_ms']:.1f} ms)",
           flush=True)
     for name, r in dp["loader"].items():
         what = (f"val: letterbox to {s['val_imgsz']}" if name == "val"
@@ -3570,6 +3627,691 @@ def print_cli(cp, smi):
               f"after the first batch, mAP@.5 {r['map50']:.4f}, speed {r['speed_ms']}; on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# JPEG on the card: nvJPEG against libjpeg's pixels
+# ---------------------------------------------------------------------------
+JPEG_FIXTURES = ROOT / "tests" / "torch_data" / "jpeg"
+JPEG_FRAME = "visdrone_1536x864"
+# nvJPEG's pixels against libjpeg's, bounds set from the first run on an
+# H100.  Against libjpeg's default decode (pixels.npz; 4:2:0 chroma
+# upsampled by its "fancy" triangle filter): up to 3 levels, a mean of
+# 0.52 and 0.03% over 2 levels where no chroma is upsampled; 82 levels, a
+# mean of 7.5 and 56% over 2 levels at the colour edges of the small 4:2:0
+# fixtures; 36, 0.043 and 0.2% on the VisDrone-analog frame.  Against
+# libjpeg with chroma replicated (pixels_box.npz, the small fixtures),
+# nvJPEG's upsampling: 3 levels, a mean of 0.52, 0.16% over 2 levels, on
+# every fixture (the IDCTs' rounding).
+JPEG_BOUNDS = {"full chroma": dict(max_abs=4, mean_abs=1.0, share_over_2=0.002),
+               "4:2:0": dict(max_abs=96, mean_abs=8.0, share_over_2=0.6),
+               "frame": dict(max_abs=48, mean_abs=0.1, share_over_2=0.005),
+               "box upsampled": dict(max_abs=4, mean_abs=1.0, share_over_2=0.005)}
+JPEG_PSNR_MIN = 40.0  # dB, nvJPEG's q95 encode decoded again
+
+
+def jpeg_kind(name):
+    if name == JPEG_FRAME:
+        return "frame"
+    return "full chroma" if name in ("gray", "baseline_444") else "4:2:0"
+
+
+def jpeg_phase():
+    """Every JPEG fixture decoded by this machine's route (`jpeg_codec()`:
+    nvJPEG on the card) against libjpeg's pixels, within `JPEG_BOUNDS`;
+    the 1536 px frame's decode time beside PNG's of the same pixels; the
+    encoder's q95 round trip.  Returns (results, the frame's libjpeg
+    pixels)."""
+    import numpy as np
+
+    from dmayolo_tpu_torch.data import imageio
+
+    out = {"codec": imageio.jpeg_codec(), "fixtures": {}}
+    t0 = time.perf_counter()
+    if out["codec"] == "nvjpeg":
+        imageio.nvlib()  # build and handle
+    out["codec_load_s"] = time.perf_counter() - t0
+    with np.load(JPEG_FIXTURES / "pixels.npz") as d:
+        want = {k: d[k] for k in d.files}
+    with np.load(JPEG_FIXTURES / "pixels_box.npz") as d:
+        box = {k: d[k] for k in d.files}
+
+    def held(name, got, ref, kind):
+        check(got.shape == ref.shape, f"JPEG fixture {name}: shape {got.shape} != {ref.shape}")
+        diff = np.abs(got.astype(np.int16) - ref)
+        r = {"kind": kind, "max_abs": int(diff.max()), "mean_abs": float(diff.mean()),
+             "share_over_2": float((diff > 2).mean())}
+        for k, lim in JPEG_BOUNDS[kind].items():
+            check(r[k] <= lim, f"JPEG fixture {name}: {k} {r[k]} above {lim} ({out['codec']} "
+                               f"against libjpeg, {kind})")
+        return r
+
+    for name, ref in want.items():
+        got = imageio.imread(JPEG_FIXTURES / f"{name}.jpg")
+        out["fixtures"][name] = held(name, got, ref, jpeg_kind(name))
+        if out["codec"] == "libjpeg":  # the route pixels.npz was made by
+            check(np.array_equal(got, ref), f"JPEG fixture {name}: libjpeg's pixels moved")
+        elif name in box:  # nvJPEG against libjpeg with its chroma upsampling
+            out["fixtures"][name]["box_upsampled"] = held(name, got, box[name], "box upsampled")
+    buf = (JPEG_FIXTURES / f"{JPEG_FRAME}.jpg").read_bytes()
+    tmp = ROOT / "build" / "jpeg_phase"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        imageio.imwrite(tmp / "frame.png", want[JPEG_FRAME])
+        png = (tmp / "frame.png").read_bytes()
+        for key, data in (("decode_ms", buf), ("png_decode_ms", png)):
+            for _ in range(3):
+                imageio.imdecode(data)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                imageio.imdecode(data)
+            out[key] = (time.perf_counter() - t0) / 20 * 1e3
+        t0 = time.perf_counter()
+        imageio.imwrite(tmp / "q95.jpg", want[JPEG_FRAME], quality=95)
+        out["encode_ms"] = (time.perf_counter() - t0) * 1e3
+        back = imageio.imread(tmp / "q95.jpg")
+        mse = float(((back.astype(np.float64) - want[JPEG_FRAME]) ** 2).mean())
+        out["q95_bytes"] = (tmp / "q95.jpg").stat().st_size
+        out["q95_psnr_db"] = 10 * np.log10(255 ** 2 / max(mse, 1e-12))
+        check(out["q95_psnr_db"] >= JPEG_PSNR_MIN,
+              f"JPEG q95 round trip at {out['q95_psnr_db']:.1f} dB, under {JPEG_PSNR_MIN}")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["frame_shape"] = list(want[JPEG_FRAME].shape)
+    return out, want[JPEG_FRAME]
+
+
+# ---------------------------------------------------------------------------
+# The inference tools: detect, export, hub, REST, Grad-CAM, WBF
+# ---------------------------------------------------------------------------
+TOOLS = dict(imgsz=1536, batch=16, live=4000, crop_files=4, augment_files=16, export_batch=8,
+             pt2_files=32, hub_files=8, rest_imgsz=640, rest_batch=16, rest_requests=32,
+             rest_single=4, gradcam_files=2, gradcam_imgsz=640, gradcam_max_dets=4,
+             gradcam_layer="model_17_cv3_act", frame_top=100, wbf_imgsz=1280, wbf_files=8)
+TOOLS_DIR = DATA_DIR / "tools"
+# the CAM on the card (f32, TF32 off) against the host CPU's of the same
+# weights, image and detection: the normalised map's max |difference|
+CAM_TOL = {"gradcam": 1e-3, "gradcampp": 1e-2}
+# two detection sets "the same": every detection scoring above
+# SAME_SET_BAND times the conf gate in one set pairs with one of the other
+# (of the same class, within the box and relative score tolerances); a
+# detection in the band just above the gate may cross it on a last-bit
+# change of its score
+SAME_SET_BAND = 1.5
+
+
+def det_lines(dets, lb_shape, native_shape, save_conf=True):
+    """Detections in a letterboxed frame -> detect's txt lines (xywhn, conf)."""
+    from dmayolo_tpu_torch.eval.validator import _scale_to_native
+
+    d = dets.copy()
+    d[:, :4] = _scale_to_native(d[:, :4], lb_shape, native_shape)
+    h, w = native_shape
+    lines = []
+    for x1, y1, x2, y2, conf, cls in d:
+        row = [int(cls), (x1 + x2) / 2 / w, (y1 + y2) / 2 / h,
+               (x2 - x1) / w, (y2 - y1) / h] + ([conf] if save_conf else [])
+        lines.append(" ".join(f"{v:.6g}" if j else str(int(v)) for j, v in enumerate(row)))
+    return sorted(lines)
+
+
+def label_lines(d):
+    return {p.stem: sorted(ln for ln in p.read_text().split("\n") if ln)
+            for p in sorted(Path(d).glob("*.txt"))}
+
+
+def rows_of(lines):
+    import numpy as np
+
+    return np.array([ln.split() for ln in lines], np.float64).reshape(-1, 6)
+
+
+def same_sets(a, b, box_tol, score_tol, conf, by_class=True):
+    """(n, 6) rows [cls, 4 box, conf]: the larger of the two sets'
+    unmatched-above-`conf` counts (0 when they are the same sets),
+    matching each row to one row of the other (of the same class, with
+    `by_class`) within the box tolerance and the relative score one."""
+    import numpy as np
+
+    def unmatched(x, y):
+        free = np.ones(len(y), bool)
+        miss = 0
+        for row in x[np.argsort(-x[:, -1])]:
+            ok = free & ((y[:, 0] == row[0]) | (not by_class)) \
+                & (np.abs(y[:, 1:5] - row[1:5]) <= box_tol).all(1) \
+                & (np.abs(y[:, 5] - row[5]) <= score_tol * np.maximum(y[:, 5], row[5]))
+            if ok.any():
+                free[np.argmax(ok)] = False
+            elif row[5] > conf:
+                miss += 1
+        return miss
+
+    return max(unmatched(a, b), unmatched(b, a))
+
+
+def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes=TOOLS,
+                nc=10):
+    """The inference tools on the CLI phase's trained flagship (its EMA
+    `last.npz`) over the data phase's val files (JPEG), as a user runs
+    them: `cli.detect` (timed, K3 counted, held against `serve_detections`
+    of the same batches; `fixpoint_keep_blocked` held against its plain
+    version on the run's own candidates at max_det 1000), `--augment`,
+    `cli.export` and detect on the `.pt2`, the `.pt` and fused `.npz`
+    exports read back, the frame decoded by nvJPEG and by libjpeg served
+    to the same detections, `hub.load` and `Detections`, the REST server
+    (batched and per request), `cli.gradcam` (held against the host CPU),
+    and `cli.wbf` over two detect runs."""
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch import hub
+    from dmayolo_tpu_torch.cli import common as cli_common
+    from dmayolo_tpu_torch.cli import detect as cli_detect
+    from dmayolo_tpu_torch.cli import export as cli_export
+    from dmayolo_tpu_torch.cli import gradcam as cli_gradcam
+    from dmayolo_tpu_torch.cli import wbf as cli_wbf
+    from dmayolo_tpu_torch.core import nms as nms_mod
+    from dmayolo_tpu_torch.core.fixpoint_kernel import (fixpoint_keep_blocked,
+                                                        fixpoint_keep_blocked_plain)
+    from dmayolo_tpu_torch.data import imageio
+    from dmayolo_tpu_torch.data.letterbox import letterbox_host
+    from dmayolo_tpu_torch.eval.gradcam import cam_for_detection, resolve_target_layer
+    from dmayolo_tpu_torch.eval.validator import with_obj_column
+    from dmayolo_tpu_torch.serve import example_request, restapi
+    from dmayolo_tpu_torch.serve.batcher import MicroBatcher
+
+    on_card = device.type == "cuda"
+    dev = [] if on_card else ["--device", "cpu"]
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    weights = TOOLS_DIR / "last.npz"
+    shutil.copy(CLI_DIR / "runs" / "flagship" / "last.npz", weights)
+    if cfg is None:
+        cfg_arg = f"{FLAGSHIP}.yaml"
+    else:
+        cfg_arg = str(TOOLS_DIR / "model.yaml")
+        Path(cfg_arg).write_text(json.dumps(cfg))  # JSON is YAML
+    files = sorted((data_dir / "images" / "val").iterdir())
+    val_dir = data_dir / "images" / "val"
+    dtype = torch.bfloat16 if on_card else torch.float32
+    prec = [] if on_card else ["--fp32"]
+    imgsz, bs = sizes["imgsz"], sizes["batch"]
+    out, t_phase = {"files": len(files), "imgsz": imgsz}, time.perf_counter()
+
+    def subset(name, n):
+        d = TOOLS_DIR / "src" / name
+        d.mkdir(parents=True)
+        for f in files[:n]:
+            (d / f.name).symlink_to(f)
+        return d
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def counted():
+        return {c.__name__: c.launches for c in counters}
+
+    def detect(name, *flags, source=val_dir, weights=weights):
+        return cli_detect.main(["--weights", str(weights), "--source", str(source),
+                                "--project", str(TOOLS_DIR / "detect"), "--name", name,
+                                "--exist-ok", *flags, *prec, *dev])
+
+    def letterboxed(chunk, size):
+        ims0 = [imageio.imread(f) for f in chunk]
+        x = np.stack([letterbox_host(im, size, auto=False, stride=32)[0][:, :, ::-1]
+                      for im in ims0])
+        return ims0, torch.as_tensor(x, device=device)
+
+    def serve(model, x, conf, max_nms=30000):
+        raw = model.apply(x.to(dtype) / 255.0, dtype=dtype, fused=True)
+        dets, valid = model.serve_detections(raw, conf_thres=conf, iou_thres=0.45, max_det=1000,
+                                             max_nms=max_nms)
+        return dets.float().cpu().numpy(), valid.cpu().numpy()
+
+    # ---- 0. the conf gate: the trained weights score every candidate far
+    # under detect's default 0.25 (the CLI's two epochs), so the gate is set
+    # under every first-batch image's `live`-th best candidate: detect's
+    # NMS then sees thousands of live candidates and fills max_det 1000
+    model = cli_common.load_model_from_checkpoint(weights, device=device).fuse()
+    with torch.inference_mode():
+        _, x = letterboxed(files[:bs], imgsz)
+        _, scores, _ = model.decode_parts(model.apply(x.to(dtype) / 255.0, dtype=dtype,
+                                                      fused=True))
+        kth = scores.float().topk(min(sizes["live"], scores.shape[1]), dim=1).values[:, -1]
+        top = float(scores.float().max())
+    gate = float(kth.min()) * 0.99
+    conf = ["--conf-thres", repr(gate)]
+    out["conf"] = {"gate": gate, "best_score": top, "live_target": sizes["live"]}
+
+    # ---- 1. cli.detect at the recipe's size: K3's blocked entry at max_det
+    # 1000, its first call's candidates kept for the check below
+    recorded, reads = {}, []
+    real_blocked, real_imread = nms_mod.fixpoint_keep_blocked, imageio.imread
+
+    def recording(boxes, valid, thr, max_det, block=512):
+        recorded.setdefault("args", (boxes.clone(), valid.clone(), thr, max_det, block))
+        return real_blocked(boxes, valid, thr, max_det, block)
+
+    def clocked_imread(path):
+        reads.append(time.perf_counter())
+        return real_imread(path)
+
+    nms_mod.fixpoint_keep_blocked, imageio.imread = recording, clocked_imread
+    zero()
+    try:
+        t0 = time.perf_counter()
+        run = detect("main", "--imgsz", str(imgsz), "--batch-size", str(bs), "--save-txt",
+                     "--save-conf", *conf)
+        t1 = time.perf_counter()
+    finally:
+        nms_mod.fixpoint_keep_blocked, imageio.imread = real_blocked, real_imread
+    n_batches = -(-len(files) // bs)
+    labels = label_lines(run / "labels")
+    n_dets = sum(len(v) for v in labels.values())
+    out["detect"] = {"s": t1 - t0, "img_per_s": len(files) / (t1 - t0),
+                     "img_per_s_after_first_batch": (len(files) - bs) / (t1 - reads[bs])
+                     if len(reads) > bs else None,
+                     "batch": bs, "batches": n_batches, "detections": n_dets,
+                     "images_written": len(list(run.glob("*.jpg"))), "launches": counted()}
+    check(len(labels) == len(files) and n_dets > 0, f"detect wrote {len(labels)} label files "
+                                                    f"with {n_dets} detections")
+    if on_card:
+        check(out["detect"]["launches"]["fixpoint_keep_blocked"] == n_batches,
+              f"detect: K3's blocked entry once a batch? {out['detect']['launches']}")
+    # --save-crop on a few files (a crop a detection, up to 1000 an image)
+    crops = detect("crops", "--imgsz", str(imgsz), "--batch-size", str(bs), "--save-crop",
+                   "--nosave", *conf, source=subset("crops", sizes["crop_files"]))
+    out["detect"]["crops"] = sum(1 for _ in (crops / "crops").rglob("*.jpg"))
+    check(out["detect"]["crops"] == sum(len(labels[f.stem]) for f in files[:sizes["crop_files"]]),
+          f"--save-crop wrote {out['detect']['crops']} crops")
+    # the same batches through serve_detections: the same sets
+    mismatched = []
+    with torch.inference_mode():
+        for start in range(0, len(files), bs):
+            chunk = files[start:start + bs]
+            ims0, x = letterboxed(chunk, imgsz)
+            dets, valid = serve(model, x, gate)
+            for i, (f, im0) in enumerate(zip(chunk, ims0)):
+                if det_lines(dets[i][valid[i]], x.shape[1:3], im0.shape[:2]) != labels[f.stem]:
+                    mismatched.append(f.name)
+    out["detect"]["vs_serve_detections_mismatched"] = mismatched
+    check(not mismatched, f"detect's labels differ from serve_detections on {mismatched[:4]}")
+    # K3 blocked on the run's own candidates, at its max_det
+    boxes, valid, thr, max_det, block = recorded["args"]
+    check(max_det == 1000 and boxes.shape[1] > 512,
+          f"detect's NMS took max_det {max_det}, K {boxes.shape[1]}")
+    got = fixpoint_keep_blocked(boxes, valid, thr, max_det, block)
+    want = fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "K3 blocked differs from its plain version on detect's candidates (max_det 1000)")
+    out["k3_blocked"] = {"max_abs_err": max(float((a.long() - b.long()).abs().max())
+                                            for a, b in zip(got, want)),
+                         "live_candidates": int(valid.sum()),
+                         **blocked_timing(device, "detect", boxes, valid, thr, max_det, block)}
+    print("tools detect: " + json.dumps(out["detect"]) + " K3 blocked: "
+          + json.dumps(out["k3_blocked"]), flush=True)
+
+    # ---- 2. the frame decoded by this machine's JPEG route and by libjpeg
+    # (the fixture's pixels): the same detections above the libjpeg
+    # decode's `frame_top`-th best score
+    with torch.inference_mode():
+        xs = [torch.as_tensor(letterbox_host(np.ascontiguousarray(im), imgsz, auto=False,
+                                             stride=32)[0][None, :, :, ::-1].copy(), device=device)
+              for im in (imageio.imread(JPEG_FIXTURES / f"{JPEG_FRAME}.jpg"), frame)]
+        _, sc, _ = model.decode_parts(model.apply(xs[1].to(dtype) / 255.0, dtype=dtype,
+                                                  fused=True))
+        frame_gate = float(sc.float().topk(sizes["frame_top"], dim=1).values[0, -1]) * 0.99
+        served = []
+        for x in xs:
+            d, v = serve(model, x, frame_gate)
+            served.append(rows_of(det_lines(d[0][v[0]], x.shape[1:3], frame.shape[:2])))
+    out["frame"] = {"gate": frame_gate, "detections": [len(r) for r in served],
+                    "unmatched": same_sets(served[0], served[1], 2e-3, 0.05,
+                                           SAME_SET_BAND * frame_gate)}
+    check(out["frame"]["unmatched"] == 0 and len(served[1]) > 0,
+          f"the frame decoded two ways serves other detections: {out['frame']}")
+    del model
+
+    # ---- 3. --augment (TTA, batched_nms) on one batch
+    zero()
+    t0 = time.perf_counter()
+    aug = detect("augment", "--imgsz", str(imgsz), "--batch-size", str(bs), "--augment",
+                 "--save-txt", "--save-conf", "--nosave", *conf,
+                 source=subset("augment", sizes["augment_files"]))
+    aug_labels = label_lines(aug / "labels")
+    out["augment"] = {"s": time.perf_counter() - t0, "files": len(aug_labels),
+                      "detections": sum(len(v) for v in aug_labels.values()),
+                      "launches": counted()}
+    check(len(aug_labels) == sizes["augment_files"], f"--augment: {out['augment']}")
+
+    # ---- 4. cli.export, detect on the .pt2, the .pt and fused .npz read back
+    t0 = time.perf_counter()
+    exported = cli_export.main(["--weights", str(weights), "--imgsz", str(imgsz),
+                                "--batch-size", str(sizes["export_batch"]), "--include",
+                                "torch_export", "npz", "torch", *prec, *dev])
+    out["export"] = {"s": time.perf_counter() - t0,
+                     "files": {p.name: p.stat().st_size for p in exported}}
+    fused_npz, pt, pt2 = exported
+    src32 = subset("pt2", sizes["pt2_files"])
+    eb = str(sizes["export_batch"])
+    zero()
+    t0 = time.perf_counter()
+    via_pt2 = label_lines(detect("pt2", "--save-txt", "--save-conf", "--nosave", *conf,
+                                 source=src32, weights=pt2) / "labels")
+    out["export"]["pt2_detect_s"] = time.perf_counter() - t0
+    out["export"]["pt2_launches"] = counted()
+    native = label_lines(detect("native_bs8", "--imgsz", str(imgsz), "--batch-size", eb,
+                                "--save-txt", "--save-conf", "--nosave", *conf,
+                                source=src32) / "labels")
+    check(via_pt2.keys() == native.keys(), "the .pt2 run labelled other files")
+    # the program against the model it was exported from, and the .pt2
+    # run's labels against that model's decode through the .pt2 route's
+    # NMS (`batched_nms`, as JAX's detect on an exported program)
+    program = torch.export.load(str(pt2)).module()
+    npz_model = cli_common.load_model_from_checkpoint(weights, device=device).fuse()
+    err, mismatched, eb_n = 0.0, [], sizes["export_batch"]
+    with torch.inference_mode():
+        for start in range(0, sizes["pt2_files"], eb_n):
+            chunk = files[start:start + eb_n]
+            ims0 = [imageio.imread(f) for f in chunk]
+            x = torch.as_tensor(np.stack([letterbox_host(im, imgsz, auto=False, stride=32)[0]
+                                          [:, :, ::-1] for im in ims0]), device=device)
+            dec = npz_model.decode(npz_model.apply(x.to(dtype) / 255.0, dtype=dtype, fused=True))
+            err = max(err, float((program(x) - dec).abs().max()))
+            dets, valid = nms_mod.batched_nms(with_obj_column(dec, nc), conf_thres=gate,
+                                              iou_thres=0.45, max_det=1000)
+            dets, valid = dets.float().cpu().numpy(), valid.cpu().numpy()
+            for i, (f, im0) in enumerate(zip(chunk, ims0)):
+                if det_lines(dets[i][valid[i]], x.shape[1:3], im0.shape[:2]) != via_pt2[f.stem]:
+                    mismatched.append(f.name)
+    out["export"]["program_vs_model_max_abs_err"] = err
+    out["export"]["pt2_vs_batched_nms_mismatched"] = mismatched
+    check(err == 0 and not mismatched, f"detect on the .pt2 differs from its model's decode "
+                                       f"and batched_nms: {out['export']}")
+    # against the native run (nms_parts on decode_parts): the same boxes and
+    # scores, but where a class's probability rounds to its neighbour's
+    # (saturated logits), batched_nms' argmax on the products picks the
+    # first class and decode_parts' on the logits the larger one: counted
+    out["export"]["pt2_vs_native_exact_files"] = sum(via_pt2[k] == native[k] for k in native)
+    for key, by_class in (("pt2_vs_native_unmatched", False),
+                          ("pt2_vs_native_unmatched_by_class", True)):
+        out["export"][key] = max(same_sets(rows_of(via_pt2[k]), rows_of(native[k]), 1e-5,
+                                           1e-5, 0.0, by_class=by_class) for k in native)
+    del program
+    npz_model = cli_common.load_model_from_checkpoint(weights, device=device)
+    pt_model = cli_common.load_model_from_checkpoint(pt, cfg=cfg_arg, nc=nc, device=device)
+    a, b = npz_model.state_dict(), pt_model.state_dict()
+    check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+          "the .pt export does not load back to the .npz's weights")
+    fz_model = cli_common.load_model_from_checkpoint(fused_npz, device=device)
+    npz_model.fuse()
+    x = torch.rand(2, 256, 256, 3, device=device, generator=torch.Generator(
+        device=device).manual_seed(12))
+    with torch.inference_mode():
+        same = all(torch.equal(p, q) for p, q in zip(fz_model.apply(x, fused=True),
+                                                      npz_model.apply(x, fused=True)))
+    check(same, "the fused .npz export serves another head than the folded .npz")
+    out["export"]["pt_and_fused_npz_read_back"] = True
+    del npz_model, pt_model, fz_model
+
+    # ---- 5. hub.load, AutoShape, Detections
+    zero()
+    t0 = time.perf_counter()
+    auto = hub.load(str(weights), device=device)
+    auto.dtype, auto.conf = dtype, gate
+    res = auto([str(f) for f in files[:sizes["hub_files"]]], size=imgsz)
+    crops = res.crop(save_dir=TOOLS_DIR / "hub" / "crops")
+    saved = res.save(TOOLS_DIR / "hub" / "saved")
+    out["hub"] = {"s": time.perf_counter() - t0, "detections": [len(d) for d in res.xyxy],
+                  "crops": len(crops), "saved": len(list(saved.glob("*.jpg"))),
+                  "tolist": len(res.tolist()), "launches": counted()}
+    check(out["hub"]["crops"] == sum(out["hub"]["detections"]) > 0
+          and out["hub"]["saved"] == out["hub"]["tolist"] == sizes["hub_files"],
+          f"hub: {out['hub']}")
+    if on_card:
+        check(out["hub"]["launches"]["fixpoint_keep_blocked"] == 1, f"hub: {out['hub']}")
+    del auto, res, crops
+
+    # ---- 6. the REST server: 32 concurrent requests batched, then a few
+    # per request; each answer against the same path called directly
+    rest_model = cli_common.load_model_from_checkpoint(weights, device=device)
+    batcher = MicroBatcher(rest_model, imgsz=sizes["rest_imgsz"], max_batch=sizes["rest_batch"],
+                           max_wait_ms=50.0, conf_thres=gate, iou_thres=0.45, max_det=1000,
+                           max_nms=4096, dtype=dtype, device=device)
+    batcher.warmup()
+    single = hub.load(str(weights), device=device)
+    single.dtype, single.conf = dtype, gate
+    # where a request's time goes, by the server's clock: the handler whole,
+    # the upload's decode, the wait for its answer, and the batcher's batches
+    spans = {"handler": [], "decode": [], "answer": [], "batch": []}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spans[name].append((time.perf_counter() - t) * 1e3)
+        return run
+
+    class TimedBatcher:
+        names = batcher.names
+        __call__ = staticmethod(timed("answer", batcher))
+
+    real_post, real_decode = restapi.Handler.do_POST, restapi.imdecode
+    restapi.Handler.do_POST = timed("handler", real_post)
+    restapi.imdecode = timed("decode", real_decode)
+    batcher._run = timed("batch", batcher._run)
+    servers = [restapi.make_server("127.0.0.1", 0, batcher=TimedBatcher()),
+               restapi.make_server("127.0.0.1", 0, model=single, imgsz=sizes["rest_imgsz"])]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    keys = ("xmin", "ymin", "xmax", "ymax", "confidence", "class")
+    try:
+        urls = [f"http://127.0.0.1:{s.server_address[1]}/v1/object-detection" for s in servers]
+        reqs = [files[i % len(files)] for i in range(sizes["rest_requests"])]
+        answers, lat = [None] * len(reqs), [None] * len(reqs)
+
+        def post(i):
+            t = time.perf_counter()
+            answers[i] = example_request.detect(str(reqs[i]), urls[0])
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+        def burst():
+            posts = [threading.Thread(target=post, args=(i,)) for i in range(len(reqs))]
+            t0 = time.perf_counter()
+            for t in posts:
+                t.start()
+            for t in posts:
+                t.join(120)
+            check(not any(t.is_alive() for t in posts) and all(a is not None for a in answers),
+                  "REST: a batched request did not come back")
+            return time.perf_counter() - t0
+
+        # a first burst makes the server's per-request JPEG contexts (one a
+        # concurrent request, kept for later ones): its latency is reported,
+        # the second burst's is the server's steady state
+        cold_wall = burst()
+        cold = sorted(lat)
+        answers, lat = [None] * len(reqs), [None] * len(reqs)
+        hist0 = dict(batcher.stats_counters["batch_hist"])
+        for v in spans.values():
+            v.clear()
+        zero()
+        wall = burst()
+        server = {k: {"n": len(v), "p50_ms": float(np.percentile(v, 50)),
+                      "max_ms": float(max(v))} for k, v in spans.items() if v}
+        launches = counted()
+        hist = {int(k): v - hist0.get(k, 0) for k, v in batcher.stats_counters["batch_hist"].items()
+                if v - hist0.get(k, 0)}
+        # the same images submitted at once to the batcher: batches of the
+        # same bucket, so the same sums
+        pending = [batcher.submit(imageio.imread(f)[:, :, ::-1].copy()) for f in reqs]
+        direct = [restapi.batch_records(p.result(120), batcher.names) for p in pending]
+        exact = sum(a == json.loads(json.dumps(d)) for a, d in zip(answers, direct))
+        unmatched = max(same_sets(*(np.array([[r["class"]] + [r[k] for k in keys[:5]] for r in x],
+                                             np.float64).reshape(-1, 6) for x in (a, d)),
+                                  1.0, 0.05, SAME_SET_BAND * gate) for a, d in zip(answers, direct))
+        lat_s = sorted(lat)
+        out["rest"] = {"requests": len(reqs), "wall_s": wall, "req_per_s": len(reqs) / wall,
+                       "p50_ms": float(np.percentile(lat_s, 50)),
+                       "p99_ms": float(np.percentile(lat_s, 99)), "batch_hist": hist,
+                       "first_burst": {"wall_s": cold_wall, "p50_ms": float(np.percentile(cold, 50)),
+                                       "p99_ms": float(np.percentile(cold, 99))},
+                       "server": server,
+                       "exact_answers": exact, "unmatched": unmatched, "launches": launches,
+                       "detections": sum(len(a) for a in answers)}
+        check(unmatched == 0 and out["rest"]["detections"] > 0,
+              f"REST batched answers differ from the batcher's: {out['rest']}")
+        if on_card:
+            check(launches["fixpoint_keep_blocked"] == sum(hist.values()),
+                  f"REST: K3's blocked entry once a batch? {out['rest']}")
+        singles, lat1 = [], []
+        for f in files[:sizes["rest_single"]]:
+            t = time.perf_counter()
+            got = example_request.detect(str(f), urls[1])
+            lat1.append((time.perf_counter() - t) * 1e3)
+            want = single(imageio.imread(f)[:, :, ::-1].copy(), size=sizes["rest_imgsz"]).records(0)
+            singles.append(got == json.loads(json.dumps(want)))
+        out["rest"]["per_request"] = {"requests": len(singles), "equal": sum(singles),
+                                      "p50_ms": float(np.percentile(lat1, 50))}
+        check(all(singles), f"REST per-request answers differ from AutoShape's: {singles}")
+        bad = urllib.request.Request(urls[0], data=b"not an image",
+                                     headers={"Content-Type": "application/octet-stream"})
+        try:
+            urllib.request.urlopen(bad)
+            check(False, "REST answered an undecodable upload")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"REST: an undecodable upload gave {e.code}")
+    finally:
+        restapi.Handler.do_POST, restapi.imdecode = real_post, real_decode
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        batcher.close()
+    del rest_model, batcher, single
+    print("tools rest: " + json.dumps(out["rest"]), flush=True)
+
+    # ---- 7. cli.gradcam at f32 (TF32 off), held against the host CPU
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out["gradcam"] = {}
+    cam_src = subset("gradcam", sizes["gradcam_files"])
+    cpu_model = cli_common.load_model_from_checkpoint(weights, device="cpu")
+    layer = resolve_target_layer(cpu_model, sizes["gradcam_layer"])
+    try:
+        for method in ("gradcam", "gradcampp"):
+            t0 = time.perf_counter()
+            results = cli_gradcam.main(
+                ["--model-path", str(weights), "--img-path", str(cam_src), "--output-dir",
+                 str(TOOLS_DIR / "gradcam"), "--img-size", str(sizes["gradcam_imgsz"]),
+                 "--target-layer", sizes["gradcam_layer"], "--method", method,
+                 "--max-dets", str(sizes["gradcam_max_dets"]), *conf, *dev])
+            r = {"s": time.perf_counter() - t0, "cams": [len(x["cams"]) for x in results]}
+            check(len(results) == sizes["gradcam_files"] and r["cams"][0] > 0,
+                  f"gradcam {method}: {r}")
+            first = results[0]
+            lb = letterbox_host(imageio.imread(first["path"]),
+                                (sizes["gradcam_imgsz"],) * 2, auto=False)[0]
+            x = torch.as_tensor(lb[None, :, :, ::-1].astype(np.float32) / 255.0)
+            cam = cam_for_detection(cpu_model, x, layer, int(first["cands"][0]),
+                                    int(first["dets"][0][5]), method=method)
+            r["cam_shape"] = list(cam.shape)
+            r["card_vs_cpu_max_abs_err"] = float(np.abs(first["cams"][0] - cam).max())
+            r["tol"] = CAM_TOL[method]
+            check(r["card_vs_cpu_max_abs_err"] <= CAM_TOL[method],
+                  f"gradcam {method}: card vs CPU {r['card_vs_cpu_max_abs_err']:.2e}")
+            out["gradcam"][method] = r
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del cpu_model
+
+    # ---- 8. cli.wbf over the first run's labels and a second run's at
+    # another size
+    zero()
+    t0 = time.perf_counter()
+    second = detect("wbf_second", "--imgsz", str(sizes["wbf_imgsz"]), "--batch-size", str(bs),
+                    "--save-txt", "--save-conf", "--nosave", *conf)
+    out["wbf"] = {"second_detect_s": time.perf_counter() - t0, "second_launches": counted()}
+    t0 = time.perf_counter()
+    # WBF's clustering is a host loop over every pair of boxes an image
+    # (JAX's, line for line): on `wbf_files` images of up to 2,000 boxes;
+    # the trained weights' scores sit far under its default skip (0.01)
+    dirs = []
+    for name, d in (("first", run), ("second", second)):
+        dirs.append(TOOLS_DIR / "wbf_in" / name)
+        dirs[-1].mkdir(parents=True)
+        for f in files[:sizes["wbf_files"]]:
+            (dirs[-1] / f"{f.stem}.txt").symlink_to(d / "labels" / f"{f.stem}.txt")
+    cli_wbf.main([*map(str, dirs), "--out", str(TOOLS_DIR / "wbf"), "--no-one-indexed-cls",
+                  "--skip-box-thr", repr(gate)])
+    fused = label_lines(TOOLS_DIR / "wbf")
+    rows = [rows_of(v) for v in fused.values() if v]
+    out["wbf"].update(s=time.perf_counter() - t0, files=len(fused),
+                      boxes=sum(len(r) for r in rows))
+    # scores are written to 6 decimals (JAX's format): the gate's scale
+    # rounds some to 0
+    check(len(fused) == sizes["wbf_files"] and rows and all(
+        ((r[:, 1:5] >= 0) & (r[:, 1:5] <= 1)).all() and (r[:, 5] >= 0).all() for r in rows)
+        and any((r[:, 5] > 0).any() for r in rows), f"wbf: {out['wbf']}")
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_tools(jp, tp, smi):
+    """The jpeg and tools phases' summary lines."""
+    fx = jp["fixtures"]
+    print(f"jpeg ({jp['codec']}) against libjpeg's pixels: " + "; ".join(
+        f"{n} max {r['max_abs']} mean {r['mean_abs']:.4f} >2: {r['share_over_2']:.4f}"
+        + (f" (box-upsampled: max {r['box_upsampled']['max_abs']} mean "
+           f"{r['box_upsampled']['mean_abs']:.4f} >2: {r['box_upsampled']['share_over_2']:.4f})"
+           if "box_upsampled" in r else "")
+        for n, r in fx.items()) + f"; bounds {JPEG_BOUNDS}", flush=True)
+    print(f"jpeg: {jp['frame_shape'][1]}x{jp['frame_shape'][0]} frame decode "
+          f"{jp['decode_ms']:.2f} ms ({jp['codec']}), PNG of the same pixels "
+          f"{jp['png_decode_ms']:.2f} ms; q95 encode {jp['encode_ms']:.2f} ms, "
+          f"{jp['q95_bytes']} bytes, PSNR {jp['q95_psnr_db']:.2f} dB; on {smi}", flush=True)
+    d, k = tp["detect"], tp["k3_blocked"]
+    print(f"tools conf gate {tp['conf']['gate']:.3e} (best score {tp['conf']['best_score']:.3e}; "
+          f"the default 0.25 keeps nothing)", flush=True)
+    print(f"tools detect {tp['files']} JPEG files at {tp['imgsz']} px bs{d['batch']}: "
+          f"{d['img_per_s']:.2f} img/s whole run, {d['img_per_s_after_first_batch']:.2f} after "
+          f"the first batch; {d['detections']} detections, {d['crops']} crops from 4 files; K3 "
+          f"blocked "
+          f"{d['launches']['fixpoint_keep_blocked']} launches; on {smi}", flush=True)
+    print(f"tools K3 blocked {tuple(k['shape'])} on detect's candidates ({k['live_candidates']} "
+          f"live, {k['blocks_walked']} blocks walked): call {k['ms']:.4f} ms, kernel "
+          f"{k['kernel_ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound {k['bound_ms']:.4f} ms "
+          f"({k['bound_by']}); on {smi}", flush=True)
+    r = tp["rest"]
+    print(f"tools rest {r['requests']} concurrent requests: p50 {r['p50_ms']:.1f} ms, p99 "
+          f"{r['p99_ms']:.1f} ms, {r['req_per_s']:.1f} req/s, batches {r['batch_hist']} (the "
+          f"first burst: p50 {r['first_burst']['p50_ms']:.1f}, p99 "
+          f"{r['first_burst']['p99_ms']:.1f} ms), "
+          f"{r['exact_answers']} answers bit-equal to the batcher's; server side "
+          + ", ".join(f"{k} p50 {v['p50_ms']:.1f} ms (n {v['n']})" for k, v in r["server"].items())
+          + "; per request p50 "
+          f"{r['per_request']['p50_ms']:.1f} ms; on {smi}", flush=True)
+    e = tp["export"]
+    print(f"tools export {e['s']:.1f} s ({', '.join(e['files'])}); detect on the .pt2 "
+          f"{e['pt2_detect_s']:.1f} s, equal to its model's decode and batched_nms; against "
+          f"the native run {e['pt2_vs_native_exact_files']} label files byte-equal, unmatched "
+          f"{e['pt2_vs_native_unmatched']} without the class, "
+          f"{e['pt2_vs_native_unmatched_by_class']} with it; augment {tp['augment']['detections']} detections "
+          f"in {tp['augment']['s']:.1f} s; hub {sum(tp['hub']['detections'])} detections; "
+          f"frame both ways {tp['frame']['detections']}; gradcam "
+          + ", ".join(f"{m} card vs CPU {g['card_vs_cpu_max_abs_err']:.1e} (tol {g['tol']})"
+                      for m, g in tp["gradcam"].items())
+          + f"; wbf {tp['wbf']['boxes']} boxes over {tp['wbf']['files']} files; phase "
+          f"{tp['s']:.1f} s", flush=True)
+
+
 def main():
     import torch
 
@@ -3603,6 +4345,10 @@ def main():
 
     report = {"card": smi, "build_s": build_s}
     phases = report["phase_s"] = {"build": build_s}
+    t0 = time.perf_counter()
+    report["jpeg"], frame = jpeg_phase()
+    phases["jpeg"] = time.perf_counter() - t0
+    print("jpeg: " + json.dumps(report["jpeg"]), flush=True)
     t0 = time.perf_counter()
     report["k2"] = k2 = check_nms(device)
     print("K2 nms_greedy: " + json.dumps(k2), flush=True)
@@ -3755,6 +4501,9 @@ def main():
         report["cli"] = cp = cli_phase(device, counters, smi)
         phases["cli"] = cp["s"]
         print_cli(cp, smi)
+        report["tools"] = tp = tools_phase(device, counters, smi, frame)
+        phases["tools"] = tp["s"]
+        print_tools(report["jpeg"], tp, smi)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -3799,6 +4548,11 @@ def main():
             t["best_serve"]["launches"]
     paths.update({f"cli val {name}": r["launches"] for name, r in cp["val"].items()})
     paths["cli .pt served, matrix"] = cp["pt"]["launches"]
+    paths.update({"tools detect": tp["detect"]["launches"],
+                  "tools detect --augment": tp["augment"]["launches"],
+                  "tools detect on the .pt2": tp["export"]["pt2_launches"],
+                  "tools hub": tp["hub"]["launches"], "tools rest batched": tp["rest"]["launches"],
+                  "tools detect for wbf": tp["wbf"]["second_launches"]})
 
     def launches(counter):
         by_path = {p: n[counter.__name__] for p, n in paths.items() if n[counter.__name__]}
@@ -3839,7 +4593,11 @@ def main():
          **launches(fixpoint_keep_blocked), **timed(k3b), "library_ms": None,
          "shape": k3b["shape"], "kernel_ms": k3b["kernel_ms"],
          "nms_matrix_blocked_ms": k3b["nms_ms"],
-         **{k: k3b[k] for k in ("blocks_walked", "pairs", "cross_tests", "walk_all")}},
+         **{k: k3b[k] for k in ("blocks_walked", "pairs", "cross_tests", "walk_all")},
+         # the tools' shape: detect's own candidates at max_det 1000
+         "tools_detect": {k: tp["k3_blocked"][k] for k in (
+             "shape", "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "blocks_walked", "pairs", "cross_tests", "live_candidates")}},
         {"name": "conv3x3_s1", "route": "cuda",
          "design": "implicit GEMM on wgmma with TMA loads: bf16, and f32 as 3xTF32",
          "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",

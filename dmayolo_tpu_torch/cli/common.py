@@ -61,7 +61,8 @@ def load_model_from_checkpoint(weights, cfg=None, nc=None, device=None):
 
     - `.npz` (the JAX format, either package's): the EMA trees where
       present, else the model's; the meta's `cfg`, `nc` and live
-      `anchors` over the yaml's (`cfg` and `nc` given here win);
+      `anchors` over the yaml's (`cfg` and `nc` given here win); a BN-folded
+      export (meta `fused`) onto the folded model;
     - `.pt` (the reference's own checkpoint, `utils/torch_import.py`): the
       EMA first; the pickled yaml, nc and trained anchors;
     - no `weights`: `cfg` built with seeded weights (seed 0) and the head
@@ -96,6 +97,8 @@ def load_model_from_checkpoint(weights, cfg=None, nc=None, device=None):
                                nc=nc, device=dev)
         params = trees.get("ema_params") or trees["params"]
         stats = trees.get("ema_stats") or trees.get("stats") or {}
+        if meta.get("fused"):  # `cli.export`'s npz: the BNs already folded
+            model.fuse()
         model.load_state_dict(state_dict_from_jax(params, stats, dev), strict=True)
         _set_anchors(model, meta.get("anchors"))
         return model.eval()

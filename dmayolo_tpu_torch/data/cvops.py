@@ -18,7 +18,10 @@ How close each op comes to cv2 (the tests hold these):
   * `to_gray`, `gaussian_blur`: within 1 level;
   * the raster (`fill_rect`, `fill_circle`, `fill_poly`, `fill_ellipse`,
     `line`): the same shapes as cv2's LINE_8 drawing, which may differ at
-    the boundary pixels.
+    the boundary pixels; `rectangle` (outline, any thickness): pixel-equal
+    to cv2's LINE_8 rectangle;
+  * `put_text`: text of cv2's size and placement in a fixed bitmap font,
+    not cv2's Hershey strokes (no test compares its pixels).
 """
 from __future__ import annotations
 
@@ -205,10 +208,11 @@ def median_blur(im, k: int) -> np.ndarray:
 
 # ---------------------------------------------------------------- raster
 def _color(im, color) -> np.ndarray:
+    """`color` as the image's channels, uint8: a scalar or a sequence
+    repeated cyclically to the channel count (numpy's resize), clipped."""
     c = _hwc(im)[2]
-    col = np.asarray(color, np.int64).reshape(-1)
-    col = np.resize(col, c) if col.size != c else col
-    return np.ascontiguousarray(np.clip(col, 0, 255).astype(np.uint8))
+    col = [int(v) for v in (color if hasattr(color, "__len__") else (color,))]
+    return np.array([min(max(col[k % len(col)], 0), 255) for k in range(c)], np.uint8)
 
 
 def _check_draw(im):
@@ -283,3 +287,27 @@ def line(im, p0, p1, color, thickness: int = 1) -> None:
         fill_poly(im, np.round(band), col)
     for x, y in ((x0, y0), (x1, y1)):
         fill_circle(im, (int(x), int(y)), int(thickness // 2), col)
+
+
+def rectangle(im, p1, p2, color, thickness: int = 1) -> None:
+    """cv2.rectangle(im, p1, p2, color, thickness), 8-connected: the
+    outline of the corners' rectangle, pixel-equal to cv2's; a thickness
+    t > 1 draws each side as a band t // 2 + t % 2 pixels either side of
+    it, rounded at the corners as cv2's thick lines are; t < 0 fills."""
+    if thickness < 0:
+        fill_rect(im, p1, p2, color)
+        return
+    h, w, c = _check_draw(im)
+    lib().io_rectangle(_ptr(im), h, w, c, int(p1[0]), int(p1[1]), int(p2[0]), int(p2[1]),
+                       int(thickness), _ptr(_color(im, color)))
+
+
+def put_text(im, text: str, org, font_scale: float, color, thickness: int = 1) -> None:
+    """Text with its baseline's left end at `org`, as cv2.putText places
+    it, in the host library's fixed ASCII bitmap font (the Hershey simplex
+    glyphs rasterised at scale 1) at `font_scale`: text of the size cv2's
+    FONT_HERSHEY_SIMPLEX gives, but its pixels are the bitmap's, not cv2's
+    strokes."""
+    h, w, c = _check_draw(im)
+    lib().io_put_text(_ptr(im), h, w, c, str(text).encode("ascii", "replace"), int(org[0]),
+                      int(org[1]), float(font_scale), int(thickness), _ptr(_color(im, color)))

@@ -1,15 +1,29 @@
 """Image files: read, write and size, without OpenCV or PIL.
 
-One image path for the whole port.  JPEG is decoded and encoded by the
-system's libjpeg through the port's host library
-(`dmayolo_tpu_torch/csrc/host/imgio.cpp`, built with g++ at first use;
-the JPEG codec is compiled in only where `<jpeglib.h>` exists).  PNG is
+One image path for the whole port.  JPEG takes one of two codecs,
+chosen by `jpeg_codec()`:
+
+- "libjpeg": the system's libjpeg through the port's host library
+  (`dmayolo_tpu_torch/csrc/host/imgio.cpp`, built with g++ at first use;
+  its JPEG codec is compiled in only where `<jpeglib.h>` exists), the
+  same pixels as `cv2.imread`;
+- "nvjpeg": where the system has no libjpeg, the CUDA toolkit's nvJPEG
+  (`csrc/host/nvjpeg_codec.cpp`, built with g++ at first use where the
+  toolkit has `nvjpeg.h`), which needs a CUDA device.  It decodes on the
+  card and returns host arrays like the other route.  Its pixels need
+  not be libjpeg's: the two libraries may round the IDCT and upsample
+  chroma differently (libjpeg-turbo's "fancy" upsampling).  nvJPEG does
+  not take CMYK, 12-bit or arithmetic-coded JPEG: those raise, naming
+  their kind.
+
+No route falls back on another: a failed build or call raises.  PNG is
 parsed here: zlib from Python's standard library, the row filters in the
 host library.  Other formats of `IMG_FORMATS` raise, naming the format.
 
-`imread` returns BGR uint8 (H, W, 3), as `cv2.imread` does: grey images
-are replicated to three channels, alpha is dropped, 16-bit samples keep
-their high byte.  Every call into the host library releases the GIL.
+`imread` and `imdecode` return BGR uint8 (H, W, 3), as `cv2.imread` does:
+grey images are replicated to three channels, alpha is dropped, 16-bit
+samples keep their high byte.  Every call into either library releases
+the GIL.
 """
 from __future__ import annotations
 
@@ -21,8 +35,9 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from ..utils.cuda_build import load_host_library
+from ..utils import cuda_build
 
 IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo"}
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -40,13 +55,12 @@ def _ptr(a: np.ndarray):
 @functools.lru_cache(maxsize=None)
 def lib() -> ctypes.CDLL:
     """The host library, built on first use, with its signatures declared."""
-    so = load_host_library("imgio")
+    so = cuda_build.load_host_library("imgio")
     i, l, d, p = ctypes.c_int, ctypes.c_long, ctypes.POINTER(ctypes.c_double), _u8p
     ip = ctypes.POINTER(ctypes.c_int)
     sigs = {
-        "io_has_jpeg": ([], i),
         "io_jpeg_probe": ([p, ctypes.c_ulong, ip], i),
-        "io_jpeg_decode": ([p, ctypes.c_ulong, p, i, i], i),
+        "io_jpeg_decode": ([p, ctypes.c_ulong, p, i, i, i], i),
         "io_jpeg_encode": ([p, i, i, i, p, l], l),
         "io_png_unfilter": ([p, i, l, i], i),
         "io_png_filter_bgr": ([p, i, i, p], None),
@@ -61,6 +75,8 @@ def lib() -> ctypes.CDLL:
         "io_line": ([p, i, i, i, i, i, i, i, p], None),
         "io_fill_poly": ([p, i, i, i, ip, i, p], None),
         "io_fill_circle": ([p, i, i, i, i, i, i, p], None),
+        "io_rectangle": ([p, i, i, i, i, i, i, i, i, p], None),
+        "io_put_text": ([p, i, i, i, ctypes.c_char_p, i, i, ctypes.c_double, i, p], None),
     }
     for name, (args, res) in sigs.items():
         fn = getattr(so, name)
@@ -68,14 +84,43 @@ def lib() -> ctypes.CDLL:
     return so
 
 
+@functools.lru_cache(maxsize=None)
+def nvlib() -> ctypes.CDLL:
+    """The nvJPEG codec, built on first use, its thread's handle made."""
+    so = cuda_build.load_nvjpeg_library()
+    p, i, l = _u8p, ctypes.c_int, ctypes.c_long
+    sigs = {
+        "nvj_init": ([], i),
+        "nvj_decode": ([p, ctypes.c_ulong, p, i, i], i),
+        "nvj_encode": ([p, i, i, i, p, l, ctypes.POINTER(l)], i),
+    }
+    for name, (args, res) in sigs.items():
+        fn = getattr(so, name)
+        fn.argtypes, fn.restype = args, res
+    _nv_check(so.nvj_init(), "nvJPEG")
+    return so
+
+
+def jpeg_codec() -> str:
+    """The JPEG route of this machine: "libjpeg" where the system has
+    `<jpeglib.h>`, else "nvjpeg" where the CUDA toolkit has `nvjpeg.h` and
+    a CUDA device is present.  Raises where neither is."""
+    if cuda_build.has_header("jpeglib.h"):
+        return "libjpeg"
+    if cuda_build.nvjpeg_header() and torch.cuda.is_available():
+        return "nvjpeg"
+    raise RuntimeError("JPEG needs either <jpeglib.h> and libjpeg (the host library's route) "
+                       "or the CUDA toolkit's nvJPEG (include/nvjpeg.h) and a CUDA device; "
+                       "this machine has neither")
+
+
 def jpeg_available() -> bool:
-    """Whether the host library was built with the JPEG codec."""
-    return bool(lib().io_has_jpeg())
-
-
-def _no_jpeg(path) -> RuntimeError:
-    return RuntimeError(f"{path}: JPEG needs <jpeglib.h> and libjpeg, which this machine "
-                        "lacks; the host library was built without JPEG")
+    """Whether JPEG can be read and written here (by either route)."""
+    try:
+        jpeg_codec()
+    except RuntimeError:
+        return False
+    return True
 
 
 def _ext(path) -> str:
@@ -83,29 +128,119 @@ def _ext(path) -> str:
 
 
 # --------------------------------------------------------------------- JPEG
-def _jpeg_decode(buf: bytes, path) -> np.ndarray:
-    io = lib()
-    if not io.io_has_jpeg():
-        raise _no_jpeg(path)
+# frame markers (SOFn) by the coding they name; C4, C8 and CC are not frames
+_SOF_KINDS = {0xC0: "baseline", 0xC1: "extended sequential", 0xC2: "progressive",
+              0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical progressive",
+              0xC7: "hierarchical lossless", 0xC9: "arithmetic-coded",
+              0xCA: "progressive arithmetic-coded", 0xCB: "lossless arithmetic-coded",
+              0xCD: "hierarchical arithmetic-coded",
+              0xCE: "hierarchical progressive arithmetic-coded",
+              0xCF: "hierarchical lossless arithmetic-coded"}
+
+
+def jpeg_frame(buf: bytes, path):
+    """The JPEG's frame header: (coding, sample precision in bits, height,
+    width, components), from the first SOFn marker; raises ValueError
+    naming `path` when there is none before the scan."""
+    pos, n = 2, len(buf)
+    while pos + 4 <= n:
+        if buf[pos] != 0xFF:
+            break
+        marker = buf[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker in (0x01, *range(0xD0, 0xD8)):  # no length
+            pos += 2
+            continue
+        if marker in (0xD9, 0xDA):  # end of image, or the scan before any frame
+            break
+        length = struct.unpack(">H", buf[pos + 2:pos + 4])[0]
+        if marker in _SOF_KINDS:
+            if pos + 10 > n:
+                break
+            precision, h, w, comps = struct.unpack(">BHHB", buf[pos + 4:pos + 10])
+            return _SOF_KINDS[marker], precision, h, w, comps
+        pos += 2 + length
+    raise ValueError(f"{path}: not a readable JPEG (no frame header)")
+
+
+def nvjpeg_unsupported(frame) -> str:
+    """The kind of a JPEG frame (from `jpeg_frame`) that nvJPEG does not
+    take, or "" when it takes it."""
+    coding, precision, _, _, comps = frame
+    if precision != 8:
+        return f"{precision}-bit"
+    if "arithmetic" in coding:
+        return coding
+    if coding not in ("baseline", "extended sequential", "progressive"):
+        return coding
+    if comps == 4:
+        return "CMYK"
+    if comps not in (1, 3):
+        return f"{comps}-component"
+    return ""
+
+
+# nvjpegStatus_t, by value (nvjpeg.h)
+_NV_STATUS = {1: "not initialized", 2: "invalid parameter", 3: "bad JPEG",
+              4: "JPEG not supported", 5: "allocator failure", 6: "execution failed",
+              7: "architecture mismatch", 8: "internal error",
+              9: "implementation not supported", 10: "incomplete bitstream"}
+_NV_CUDA_BASE, _NV_SHAPE, _NV_TOO_SMALL = 1000, 2001, 2002
+
+
+def _nv_check(rc: int, path) -> None:
+    if rc == 0:
+        return
+    if rc in (3, 10):
+        raise ValueError(f"{path}: corrupt JPEG (nvJPEG: {_NV_STATUS[rc]})")
+    if rc == _NV_SHAPE:
+        raise ValueError(f"{path}: corrupt JPEG (nvJPEG reads another size than its header)")
+    what = (f"CUDA error {rc - _NV_CUDA_BASE}" if _NV_CUDA_BASE <= rc < _NV_SHAPE
+            else _NV_STATUS.get(rc, f"status {rc}"))
+    raise RuntimeError(f"{path}: nvJPEG failed: {what}")
+
+
+def _jpeg_decode(buf: bytes, path, fancy: bool = True) -> np.ndarray:
+    """`fancy=False` (libjpeg's route only) upsamples 4:2:0 chroma by
+    replication, as nvJPEG does: the reference nvJPEG's pixels are held to."""
     src = np.frombuffer(buf, np.uint8)
+    if jpeg_codec() == "nvjpeg":
+        frame = jpeg_frame(buf, path)
+        kind = nvjpeg_unsupported(frame)
+        if kind:
+            raise ValueError(f"{path}: {kind} JPEG is not supported by nvJPEG")
+        h, w = frame[2], frame[3]
+        out = np.empty((h, w, 3), np.uint8)
+        _nv_check(nvlib().nvj_decode(_ptr(src), len(buf), _ptr(out), h, w), path)
+        return out
+    io = lib()
     dims = (ctypes.c_int * 2)()
     if io.io_jpeg_probe(_ptr(src), len(buf), dims) != 0:
         raise ValueError(f"{path}: not a readable JPEG")
     out = np.empty((dims[0], dims[1], 3), np.uint8)
-    if io.io_jpeg_decode(_ptr(src), len(buf), _ptr(out), dims[0], dims[1]) != 0:
+    if io.io_jpeg_decode(_ptr(src), len(buf), _ptr(out), dims[0], dims[1], int(fancy)) != 0:
         raise ValueError(f"{path}: corrupt JPEG")
     return out
 
 
 def _jpeg_encode(img: np.ndarray, quality: int, path) -> bytes:
-    io = lib()
-    if not io.io_has_jpeg():
-        raise _no_jpeg(path)
     h, w = img.shape[:2]
     cap = h * w * 3 + (1 << 16)
+    nv = jpeg_codec() == "nvjpeg"
     for _ in range(2):
         out = np.empty(cap, np.uint8)
-        n = io.io_jpeg_encode(_ptr(img), h, w, int(quality), _ptr(out), cap)
+        if nv:
+            n = ctypes.c_long(0)
+            rc = nvlib().nvj_encode(_ptr(img), h, w, int(quality), _ptr(out), cap,
+                                    ctypes.byref(n))
+            if rc == _NV_TOO_SMALL:
+                cap = n.value
+                continue
+            _nv_check(rc, path)
+            return out[:n.value].tobytes()
+        n = lib().io_jpeg_encode(_ptr(img), h, w, int(quality), _ptr(out), cap)
         if n > 0:
             return out[:n].tobytes()
         if n == 0:
@@ -203,6 +338,18 @@ def imread(path) -> np.ndarray:
         return _decode(f.read(), path)
 
 
+def imdecode(buf: bytes) -> np.ndarray:
+    """Encoded image bytes (JPEG or PNG) as BGR uint8 (H, W, 3), as
+    `cv2.imdecode(..., IMREAD_COLOR)`; raises ValueError when they cannot
+    be read."""
+    buf = bytes(buf)
+    if buf[:3] == JPEG_SIG:
+        return _jpeg_decode(buf, "<buffer>")
+    if buf[:8] == PNG_SIG:
+        return _png_decode(buf, "<buffer>")
+    raise ValueError("<buffer>: not a JPEG or PNG image")
+
+
 def imwrite(path, img: np.ndarray, quality: int = JPEG_QUALITY) -> None:
     """Write BGR uint8 (H, W, 3) as JPEG (`.jpg`/`.jpeg`, at `quality`) or
     PNG (`.png`), by the file's extension."""
@@ -224,13 +371,12 @@ def image_shape(path) -> Tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(1 << 16)
         if head[:3] == JPEG_SIG:
-            io = lib()
-            if not io.io_has_jpeg():
-                raise _no_jpeg(path)
             buf = head + f.read()
+            if jpeg_codec() == "nvjpeg":
+                return tuple(jpeg_frame(buf, path)[2:4])
             src = np.frombuffer(buf, np.uint8)
             dims = (ctypes.c_int * 2)()
-            if io.io_jpeg_probe(_ptr(src), len(buf), dims) != 0:
+            if lib().io_jpeg_probe(_ptr(src), len(buf), dims) != 0:
                 raise ValueError(f"{path}: not a readable JPEG")
             return int(dims[0]), int(dims[1])
     if head[:8] == PNG_SIG:

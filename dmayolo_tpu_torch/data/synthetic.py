@@ -9,7 +9,9 @@ files come out byte-equal to the JAX package's; the drawing goes through
 `cvops`'s raster, whose edges may differ from cv2's by a pixel, so the
 images are close to the JAX package's but not equal.  Images are written
 as JPEG (quality 85 for the VisDrone analog, as the JAX generator writes
-them) or, with `ext="png"`, as PNG.
+them) through the machine's JPEG route (`imageio.jpeg_codec()`: libjpeg,
+or nvJPEG on a card's machine without it), which raises where there is
+none; or, with `ext="png"`, as PNG.
 """
 from __future__ import annotations
 

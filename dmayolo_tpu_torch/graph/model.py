@@ -242,13 +242,14 @@ class DetectionModel(nn.Module):
         return layers
 
     # -- execution -------------------------------------------------------------
-    def forward(self, x: torch.Tensor, dtype=torch.float32):
+    def forward(self, x: torch.Tensor, dtype=torch.float32, features=None):
         """Save-list graph execution on images (B, H, W, C); returns the raw
-        head.  `dtype` is the compute dtype of every conv."""
+        head.  `dtype` is the compute dtype of every conv.  A `features`
+        list gets each layer's (index, registry name, output)."""
         x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last if x is NHWC-contiguous
         y: Dict[int, torch.Tensor] = {}
         remat = self.remat and self.training and torch.is_grad_enabled()
-        for mod in self.model:
+        for mod, spec in zip(self.model, self.specs):
             f = mod.f
             if f != -1:
                 x = (y[f % mod.i] if isinstance(f, int)
@@ -256,14 +257,26 @@ class DetectionModel(nn.Module):
             x = remat_layer(mod, x, dtype) if remat else mod(x, dtype)
             if mod.i in self.save:
                 y[mod.i] = x
+            if features is not None:
+                features.append((mod.i, spec.name, x))
         return x
 
-    def apply(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False):
+    def apply_with_features(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False):
+        """Forward that also returns every layer's output: a list of
+        (index, registry name, output), a 4-D output as (B, H, W, C), as
+        the JAX `apply_with_features` gives it (the reference's
+        --visualize hook, yolo.py:237-238)."""
+        feats = []
+        self.apply(x, dtype, fused, features=feats)
+        return [(i, name, out.permute(0, 2, 3, 1) if torch.is_tensor(out) and out.dim() == 4
+                 else out) for i, name, out in feats]
+
+    def apply(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False, features=None):
         """Forward, as the JAX `apply`: `fused=True` asks for the folded
         weights, so the model must have been through `fuse()`."""
         if fused and not self.fused:
             raise ValueError("fused=True needs the BN-folded model: call fuse() first")
-        return self(x, dtype)
+        return self(x, dtype, features)
 
     # -- weights ---------------------------------------------------------------
     def reset_parameters(self, generator: torch.Generator):

@@ -24,7 +24,7 @@ import queue
 import threading
 import time
 from collections import Counter
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,13 +77,16 @@ class MicroBatcher:
             co-riders; 0 still drains whatever is already queued.
         nms_backend: "matrix" (the CUDA kernel K3), "pallas" (K2) or "scan"
             (the plain loop).
+        names: class names by index (the REST API's "name" field);
+            "0", "1", ... by default.
     """
 
     def __init__(self, model, *, imgsz: int = 640, max_batch: int = 32,
                  max_wait_ms: float = 5.0, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
                  max_nms: int = 512, dtype=torch.bfloat16,
-                 nms_backend: str = "matrix", device=None):
+                 nms_backend: str = "matrix", device=None,
+                 names: Optional[Sequence[str]] = None):
         self.device = resolve_device(device)
         self.model = copy.deepcopy(model).to(self.device).fuse().eval()
         self.imgsz = int(imgsz)
@@ -94,6 +97,7 @@ class MicroBatcher:
                               max_det=max_det, max_nms=max_nms,
                               backend=nms_backend)
         self.dtype = dtype
+        self.names = list(names) if names else [str(i) for i in range(model.nc)]
 
         self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()

@@ -8,10 +8,13 @@ headers beside it (`*.cuh`) and its flags, so an edited source is rebuilt
 and an unchanged one is reused.
 `build()` starts one nvcc per source, all at once.
 
-The host library of the data path (`csrc/host/*.cpp`, plain C++ for the
-CPU) is built the same way with g++ (`load_host_library`).  Its JPEG
+The host library of the data path (`csrc/host/imgio.cpp`, plain C++ for
+the CPU) is built the same way with g++ (`load_host_library`).  Its JPEG
 codec is compiled in only where the system has `<jpeglib.h>`; the flag
-that says so is part of the library's name.
+that says so is part of the library's name.  Where it has not, JPEG goes
+through the CUDA toolkit's nvJPEG: `csrc/host/nvjpeg_codec.cpp`, host
+code built with g++ against `nvjpeg.h`, `libnvjpeg` and `libcudart`
+(`load_nvjpeg_library`), only where the toolkit has that header.
 """
 from __future__ import annotations
 
@@ -42,12 +45,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
-    # torch's lookup: $CUDA_HOME, $CUDA_PATH, nvcc on PATH, /usr/local/cuda
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
+    home = cuda_home()
+    if home is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    return str(home / "bin" / "nvcc")
 
 
 def _flags(name: str):
@@ -115,6 +116,38 @@ def load_host_library(name: str) -> ctypes.CDLL:
     jpeg = has_header("jpeglib.h")
     cflags = _HOST_COMMON + (["-DIMGIO_JPEG"] if jpeg else [])
     libs = ["-ljpeg"] if jpeg else []
+    return _load_host(name, cflags, libs)
+
+
+def cuda_home():
+    """The CUDA toolkit's root as torch finds it ($CUDA_HOME, $CUDA_PATH,
+    nvcc on PATH, /usr/local/cuda), or None."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    return Path(CUDA_HOME) if CUDA_HOME else None
+
+
+def nvjpeg_header() -> bool:
+    """Whether the CUDA toolkit here has nvJPEG's header."""
+    home = cuda_home()
+    return home is not None and (home / "include" / "nvjpeg.h").exists()
+
+
+def load_nvjpeg_library() -> ctypes.CDLL:
+    """The nvJPEG codec (`csrc/host/nvjpeg_codec.cpp`), built with g++
+    against the toolkit's headers and libraries on first use and cached;
+    raises where the toolkit has no `nvjpeg.h`."""
+    if not nvjpeg_header():
+        raise RuntimeError("nvJPEG not found: no CUDA toolkit with include/nvjpeg.h "
+                           "(set CUDA_HOME)")
+    home = cuda_home()
+    cflags = _HOST_COMMON + [f"-I{home / 'include'}"]
+    lib_dir = home / "lib64"
+    libs = [f"-L{lib_dir}", "-lnvjpeg", "-lcudart", f"-Wl,-rpath,{lib_dir}"]
+    return _load_host("nvjpeg_codec", cflags, libs)
+
+
+def _load_host(name: str, cflags, libs) -> ctypes.CDLL:
     out = host_library_path(name, cflags, libs)
     with _lock:
         lib = _libs.get(out.name)

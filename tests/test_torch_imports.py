@@ -46,3 +46,38 @@ def test_port_has_its_own_configs():
         for name in names:
             ours = (ROOT / "dmayolo_tpu_torch" / "configs" / kind / f"{name}.yaml").read_bytes()
             assert ours == (ROOT / "dmayolo_tpu" / "configs" / kind / f"{name}.yaml").read_bytes()
+
+
+# the only places the port may import these, and only inside the function
+LAZY = {"matplotlib": ("utils/plots.py", "feature_visualization"),
+        "pandas": ("hub.py", "pandas")}
+
+
+def _imports_with_scope(tree):
+    """(module, enclosing function name or None) for every import."""
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else fn
+            if isinstance(child, ast.Import):
+                yield from ((a.name, fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module, fn
+            yield from walk(child, name)
+    yield from walk(tree, None)
+
+
+def test_matplotlib_and_pandas_only_lazily():
+    """matplotlib (absent on the card's machine) and pandas are imported
+    only inside `utils/plots.py::feature_visualization` and
+    `hub.py::Detections.pandas`, as the JAX package does, never at a
+    module's top."""
+    pkg = ROOT / "dmayolo_tpu_torch"
+    seen = set()
+    for path in FILES:
+        rel = path.relative_to(pkg).as_posix() if pkg in path.parents else path.name
+        for mod, fn in _imports_with_scope(ast.parse(path.read_text(), str(path))):
+            top = (mod or "").split(".")[0]
+            if top in LAZY:
+                assert (rel, fn) == LAZY[top], f"{rel} imports {mod} in {fn or 'the module'}"
+                seen.add(top)
+    assert seen == set(LAZY)
