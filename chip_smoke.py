@@ -239,6 +239,30 @@ source, all at once), then:
    the first CAM against the host CPU's (`CAM_TOL`); `cli.wbf` over the
    detect run's labels and a second run's at 1280 px.
 
+14. int8 PTQ (`int8_phase`, after 7): K4 (csrc/conv_int8.cu, the s8
+   tensor-core conv) and its input quantize against their plain versions
+   at every int8-eligible conv shape (one group, C1 >= 16, not DFL) of
+   the flagship, yolov5s and C3CASPD2 at bs8 640 px, found by forward
+   hooks on the meta device, and at off-model shapes (C1 24, C2 45, k 5
+   with d 2, odd H and W, a 1x1 conv whose s32 sums sit above 2^24 at
+   double-rounding points): the quantized inputs, the s32 sums and the
+   dequantized outputs at f32 and bf16 must be equal; K4 timed at the
+   flagship's and yolov5s's bs128 step shapes (call, alone, the
+   quantize, cuDNN's bf16 conv and, for 1x1 convs, `torch._int_mm` on
+   the same product, the bounds at the int8 rate), count-weighted over a
+   step.  Then int8 serving as bench.py:188-270 times it: each model
+   calibrated on 8 random 640 px images at f32, bs128 bf16 on "matrix",
+   driven once counted (K4 and the quantize once an int8 conv, K3 once),
+   timed beside bf16 in turns and both steps profiled; the flagship's f32
+   int8 raw head on the card against the host CPU's (`INT8_HEAD_TOL`,
+   which the card's float head must fail).
+   Last, the tiny model trained as tests/test_int8_serve.py trains it
+   (256 px, 32 epochs, f32): int8 mAP@.5 within 0.05 of float at f32 and
+   bf16 (counted), and `cli.val --int8 --ncalib 8` on its checkpoint.
+   The CLI phase (12) runs its train recipe with `--ckpt-async`, holds
+   `results.csv`'s header to the JAX trainer's columns, and times one
+   epoch's save and train steps with synchronous and async saving.
+
 Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
 card's name and power limit from nvidia-smi; the last line is
@@ -262,7 +286,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12
 # f32 outside the tensor cores; "tf32x3": f32 products as three TF32
 # products each (K1's f32 route), a third of the dense TF32 rate
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 494.7e12 / 3, "int8": 1979e12}
 
 FLAGSHIP = "ablation-ca-scconv-sppfcspc"
 K1_SHAPES = [(8, 320, 320, 64, 64), (8, 80, 80, 128, 128),
@@ -274,6 +298,8 @@ K1_TOL = {"f32": 1e-4, "bf16": 2e-2}
 PROFILE_GROUPS = [
     ("nms_greedy (K2)", ("nms_greedy",)),
     ("nms_fixpoint (K3)", ("nms_fixpoint",)),
+    ("int8 conv (K4)", ("conv_int8_kernel",)),
+    ("int8 quantize (K4)", ("quantize_s8_kernel",)),
     ("conv and matmul (cuDNN, cuBLAS)", ("xmma", "fprop", "cutlass", "nvjet", "gemm", "conv")),
     ("top-k and sort", ("topk", "sort", "Radix", "radix")),
     # the broadcast bias add after each of the 120 folded convs
@@ -292,7 +318,9 @@ PROFILE_RANGES = [("attention matmuls and softmax", ("attention",)),
                   # which holds a depthwise conv
                   ("depthwise convs", ("depthwise conv",)),
                   ("GnConv", ("gnconv",)),
-                  ("HorBlock (GnConv included)", ("horblock",))]
+                  ("HorBlock (GnConv included)", ("horblock",)),
+                  # nn/primitives.py's Conv2d on the int8 path: K4 and the quantize
+                  ("int8 convs (K4 and its quantize)", ("int8 conv",))]
 # every record_function name of the port (nn/transformer.py, nn/primitives.py,
 # nn/hornet.py, train/step.py)
 RANGE_KEYS = {k for _, keys in PROFILE_RANGES for k in keys} | {"loss", "optimizer", "ema"}
@@ -3085,6 +3113,69 @@ class BatchClock:
         return sum(self.sizes[1:]) / (self.asked[-1] - self.asked[1])
 
 
+# the JAX trainer's results.csv columns, every epoch validated
+# (dmayolo_tpu/train/trainer.py: epoch, the step's metrics, the metrics of
+# the validation, time_s; the step's: loss and the loss items box, obj, cls)
+JAX_RESULTS_COLUMNS = ["epoch", "train/loss", "train/box", "train/obj", "train/cls",
+                       "metrics/precision", "metrics/recall", "metrics/mAP_0.5",
+                       "metrics/mAP_0.5:0.95", "fitness", "time_s"]
+ASYNC_ORDER = (False, True, True, False)  # epoch windows: sync, async, async, sync
+
+
+def async_save_cost(tr, device, imgsz, batch, nc, epoch_steps):
+    """What `--ckpt-async` gains end to end, on a trained recipe Trainer:
+    one epoch's wall time as the training thread sees it, a checkpoint
+    save and then the epoch's `epoch_steps` train steps (accumulate 1, one
+    batch of rectangles), in windows synchronous, async, async,
+    synchronous.  An async window ends when its write is on disk (the
+    next save would wait for it).  Each window keeps the time `_save`
+    holds the thread (the pull of the state, plus the f16 conversion and
+    the write when synchronous), its steps' ms and that wait."""
+    import torch
+
+    from dmayolo_tpu_torch.train.trainer import Trainer
+
+    step = Trainer.get_step(tr, 1)
+    images, targets = tr.to_device(train_batches(1, batch, imgsz, nc, 128, seed=31))
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run_step():
+        sync()
+        t0 = time.perf_counter()
+        step(tr.state, images, targets, gen)
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):  # built and tuned
+        run_step()
+    windows = []
+    for mode in ASYNC_ORDER:
+        tr.ckpt_async, tr._pulled = mode, None
+        sync()
+        t0 = time.perf_counter()
+        tr._save("save_probe", 0)
+        save_s = time.perf_counter() - t0
+        steps_ms = [run_step() for _ in range(epoch_steps)]
+        t1 = time.perf_counter()
+        if mode:
+            tr._async_ckptr.wait()
+        windows.append({"async": mode, "s": time.perf_counter() - t0, "save_s": save_s,
+                        "steps_ms": steps_ms, "wait_s": time.perf_counter() - t1})
+    (tr.out / "save_probe.npz").unlink()
+    out = {"epoch_steps": epoch_steps, "windows": windows}
+    for mode, name in ((False, "sync"), (True, "async")):
+        ws = [w for w in windows if w["async"] == mode]
+        out[f"epoch_s_{name}"] = sum(w["s"] for w in ws) / len(ws)
+        out[f"save_s_{name}"] = sum(w["save_s"] for w in ws) / len(ws)
+        out[f"steps_s_{name}"] = sum(sum(w["steps_ms"]) for w in ws) / len(ws) / 1e3
+    out["async_gain_s"] = out["epoch_s_sync"] - out["epoch_s_async"]
+    return out
+
+
 class Interrupted(Exception):
     """Stops the first CLI training run after its first epoch, as a kill
     between epochs would: last.npz keeps the optimizer state."""
@@ -3344,8 +3435,9 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
             log = tr._log_csv
 
             def log_then_stop(row):
+                epoch = row["epoch"]  # the logger takes it out of the row
                 log(row)
-                raise Interrupted(f"stopped after epoch {row['epoch']}")
+                raise Interrupted(f"stopped after epoch {epoch}")
 
             tr._log_csv = log_then_stop
         return tr
@@ -3362,9 +3454,12 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
                 "--hyp", "visdrone", "--fastload", "--device-aug", "--remat"]
 
     run_dir = CLI_DIR / "runs" / "flagship"
+    # --ckpt-async: the stopped run writes its checkpoints on a background
+    # thread, and the resumed one does too (the run's opt.yaml keeps it)
     argv = ["--cfg", cfg_arg, "--data", str(data_yaml), "--epochs", str(sizes["epochs"]),
             *recipe(sizes["train_batch"]), "--weights", str(data_dir / "start.npz"), "--project",
-            str(CLI_DIR / "runs"), "--name", "flagship", "--workers", str(workers), *dev]
+            str(CLI_DIR / "runs"), "--name", "flagship", "--workers", str(workers),
+            "--ckpt-async", *dev]
     cli_train._make_trainer, trainer_mod.run_validation = make, labelled
     try:
         t0 = time.perf_counter()
@@ -3402,6 +3497,14 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
     check(best == best_meta["best_fitness"] and best > 0,
           f"main's return is not best.npz's fitness: {best} vs {best_meta}")
     check(out["train"]["remat"], "--remat did not reach the Trainer's model")
+    header = (run_dir / "results.csv").read_text().splitlines()
+    out["train"]["results_csv"] = {"header": header[0].split(","), "rows": len(header) - 1}
+    check(header[0].split(",") == JAX_RESULTS_COLUMNS and len(header) == 3,
+          f"results.csv is not the JAX trainer's: {out['train']['results_csv']}")
+    check(first.ckpt_async and second.ckpt_async, "--ckpt-async did not reach both Trainers")
+    out["train"]["ckpt_async"] = async_save_cost(second, device, sizes["train_imgsz"],
+                                                 sizes["train_batch"], nc,
+                                                 n_train // sizes["train_batch"])
     print("cli train: " + json.dumps(out["train"]), flush=True)
     del first, second, trainers
     if on_card:
@@ -3605,6 +3708,15 @@ def print_cli(cp, smi):
           f"{tr['resume_s']:.1f} s at {tr.get('img_per_s_run2', float('nan')):.2f} img/s; "
           f"steps {tr['steps_first']} -> {tr['steps_after_resume']}; returned fitness "
           f"{tr['returned_fitness']:.5f} = best.npz's; on {smi}")
+    ca = tr["ckpt_async"]
+    waits = ", ".join(f"{w['wait_s']:.2f}" for w in ca["windows"] if w["async"])
+    print(f"cli train --ckpt-async, one epoch ({ca['epoch_steps']} steps) after a save, windows "
+          f"sync/async/async/sync: {ca['epoch_s_sync']:.2f} s synchronous, "
+          f"{ca['epoch_s_async']:.2f} s async (gain {ca['async_gain_s']:.2f} s); _save holds "
+          f"the thread {ca['save_s_sync']:.2f} s / {ca['save_s_async']:.2f} s; the steps "
+          f"{ca['steps_s_sync']:.2f} s / {ca['steps_s_async']:.2f} s; the write's wait after "
+          f"them {waits} s; "
+          f"results.csv header = the JAX trainer's, {tr['results_csv']['rows']} rows; on {smi}")
     rm = cp["remat"]
     print(f"cli remat {rm['imgsz']}px bs{rm['batch']} {rm['dtype']}: peak "
           f"{rm.get('peak_gib', float('nan')):.2f} GiB plain, "
@@ -4312,6 +4424,537 @@ def print_tools(jp, tp, smi):
           f"{tp['s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# int8 PTQ serving and eval: K4 (conv_int8) and its input quantize
+# ---------------------------------------------------------------------------
+
+INT8_CHECKED = (FLAGSHIP, "yolov5s", "C3CASPD2")  # every eligible shape held at bs8
+INT8_SERVED = (FLAGSHIP, "yolov5s")  # served at bs128 (bench.py:188-270), timed at their shapes
+# off-model K4 cases (B, H, W, C1, C2, k, s, p, d): C1 24 (a padded channel
+# tail), C2 45, k 5 with d 2, odd H and W, C2 past one 128-channel tile
+INT8_OFF_MODEL = [(2, 37, 53, 24, 45, 3, 1, 1, 1), (1, 21, 19, 32, 60, 5, 1, 4, 2),
+                  (3, 17, 15, 16, 200, 3, 2, 1, 1), (2, 11, 13, 48, 8, 1, 1, 0, 1),
+                  (1, 29, 31, 64, 130, 1, 1, 0, 1)]
+INT8_CAL_IMAGES = 8  # random 640 px calibration images, as bench.py calibrates
+# f32 int8 head, card vs CPU (equal to the bit on an H100): room for a
+# flip, and none for a float head (off at ~all values; int8_head_vs_cpu)
+INT8_HEAD_TOL = dict(close=1e-6, share=0.01, worst=0.005)
+INT8_HEAD_IMGSZ = 128
+INT8_MAP_TOL = 0.05  # |int8 - float| mAP@.5 of the trained tiny model (tests/test_int8_serve.py)
+INT8_MAP_FLOOR = 0.15
+INT8_DIR = ROOT / "build" / "int8_smoke"
+# tests/test_e2e_train.py's tiny model and hyp, trained as tests/test_int8_serve.py:21-32
+TINY_CFG = {"nc": 3, "depth_multiple": 0.33, "width_multiple": 0.25,
+            "anchors": [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119],
+                        [116, 90, 156, 198, 373, 326]],
+            "backbone": [[-1, 1, "Conv", [64, 6, 2, 2]], [-1, 1, "Conv", [128, 3, 2]],
+                         [-1, 2, "C3", [128]], [-1, 1, "Conv", [256, 3, 2]],
+                         [-1, 2, "C3", [256]], [-1, 1, "Conv", [512, 3, 2]],
+                         [-1, 1, "C3", [512]], [-1, 1, "SPPF", [512, 5]]],
+            "head": [[[4, 6, 7], 1, "Detect", ["nc", "anchors"]]]}
+TINY_HYP = {"lr0": 0.01, "lrf": 0.1, "momentum": 0.937, "weight_decay": 0.0005,
+            "warmup_epochs": 0.5, "warmup_momentum": 0.8, "warmup_bias_lr": 0.1,
+            "box": 0.05, "cls": 0.5, "cls_pw": 1.0, "obj": 1.0, "obj_pw": 1.0,
+            "anchor_t": 4.0, "fl_gamma": 0.0, "label_smoothing": 0.0,
+            "hsv_h": 0.015, "hsv_s": 0.5, "hsv_v": 0.3, "degrees": 0.0, "translate": 0.1,
+            "scale": 0.3, "shear": 0.0, "perspective": 0.0, "flipud": 0.0, "fliplr": 0.5,
+            "mosaic": 0.5, "mixup": 0.0}
+INT8_TINY = dict(img_size=256, n_train=48, n_val=24, epochs=32, batch=8, warmup_min_iters=60,
+                 ncalib=8)
+INT8 = dict(imgsz=640, check_batch=8, step_batch=128, serve_batch=128, tiny=INT8_TINY)
+
+
+def int8_sites(cfg, imgsz=640, nc=10):
+    """{(H, W, C1, C2, k, s, p, d): count} of a model's int8-eligible convs
+    (`nn/quant.py`) in one forward at `imgsz`, read by forward hooks on the
+    meta device (no weights, no card)."""
+    import collections
+
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.nn.quant import eligible_conv_paths
+
+    model = DetectionModel(cfg, nc=nc, device="meta")
+    sites = collections.Counter()
+
+    def hook(conv, args, _):
+        _, c, h, w = args[0].shape
+        sites[(h, w, c, conv.c2, conv.k[0], conv.s[0], conv.p[0], conv.d[0])] += 1
+
+    handles = [m.register_forward_hook(hook) for m in eligible_conv_paths(model).values()]
+    try:
+        model.apply(torch.empty(1, imgsz, imgsz, 3, device="meta"))
+    finally:
+        for h in handles:
+            h.remove()
+    return dict(sorted(sites.items(), key=lambda kv: (-kv[0][0], kv[0][2], kv[0][3])))
+
+
+def int8_bytes_ops(b, h, w, c1, c2, k, s, p, d):
+    """K4's least traffic (s8 input and weights read once, bf16 output
+    written once, the f32 scale and bias) and its operations (2 a
+    multiply-add, the real C1, not the padded one), and the quantize's
+    (bf16 in, s8 out; one multiply, round and clip a value)."""
+    from dmayolo_tpu_torch.nn.conv_int8 import out_size
+
+    ho, wo = out_size(h, k, s, p, d), out_size(w, k, s, p, d)
+    conv = (b * h * w * c1 + c2 * k * k * c1 + b * ho * wo * c2 * 2 + 2 * c2 * 4,
+            2 * b * ho * wo * c2 * k * k * c1)
+    return conv, (b * h * w * c1 * 3, 3 * b * h * w * c1)
+
+
+def tie_case(device):
+    """A 1x1 conv (C1 2112 -> 8) whose s32 sums sit above 2^24 at the
+    points where s32 -> f32 -> bf16 rounds twice: integer x at s_x 1 and
+    integer weights of max 127 quantize to themselves, and channel 0's sum
+    is 127 * (the sum of x but the last) + the last x (as the CPU test
+    builds it)."""
+    import torch
+
+    c1, c2 = 2112, 8
+    targets = [2 ** 24 + 2 ** 16 + 1, 2 ** 24 + 2 ** 16 - 1, 2 ** 24 + 2 ** 16 + 3,
+               2 ** 25 + 2 ** 17 + 1, 2 ** 25 + 2 ** 17 + 2, 2 ** 24 + 1, 2 ** 24 + 3,
+               2 ** 25 + 3, 2 ** 25 + 2, 33_000_001, 20_000_001, 2 ** 24 + 2 ** 17 + 2 ** 16 + 1]
+    targets += [-t for t in targets[:4]]
+    x = torch.zeros(1, 4, 4, c1)
+    for i, t in enumerate(targets):
+        s, last = divmod(abs(t), 127)
+        full, rest = divmod(s, 127)
+        row = torch.zeros(c1)
+        row[:full], row[full], row[-1] = 127, rest, last
+        x[0, i // 4, i % 4] = row if t > 0 else -row
+    w = torch.full((c2, c1, 1, 1), 127.0)
+    w[:, -1, 0, 0] = torch.arange(1, c2 + 1, dtype=torch.float32)
+    return x.to(device), w, torch.linspace(-3, 3, c2), 1.0
+
+
+def check_int8_case(device, x, w, bias, s_x, s, p, d, timed=False, iters=10):
+    """K4 and the quantize against their plain versions on one input: the
+    quantized input from bf16 and f32, the s32 sums, and the dequantized
+    output at f32 and bf16 must be equal.  `timed`: the bf16 call and
+    kernel alone (CUDA-graph replay), the plain version, the quantize
+    and its plain version.  `max_abs_err`: the largest |K4 - plain| over
+    the sums and the outputs; `quantize_max_abs_err`, the quantize's."""
+    import torch
+
+    from dmayolo_tpu_torch.nn.conv_int8 import (conv_int8, conv_int8_plain, dequant_params,
+                                                prepare_weight, quantize_s8, quantize_s8_plain,
+                                                reciprocal_f32)
+
+    inv = reciprocal_f32(s_x)
+    wq, s_w = prepare_weight(w.to(device))
+    c1p = wq.shape[3]
+    xq, q_err = {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        xq[dt] = quantize_s8(xd, inv, c1p)
+        q_plain = quantize_s8_plain(xd, inv, c1p)
+        q_err = max(q_err, int((xq[dt].short() - q_plain.short()).abs().max()))
+        check(torch.equal(xq[dt], q_plain),
+              f"quantize_s8 differs from its plain version from {dt} at {tuple(x.shape)}")
+    xq = xq[torch.bfloat16]
+    geo = ((s, s), (p, p), (d, d))
+    acc = conv_int8(xq, wq, None, None, *geo, torch.int32)
+    acc_plain = conv_int8_plain(xq, wq, None, None, *geo, torch.int32)
+    check(torch.equal(acc, acc_plain),
+          f"K4's s32 sums differ from the plain version's at {tuple(x.shape)} -> "
+          f"{tuple(acc.shape)}: max {int((acc - acc_plain).abs().max())}")
+    row = {"max_abs_sum": int(acc_plain.abs().max()), "sums_over_2_24": int(
+        (acc_plain.abs() > 2 ** 24).sum()), "max_abs_err": float((acc - acc_plain).abs().max()),
+        "quantize_max_abs_err": float(q_err)}
+    for dt in (torch.float32, torch.bfloat16):
+        scale, b = dequant_params(s_x, s_w, bias.to(device), dt)
+        y = conv_int8(xq, wq, scale, b, *geo, dt)
+        y_plain = conv_int8_plain(xq, wq, scale, b, *geo, dt)
+        err = float((y.float() - y_plain.float()).abs().max())
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        check(y.dtype == dt and torch.equal(y, y_plain),
+              f"K4's {dt} output differs from the plain version's at {tuple(x.shape)}: max {err}")
+    if timed and device.type == "cuda":
+        scale, b = dequant_params(s_x, s_w, bias.to(device), torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        call = lambda: conv_int8(xq, wq, scale, b, *geo, torch.bfloat16)  # noqa: E731
+        row.update(ms=cuda_ms(call, iters), kernel_ms=graph_ms(call, iters),
+                   plain_ms=cuda_ms(lambda: conv_int8_plain(xq, wq, scale, b, *geo,
+                                                            torch.bfloat16), 2),
+                   quantize_ms=cuda_ms(lambda: quantize_s8(xb, inv, c1p), iters),
+                   quantize_plain_ms=cuda_ms(lambda: quantize_s8_plain(xb, inv, c1p), iters))
+    return row
+
+
+def check_int8_shapes(device, sites, batch=8, timed=False, seed=0):
+    """`check_int8_case` at each eligible shape of `sites` at `batch`,
+    random inputs and weights from a seed; with `timed`, the sums over the
+    shapes (each once) and their bounds."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    rows = []
+    for (h, w, c1, c2, k, s, p, d), count in sites.items():
+        x = (torch.randn(batch, h, w, c1, generator=g) * 2).to(device)
+        wt = torch.randn(c2, c1, k, k, generator=g) * (k * k * c1) ** -0.5
+        bias = torch.randn(c2, generator=g)
+        row = {"shape": [batch, h, w, c1, c2, k, s, p, d], "count": count,
+               **check_int8_case(device, x, wt, bias, float(x.abs().max()) / 127.0, s, p, d,
+                                 timed=timed)}
+        (row["bytes"], row["ops"]), (row["quantize_bytes"], row["quantize_ops"]) = \
+            int8_bytes_ops(batch, h, w, c1, c2, k, s, p, d)
+        rows.append(row)
+        del x
+    out = {"batch": batch, "shapes": rows,
+           **{k: max(r[k] for r in rows) for k in ("max_abs_err", "quantize_max_abs_err")}}
+    if timed and device.type == "cuda":
+        for key in ("ms", "kernel_ms", "plain_ms", "quantize_ms", "quantize_plain_ms", "bytes",
+                    "ops", "quantize_bytes", "quantize_ops"):
+            out[key] = sum(r[key] for r in rows)
+        out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"], "int8")
+        out["quantize_bound_ms"], out["quantize_bound_by"] = bound(
+            out["quantize_bytes"], out["quantize_ops"], "bf16")
+    return out
+
+
+def time_int8_step(device, sites, batch=128, iters=10, seed=0):
+    """K4 at each eligible shape of one step at `batch`, in bf16: the call
+    and the kernel alone (CUDA-graph replay), the quantize, cuDNN's bf16
+    `F.conv2d` on the same shape (channels_last, the context), and for
+    the 1x1 convs `torch._int_mm` on the same s8 product (where its shape
+    rules allow: C2 a multiple of 8); the bounds at the int8 rate; and the
+    sums over the step's convs, each shape weighted by its count."""
+    import torch
+    import torch.nn.functional as F
+
+    from dmayolo_tpu_torch.nn.conv_int8 import conv_int8, padded_channels, quantize_s8
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = []
+    for (h, w, c1, c2, k, s, p, d), count in sites.items():
+        c1p = padded_channels(c1)
+        xb = torch.randn(batch, h, w, c1, device=device, generator=g).to(torch.bfloat16)
+        xq = torch.randint(-127, 128, (batch, h, w, c1p), device=device, generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (c2, k, k, c1p), device=device, generator=g,
+                           dtype=torch.int8)
+        scale = torch.rand(c2, device=device, generator=g).to(torch.bfloat16)
+        bias = torch.rand(c2, device=device, generator=g).to(torch.bfloat16)
+        geo = ((s, s), (p, p), (d, d))
+        call = lambda: conv_int8(xq, wq, scale, bias, *geo, torch.bfloat16)  # noqa: E731
+        (nbytes, ops), (qbytes, qops) = int8_bytes_ops(batch, h, w, c1, c2, k, s, p, d)
+        row = {"shape": [batch, h, w, c1, c2, k, s, p, d], "count": count,
+               "ms": cuda_ms(call, iters), "kernel_ms": graph_ms(call, iters),
+               "quantize_ms": graph_ms(lambda: quantize_s8(xb, 0.5, c1p), iters),
+               "bytes": nbytes, "ops": ops}
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "int8")
+        row["quantize_bound_ms"], _ = bound(qbytes, qops, "bf16")
+        xn = xb.permute(0, 3, 1, 2)  # channels_last view for cuDNN
+        wn = torch.randn(c2, c1, k, k, device=device, generator=g).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        row["cudnn_bf16_ms"] = cuda_ms(lambda: F.conv2d(xn, wn, None, s, p, d), iters)
+        row["int_mm_ms"] = None
+        if k == 1 and s == 1 and p == 0 and c2 % 8 == 0:
+            a, bt = xq.view(-1, c1p), wq.view(c2, c1p).t()
+            sums = conv_int8(xq, wq, None, None, *geo, torch.int32).view(-1, c2)
+            check(torch.equal(torch._int_mm(a[:64], bt), sums[:64]),
+                  f"_int_mm and K4 disagree at {row['shape']}")
+            del sums
+            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, bt), iters)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        del xb, xq, wq, xn, wn
+    weighted = lambda key, rs=rows: sum(r["count"] * r[key] for r in rs)  # noqa: E731
+    ones = [r for r in rows if r["int_mm_ms"] is not None]
+    out = {"batch": batch, "convs": sum(sites.values()), "shapes": rows,
+           **{f"step_{key}": weighted(key) for key in ("ms", "kernel_ms", "quantize_ms",
+                                                       "cudnn_bf16_ms", "bytes", "ops")},
+           "step_1x1_convs": sum(r["count"] for r in ones),
+           "step_1x1_kernel_ms": weighted("kernel_ms", ones),
+           "step_1x1_int_mm_ms": weighted("int_mm_ms", ones)}
+    out["step_bound_ms"], out["step_bound_by"] = bound(out["step_bytes"], out["step_ops"], "int8")
+    return out
+
+
+def int8_serving(device, cfg, name, counters, batch=128, imgsz=640, nc=10, head_check=False):
+    """int8 serving as bench.py:188-270 times it: the model (seeded, head
+    priors, BN calibrated) folded, int8 input scales calibrated on
+    `INT8_CAL_IMAGES` random 640 px images at f32, then uint8 in, bf16,
+    conf 0.25, IoU 0.45, max_nms 512 on "matrix", (B, 300, 6) out.  The
+    int8 step is driven once with the counters zeroed before and read
+    after (K4 and the quantize once an eligible conv, K3 once), timed
+    beside the bf16 step in turns (bf16, int8, int8, bf16), and profiled
+    by group.  With `head_check`, the f32 int8 raw head on the card
+    against the host CPU's (the plain versions) at `INT8_HEAD_IMGSZ`."""
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.nn.quant import calibrate_act_scales, quant_coverage
+
+    t0 = time.perf_counter()
+    model = build_model(device, imgsz, cfg=cfg, nc=nc).fuse()
+    rng = np.random.default_rng(8)
+    cal = [rng.integers(0, 256, (INT8_CAL_IMAGES, imgsz, imgsz, 3), dtype=np.uint8)]
+    t1 = time.perf_counter()
+    scales = calibrate_act_scales(model, cal, dtype=torch.float32)
+    out = {"model": name, "coverage": quant_coverage(model, scales), "int8_convs": len(scales),
+           "calibration_s": time.perf_counter() - t1, "build_s": t1 - t0}
+    bf16 = torch.bfloat16
+    xb = torch.from_numpy(rng.integers(0, 256, (batch, imgsz, imgsz, 3),
+                                       dtype=np.uint8)).to(device)
+
+    def step(quant):
+        with torch.inference_mode():
+            raw = model.apply(xb.to(bf16) / 255.0, bf16, fused=True, quant=quant)
+            return model.serve_detections(raw, conf_thres=0.25, iou_thres=0.45, max_det=300,
+                                          max_nms=512, backend="matrix")
+
+    for c in counters:
+        c.launches = 0
+    d, v = step(scales)
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    check(d.shape == (batch, 300, 6) and bool(torch.isfinite(d).all()),
+          f"bad int8 serving output ({name})")
+    with torch.inference_mode():  # the int8 raw head beside the bf16 one
+        x1 = xb[:INT8_CAL_IMAGES].to(bf16) / 255.0
+        r8 = model.apply(x1, bf16, fused=True, quant=scales)
+        rf = model.apply(x1, bf16, fused=True)
+    out["int8_vs_bf16_head"] = max(float((a.float() - b.float()).abs().max()) for a, b in
+                                   zip(r8, rf)) / max(float(b.float().abs().max()) for b in rf)
+    if head_check:
+        out["head"] = int8_head_vs_cpu(model, scales, device)
+    if device.type == "cuda":
+        steps = {"bf16": lambda: step(None), "int8": lambda: step(scales)}
+        windows = {k: [] for k in steps}
+        for k in ("bf16", "int8", "int8", "bf16"):
+            windows[k].append({"ms": cuda_ms(steps[k], 5, warmup=2), "card": card_state()})
+        for k, ws in windows.items():
+            ms = sum(w["ms"] for w in ws) / len(ws)
+            out[k] = {"ms": ms, "img_per_s": batch / ms * 1e3, "windows": ws}
+        for k, st in steps.items():
+            out[k]["profile"] = profile_step(st)
+    del model, xb
+    return out
+
+
+def int8_head_vs_cpu(model, scales, device, seed=9):
+    """The f32 int8 raw head of `model` on the card (K4, the quantize
+    kernel) against the host CPU's (their plain versions) on one
+    `INT8_HEAD_IMGSZ` image: the share of values off by more than
+    `close` of the head's spread, and the largest difference, within
+    `INT8_HEAD_TOL` (a float conv that differs in its last bits may move
+    an activation across a quantize rounding boundary).  The card's f32
+    float head, held to the CPU's int8 head the same way, must fall
+    outside it: the bound tells an int8 head from a float one."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(1, INT8_HEAD_IMGSZ, INT8_HEAD_IMGSZ, 3,
+                   generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        got = [r.float().cpu() for r in model.apply(x.to(device), fused=True, quant=scales)]
+        got_float = [r.float().cpu() for r in model.apply(x.to(device), fused=True)]
+        model.to("cpu")
+        want = [r.float() for r in model.apply(x, fused=True, quant=scales)]
+        model.to(device)
+    spread = max(float(w.abs().max()) for w in want)
+    tol = INT8_HEAD_TOL
+
+    def off(heads):
+        err = torch.cat([((g - w).abs() / spread).flatten() for g, w in zip(heads, want)])
+        share, worst = float((err > tol["close"]).float().mean()), float(err.max())
+        return share, worst, share <= tol["share"] and worst <= tol["worst"]
+
+    (share, worst, ok), (fshare, fworst, fok) = off(got), off(got_float)
+    out = {"imgsz": INT8_HEAD_IMGSZ, "share_off": share, "max_err": worst, "tol": tol,
+           "float_head_share_off": fshare, "float_head_max_err": fworst}
+    check(ok, f"the f32 int8 raw head on the card differs from the CPU's: {out}")
+    check(not fok, f"INT8_HEAD_TOL passes the card's float head too: {out}")
+    return out
+
+
+def int8_tiny(device, counters, sizes=INT8_TINY):
+    """The tiny model trained as tests/test_int8_serve.py trains it (48 + 24
+    synthetic images at 256 px, 32 epochs, f32), then its EMA folded and
+    calibrated on 16 train images: `run_validation` float and int8 at f32
+    and at bf16 (|int8 - float| mAP@.5 within `INT8_MAP_TOL`, float above
+    `INT8_MAP_FLOOR`; the int8 runs counted), and `cli.val --int8 --ncalib
+    8` on its checkpoint, its calibration line kept."""
+    import copy
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.cli import val as cli_val
+    from dmayolo_tpu_torch.data.datasets import _scan_images, check_dataset
+    from dmayolo_tpu_torch.data.imageio import imread
+    from dmayolo_tpu_torch.data.letterbox import letterbox_host
+    from dmayolo_tpu_torch.data.synthetic import generate
+    from dmayolo_tpu_torch.eval.validator import run_validation
+    from dmayolo_tpu_torch.nn.quant import calibrate_act_scales
+    from dmayolo_tpu_torch.train.trainer import Trainer
+    from dmayolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from dmayolo_tpu_torch.utils.weights import jax_from_state_dict
+
+    shutil.rmtree(INT8_DIR, ignore_errors=True)
+    sz = sizes["img_size"]
+    t0 = time.perf_counter()
+    data = generate(INT8_DIR / "shapes", n_train=sizes["n_train"], n_val=sizes["n_val"],
+                    img_size=sz, seed=2)
+    tr = Trainer(TINY_CFG, data=str(data), hyp=TINY_HYP, epochs=sizes["epochs"],
+                 batch_size=sizes["batch"], img_size=sz, out_dir=str(INT8_DIR / "exp"),
+                 dtype=torch.float32, workers=2, max_targets=32, val_interval=100, seed=0,
+                 accumulate=1, device=device)
+    # tests/test_int8_serve.py's warmup_min_iters=60 (the Trainer keeps 1000)
+    tr.sched.nw = max(round(TINY_HYP["warmup_epochs"] * tr.sched.spe), sizes["warmup_min_iters"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr.train(log_every=1000)
+    out = {"train_s": time.perf_counter() - t0}
+    model = copy.deepcopy(tr.state.ema).fuse()
+    d = check_dataset(str(data))
+    imgs = [letterbox_host(imread(f), sz, auto=False)[0][..., ::-1]
+            for f in _scan_images(d["train"])[:16]]
+    scales = calibrate_act_scales(model, [np.stack(imgs)])
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        kw = dict(img_size=sz, batch_size=8, nc=3, dtype=dt, fused=True, max_targets=64,
+                  device=device)
+        r_float = run_validation(model, d["val"], **kw)
+        for c in counters:
+            c.launches = 0
+        r_int8 = run_validation(model, d["val"], quant=scales, **kw)
+        out[name] = {"float_map50": r_float.map50, "int8_map50": r_int8.map50,
+                     "launches": {c.__name__: c.launches for c in counters}}
+        check(r_float.map50 > INT8_MAP_FLOOR,
+              f"the tiny model is undertrained at {name}: {r_float.summary()}")
+        check(abs(r_float.map50 - r_int8.map50) < INT8_MAP_TOL,
+              f"int8 mAP@.5 moved by more than {INT8_MAP_TOL} at {name}: "
+              f"{r_float.map50} -> {r_int8.map50}")
+    params, stats = jax_from_state_dict(tr.state.ema)
+    save_checkpoint(INT8_DIR / "trained", params=params, stats=stats, meta={})
+    (INT8_DIR / "tiny.yaml").write_text(json.dumps(TINY_CFG))  # JSON is YAML
+    printed = io.StringIO()
+    for c in counters:
+        c.launches = 0
+    with contextlib.redirect_stdout(printed):
+        res = cli_val.main(["--weights", str(INT8_DIR / "trained.npz"), "--cfg",
+                            str(INT8_DIR / "tiny.yaml"), "--data", str(data), "--img", str(sz),
+                            "--batch-size", "8", "--fp32", "--int8", "--ncalib",
+                            str(sizes["ncalib"]), "--project", str(INT8_DIR / "val"), "--name",
+                            "exp", "--exist-ok", *([] if device.type == "cuda" else
+                                                   ["--device", "cpu"])])
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("int8 calibration:")]
+    out["cli_val"] = {"calibration": lines, "map50": res.map50,
+                      "launches": {c.__name__: c.launches for c in counters}}
+    check(lines == [f"int8 calibration: {sizes['ncalib']} images, int8 convs: 23/24"],
+          f"cli.val --int8 printed {lines}")
+    check(abs(res.map50 - out["f32"]["float_map50"]) < INT8_MAP_TOL,
+          f"cli.val --int8 mAP@.5 {res.map50} against float {out['f32']['float_map50']}")
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
+    """K4 and its quantize against their plain versions at every eligible
+    shape of the flagship, yolov5s and C3CASPD2 at bs8 640 px and off the
+    models; K4 timed at the served models' bs128 step shapes; int8 serving
+    of the flagship and yolov5s at bs128 beside bf16; the trained tiny
+    model's int8 mAP at f32 and bf16 and `cli.val --int8`.  `cfgs` and
+    `sizes` replace the yamls and the sizes for a rehearsal on the CPU
+    (untimed there)."""
+    import shutil
+
+    import torch
+
+    from dmayolo_tpu_torch.graph import model_config
+
+    t0 = time.perf_counter()
+    cfgs = cfgs or {name: model_config(name) for name in INT8_CHECKED}
+    on_card = device.type == "cuda"
+    out = {"sites": {}}
+    sites = {name: int8_sites(cfgs[name], sizes["imgsz"]) for name in INT8_CHECKED}
+    for name, s in sites.items():
+        out["sites"][name] = {"convs": sum(s.values()), "shapes": len(s)}
+    union = {}
+    for name in INT8_CHECKED[1:]:
+        for key, n in sites[name].items():
+            if key not in sites[FLAGSHIP]:
+                union[key] = union.get(key, 0) + n
+    out["check_flagship"] = check_int8_shapes(device, sites[FLAGSHIP], sizes["check_batch"],
+                                              timed=True)
+    out["check_others"] = check_int8_shapes(device, union, sizes["check_batch"], seed=1)
+    off = [check_int8_case(device, torch.randn(b, h, w, c1, generator=torch.Generator()
+                                               .manual_seed(i)).to(device) * 3,
+                           torch.randn(c2, c1, k, k, generator=torch.Generator().manual_seed(i))
+                           * (k * k * c1) ** -0.5, torch.randn(c2), 3.0 * 3 / 127, s, p, d)
+           for i, (b, h, w, c1, c2, k, s, p, d) in enumerate(INT8_OFF_MODEL)]
+    x, w, bias, s_x = tie_case(device)
+    tie = check_int8_case(device, x, w, bias, s_x, 1, 0, 1)
+    check(tie["sums_over_2_24"] >= 16 * 8, f"the tie case's sums are not above 2^24: {tie}")
+    out["off_model"] = off + [tie]
+    out["checked_shapes"] = (len(out["check_flagship"]["shapes"])
+                             + len(out["check_others"]["shapes"]) + len(out["off_model"]))
+    for key in ("max_abs_err", "quantize_max_abs_err"):  # over every checked shape
+        out[key] = max(out["check_flagship"][key], out["check_others"][key],
+                       *(r[key] for r in out["off_model"]))
+    print(f"K4 conv_int8: s32 sums and f32/bf16 outputs equal to the plain version at "
+          f"{out['checked_shapes']} shapes ({', '.join(f'{n} {v}' for n, v in out['sites'].items())}; "
+          f"off-model {len(out['off_model'])}, one with sums above 2^24)", flush=True)
+    out["step"] = ({name: time_int8_step(device, sites[name], sizes["step_batch"])
+                    for name in INT8_SERVED} if on_card else {})
+    for name, st in out["step"].items():
+        print(f"K4 over {name}'s {st['convs']} int8 convs at bs{st['batch']} 640px "
+              f"({len(st['shapes'])} shapes, count-weighted): call {st['step_ms']:.3f} ms, "
+              f"kernel {st['step_kernel_ms']:.3f} ms, quantize {st['step_quantize_ms']:.3f} ms; "
+              f"cuDNN bf16 {st['step_cudnn_bf16_ms']:.3f} ms; bound {st['step_bound_ms']:.3f} ms "
+              f"({st['step_bound_by']}); 1x1 convs ({st['step_1x1_convs']}): K4 "
+              f"{st['step_1x1_kernel_ms']:.3f} ms, _int_mm {st['step_1x1_int_mm_ms']:.3f} ms; "
+              f"on {smi}", flush=True)
+    out["serving"] = {name: int8_serving(device, cfgs[name], name, counters, sizes["serve_batch"],
+                                         sizes["imgsz"], head_check=name == FLAGSHIP)
+                      for name in INT8_SERVED}
+    for name, sv in out["serving"].items():
+        check(not on_card or sv["launches"]["conv_int8"] == sv["int8_convs"]
+              == sv["launches"]["quantize_s8"] and sv["launches"]["fixpoint_keep"] == 1,
+              f"the int8 serving step of {name} did not launch K4 once an int8 conv: "
+              f"{sv['launches']} for {sv['int8_convs']} convs")
+        if "int8" in sv:
+            pi, pb = sv["int8"]["profile"], sv["bf16"]["profile"]
+            conv, quant = (pi["groups_ms"].get(g, 0.0) for g in ("int8 conv (K4)",
+                                                                 "int8 quantize (K4)"))
+            print(f"int8 serving {name} bs128 640px bf16 'matrix': {sv['int8']['img_per_s']:.1f} "
+                  f"img/s ({sv['int8']['ms']:.2f} ms/batch) against bf16 "
+                  f"{sv['bf16']['img_per_s']:.1f} img/s ({sv['bf16']['ms']:.2f} ms/batch); "
+                  f"{sv['coverage']}; int8 step device ms: int8 conv {conv:.2f}, quantize "
+                  f"{quant:.2f}, other {pi['device_ms'] - conv - quant:.2f} (busy "
+                  f"{pi['device_busy_share']:.3f}); bf16 step: convs "
+                  f"{pb['groups_ms'].get('conv and matmul (cuDNN, cuBLAS)', 0.0):.2f} of "
+                  f"{pb['device_ms']:.2f} (busy {pb['device_busy_share']:.3f}); on {smi}",
+                  flush=True)
+        if "head" in sv:
+            hd = sv["head"]
+            print(f"int8 raw head of {name} at f32 {hd['imgsz']} px, card vs CPU: "
+                  f"{hd['share_off']:.4f} of values off by more than {hd['tol']['close']:g} of "
+                  f"the spread, max {hd['max_err']:.2e} (tol {hd['tol']}); the card's float "
+                  f"head: {hd['float_head_share_off']:.4f}, max {hd['float_head_max_err']:.2e}",
+                  flush=True)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["tiny"] = tiny = int8_tiny(device, counters, sizes["tiny"])
+    for name in ("f32", "bf16"):
+        check(not on_card or tiny[name]["launches"]["conv_int8"] > 0,
+              f"int8 eval at {name} did not launch K4: {tiny[name]['launches']}")
+    check(not on_card or tiny["cli_val"]["launches"]["conv_int8"] > 0,
+          "cli.val --int8 did not launch K4")
+    print(f"int8 tiny model: mAP@.5 float / int8 at f32 {tiny['f32']['float_map50']:.4f} / "
+          f"{tiny['f32']['int8_map50']:.4f}, at bf16 {tiny['bf16']['float_map50']:.4f} / "
+          f"{tiny['bf16']['int8_map50']:.4f}; cli.val --int8: {tiny['cli_val']['calibration'][0]}, "
+          f"mAP@.5 {tiny['cli_val']['map50']:.4f}; trained in {tiny['train_s']:.1f} s", flush=True)
+    shutil.rmtree(INT8_DIR, ignore_errors=True)
+    out["s"] = time.perf_counter() - t0
+    print(f"int8 phase: {out['s']:.1f} s", flush=True)
+    return out
+
+
+
 def main():
     import torch
 
@@ -4322,6 +4965,7 @@ def main():
     from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep, fixpoint_keep_blocked
     from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_stream
     from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
+    from dmayolo_tpu_torch.nn.conv_int8 import conv_int8, quantize_s8
     from dmayolo_tpu_torch.utils import cuda_build
 
     t_start = time.perf_counter()
@@ -4387,7 +5031,7 @@ def main():
     phases["K1 checks"] = time.perf_counter() - t0
     stream_cluster = Counter(nms_greedy_stream, "cluster_launches", "nms_greedy_stream_cluster")
     counters = (nms_greedy, nms_greedy_stream, stream_cluster, fixpoint_keep,
-                fixpoint_keep_blocked, conv3x3_s1)
+                fixpoint_keep_blocked, conv3x3_s1, conv_int8, quantize_s8)
     t_phase = t0 = time.perf_counter()
     model = build_model(device)
     report["model_build_s"] = time.perf_counter() - t0
@@ -4440,6 +5084,10 @@ def main():
     print_train("train", tr, smi)
 
     phases["flagship: train"] = time.perf_counter() - t0
+
+    # ---- int8 PTQ: K4 at every eligible shape, int8 serving, the tiny model
+    report["int8"] = i8 = int8_phase(device, counters, smi)
+    phases["int8"] = i8["s"]
 
     # ---- the SPD-Conv family: both models served, evaluated and trained
     t0 = time.perf_counter()
@@ -4554,8 +5202,12 @@ def main():
                   "tools hub": tp["hub"]["launches"], "tools rest batched": tp["rest"]["launches"],
                   "tools detect for wbf": tp["wbf"]["second_launches"]})
 
+    paths.update({f"int8 serving {name}": r["launches"] for name, r in i8["serving"].items()})
+    paths.update({f"int8 eval tiny {dt}": i8["tiny"][dt]["launches"] for dt in ("f32", "bf16")})
+    paths["int8 cli val tiny"] = i8["tiny"]["cli_val"]["launches"]
+
     def launches(counter):
-        by_path = {p: n[counter.__name__] for p, n in paths.items() if n[counter.__name__]}
+        by_path = {p: n[counter.__name__] for p, n in paths.items() if n.get(counter.__name__)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def timed(res):
@@ -4610,6 +5262,33 @@ def main():
                                                  "step_library_ms", "step_bound_ms")},
          "spd_bs128": k1_spd,
          "flagship_f32_b2_max_scaled_err": k1f32["max_scaled_err"]},
+    ]
+    i8c = i8["check_flagship"]
+    step_keys = ("convs", "step_ms", "step_kernel_ms", "step_quantize_ms", "step_cudnn_bf16_ms",
+                 "step_bound_ms", "step_bound_by", "step_1x1_convs", "step_1x1_kernel_ms",
+                 "step_1x1_int_mm_ms")
+    kernels += [
+        # headline: the flagship's eligible shapes at bs8, each once (the
+        # checked set, where the plain version runs too); the bs128 step
+        # count-weighted beside it.  No PyTorch call computes an int8 conv
+        # on CUDA (_int_mm: the 1x1 products only, in the step sums).
+        {"name": "conv_int8", "route": "cuda",
+         "design": "implicit GEMM on mma.sync m16n8k32 s8, cp.async 4 stages, dequant epilogue",
+         "source": "dmayolo_tpu_torch/csrc/conv_int8.cu",
+         "replaces": "dmayolo_tpu/nn/primitives.py:134 (an XLA int8 conv; no TPU kernel)",
+         **launches(conv_int8), "max_abs_err": i8["max_abs_err"],
+         **{k: i8c[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "shapes": f"{FLAGSHIP} eligible, bs{i8c['batch']}, each once",
+         "checked_shapes": i8["checked_shapes"],
+         **{f"{name}_bs128": {k: st[k] for k in step_keys} for name, st in i8["step"].items()}},
+        {"name": "quantize_s8", "route": "cuda", "design": "one thread 8 channels",
+         "source": "dmayolo_tpu_torch/csrc/conv_int8.cu",
+         "replaces": "dmayolo_tpu/nn/primitives.py:149 (x_q, an XLA op; no TPU kernel)",
+         **launches(quantize_s8), "max_abs_err": i8["quantize_max_abs_err"],
+         "ms": i8c["quantize_ms"],
+         "plain_ms": i8c["quantize_plain_ms"], "bound_ms": i8c["quantize_bound_ms"],
+         "bound_by": i8c["quantize_bound_by"], "library_ms": None,
+         "shapes": f"{FLAGSHIP} eligible conv inputs, bs{i8c['batch']} bf16, each once"},
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

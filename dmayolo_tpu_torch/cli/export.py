@@ -14,7 +14,8 @@ Port of `dmayolo_tpu/cli/export.py`.  Formats:
 The JAX package's `tf`, `saved_model` and `tflite` need TensorFlow and
 `stablehlo` is a JAX artifact: they raise, naming the format.  `onnx`
 needs the `onnx` package, which the port does not use: it raises.
-`--int8` is ROADMAP.md Queue 1 item 14: it raises.
+`--int8` (the JAX package's int8 TFLite artifact) raises for the same
+reason; int8 serving runs in the port itself (`nn/quant.py`).
 
     python -m dmayolo_tpu_torch.cli.export --weights best.npz --imgsz 1536 --batch-size 8 --include torch_export npz torch
 """
@@ -48,7 +49,7 @@ def build_parser():
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default; raises without it) or cpu")
     p.add_argument("--int8", action="store_true",
-                   help="int8 export: not ported yet (ROADMAP.md, Queue 1 item 14)")
+                   help="int8 TFLite export: raises (the port writes no TFLite)")
     p.add_argument("--data", type=str, default=None,
                    help="dataset yaml of the int8 calibration images")
     p.add_argument("--ncalib", type=int, default=100,
@@ -71,7 +72,10 @@ class InferenceProgram(nn.Module):
 def main(argv=None):
     opt = build_parser().parse_args(argv)
     if opt.int8:
-        raise NotImplementedError("--int8 is not ported yet (ROADMAP.md, Queue 1 item 14)")
+        raise NotImplementedError(
+            "--int8 writes a full-integer TFLite artifact in the JAX package, and the port "
+            "writes no TFLite (see 'tflite'); int8 serving and eval run in the port itself: "
+            "cli.val --int8, make_infer_fn(quant=...)")
     bad = [f for f in opt.include if f in UNSUPPORTED]
     if bad:
         raise NotImplementedError("; ".join(UNSUPPORTED[f] for f in bad))

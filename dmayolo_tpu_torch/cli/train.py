@@ -4,11 +4,13 @@ Port of `dmayolo_tpu/cli/train.py`.  Each run writes `opt.yaml` and
 `hyp.yaml` beside its checkpoints; `--resume [ckpt|auto]` restores them
 and goes on in the same directory; `--batch-size -1` picks the batch from
 the card's memory (`train/autobatch.py`); `--evolve N` runs the
-hyperparameter search (`train/evolve.py`).  `--remat` turns on by itself
-at `--imgsz` 1024 and above (`--no-remat` keeps it off).  Not ported yet:
-`--ckpt-async` (ROADMAP.md, Queue 1 item 15c) and `--spatial-shard`
-(item 13); they raise.  `main` returns the best fitness, or the evolved
-hyp.
+hyperparameter search (`train/evolve.py`) and plots it (`plot_evolve`,
+where matplotlib imports).  `--remat` turns on by itself at `--imgsz` 1024
+and above (`--no-remat` keeps it off).  `--ckpt-async` writes the
+checkpoints (the same JAX `.npz`) on a background thread
+(`utils/async_ckpt.py`).  Not ported yet: `--spatial-shard` (ROADMAP.md,
+Queue 1 item 13); it raises.  `main` returns the best fitness, or the
+evolved hyp.
 
 The flagship recipe (train.sh:5-9):
     python -m dmayolo_tpu_torch.cli.train --imgsz 1536 --adam --batch-size 4 \\
@@ -49,7 +51,8 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--noautoanchor", action="store_true")
     p.add_argument("--ckpt-async", action="store_true",
-                   help="async checkpoints: not ported yet (ROADMAP.md, Queue 1 item 15c)")
+                   help="write checkpoints on a background thread (the same .npz; the "
+                        "JAX package writes an Orbax directory, which the port does not)")
     p.add_argument("--device-aug", action="store_true",
                    help="HSV jitter and lr-flip inside the train step on the card "
                         "(the host ships raw uint8)")
@@ -120,8 +123,6 @@ def main(argv=None):
     opt = build_parser().parse_args(argv)
     if not opt.resume and not (opt.cfg and opt.data):
         build_parser().error("--cfg and --data are required unless --resume")
-    if opt.ckpt_async:
-        raise NotImplementedError("--ckpt-async is not ported yet (ROADMAP.md, Queue 1 item 15c)")
     if opt.spatial_shard:
         raise NotImplementedError("--spatial-shard is not ported yet (ROADMAP.md, Queue 1 item 13)")
     from .common import setup_device
@@ -175,8 +176,13 @@ def main(argv=None):
         best = evolve(train_once, hyp, generations=opt.evolve, out_dir=str(out),
                       autoanchor=not opt.noautoanchor)
         print("evolved hyp:", best)
-        print("plot_evolve is not ported yet (ROADMAP.md, Queue 1 item 15c): "
-              f"the generations are in {out / 'evolve.csv'}")
+        try:
+            from ..utils.plots import plot_evolve
+
+            png = plot_evolve(out / "evolve.csv")
+            print(f"evolve plot -> {png}")
+        except Exception as e:  # plotting must never fail the run
+            print(f"plot_evolve failed: {type(e).__name__}: {e}")
         return best
 
     trainer = _make_trainer(opt, hyp, str(out))
@@ -258,6 +264,7 @@ def _make_trainer(opt, hyp, out_dir):
         freeze=opt.freeze,
         save_period=opt.save_period,
         remat=opt.remat,
+        ckpt_async=opt.ckpt_async,
         device=opt.device,
     )
 

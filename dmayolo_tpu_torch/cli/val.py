@@ -5,9 +5,10 @@ Port of `dmayolo_tpu/cli/val.py`, with its flags.  `--augment` (TTA) and
 `<project>/<name>/labels/*.txt` layout; `--task study` sweeps image sizes
 into `study.csv`; `--save-json` writes COCO predictions and runs COCOeval
 against the official annotations, or against ground truth built from the
-YOLO labels where there are none.  Not ported yet: `--int8` (ROADMAP.md,
-Queue 1 item 14), `--devices` above 1 and `--spatial-shard` (item 13);
-they raise.
+YOLO labels where there are none.  `--int8` calibrates the input scales
+on `--ncalib` dataset images and runs the eligible convs on the int8 path
+(`nn/quant.py`).  Not ported yet: `--devices` above 1 and
+`--spatial-shard` (ROADMAP.md, Queue 1 item 13); they raise.
 
     python -m dmayolo_tpu_torch.cli.val --weights best.npz --data VisDrone.yaml --imgsz 1536
 """
@@ -48,7 +49,9 @@ def build_parser():
     p.add_argument("--exist-ok", action="store_true")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--int8", action="store_true",
-                   help="int8 PTQ serving: not ported yet (ROADMAP.md, Queue 1 item 14)")
+                   help="int8 PTQ serving (nn/quant.py): convs run s8 x s8 -> s32 "
+                        "on the card's tensor cores, decode stays float; "
+                        "calibrated on --ncalib dataset images")
     p.add_argument("--ncalib", type=int, default=32,
                    help="calibration images for --int8")
     p.add_argument("--no-fuse", action="store_true")
@@ -71,8 +74,6 @@ def build_parser():
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
-    if opt.int8:
-        raise NotImplementedError("--int8 is not ported yet (ROADMAP.md, Queue 1 item 14)")
     if opt.devices > 1 or opt.spatial_shard:
         raise NotImplementedError("--devices > 1 and --spatial-shard are not ported yet "
                                   "(ROADMAP.md, Queue 1 item 13)")
@@ -93,6 +94,13 @@ def main(argv=None):
     data = check_dataset(opt.data)
     out = increment_path(f"{opt.project}/{opt.name}", exist_ok=opt.exist_ok)
     out.mkdir(parents=True, exist_ok=True)
+
+    quant = None
+    if opt.int8:
+        if not fused:
+            raise SystemExit("--int8 requires the fused inference path "
+                             "(drop --no-fuse)")
+        quant = calibrate(model, data, opt.imgsz, opt.ncalib)
 
     split = data.get(opt.task if opt.task in ("val", "test") else "val") or data["val"]
     if opt.task == "speed":
@@ -129,7 +137,7 @@ def main(argv=None):
         model, split, img_size=opt.imgsz, **kw,
         save_txt_dir=(out / "labels") if opt.save_txt else None,
         save_conf=opt.save_conf, augment=opt.augment, rect=opt.rect,
-        single_cls=opt.single_cls, save_json=jdict, class_map=class_map)
+        single_cls=opt.single_cls, save_json=jdict, class_map=class_map, quant=quant)
     if jdict is not None:
         from ..eval.coco_json import evaluate_coco, write_coco_json
 
@@ -172,6 +180,34 @@ def main(argv=None):
             if res.maps[i] > 0:
                 print(f"  {name:>16}: mAP@.5:.95 {res.maps[i]:.4f}")
     return res
+
+
+def calibrate(model, data, imgsz: int, ncalib: int):
+    """--int8's input scales, from the first `ncalib` images of the train
+    split (else val), letterboxed to `imgsz` without auto padding, RGB, in
+    batches of 8, at f32; prints the calibration line."""
+    import numpy as np
+    import torch
+
+    from ..data.datasets import _scan_images
+    from ..data.imageio import imread
+    from ..data.letterbox import letterbox_host
+    from ..nn.quant import calibrate_act_scales, quant_coverage
+
+    cal_src = data.get("train") or data["val"]
+    imgs = []
+    for f in _scan_images(cal_src)[:ncalib]:
+        try:
+            im = imread(f)
+        except (OSError, ValueError):  # unreadable: skipped, as the JAX CLI does
+            continue
+        imgs.append(np.ascontiguousarray(letterbox_host(im, imgsz, auto=False)[0][..., ::-1]))
+    if not imgs:
+        raise SystemExit(f"--int8: no readable calibration images under {cal_src}")
+    batches = [np.stack(imgs[i:i + 8]) for i in range(0, len(imgs), 8)]
+    quant = calibrate_act_scales(model, batches, dtype=torch.float32)
+    print(f"int8 calibration: {len(imgs)} images, {quant_coverage(model, quant)}")
+    return quant
 
 
 if __name__ == "__main__":

@@ -77,13 +77,14 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
     Returns `infer(images, *targets) -> (dets (B, max_det, 6), valid
     (B, max_det))`: images (B, H, W, 3) uint8; with `hybrid`, the targets
     (cls (B, M), box xywhn (B, M, 4), mask (B, M)) join the predictions
-    before NMS as conf-1.0 candidates (the reference's --save-hybrid)."""
+    before NMS as conf-1.0 candidates (the reference's --save-hybrid).
+    `quant` ({conv name: input scale}, `nn/quant.py`) runs those convs on
+    the int8 path; TTA takes none."""
     if mesh is not None or spatial:
         raise NotImplementedError("multi-GPU eval is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 13)")
-    if quant is not None:
-        raise NotImplementedError("int8 eval is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 14)")
+    if quant is not None and augment:  # the JAX package's words
+        raise ValueError("--int8 with TTA (--augment) is not supported")
     device = next(model.parameters()).device
 
     def infer(x, *tgt):
@@ -93,7 +94,7 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
             if augment:
                 dec = forward_augment(model, xf, dtype=dtype, fused=fused)
             else:
-                dec = model.decode(model.apply(xf, dtype=dtype, fused=fused))
+                dec = model.decode(model.apply(xf, dtype=dtype, fused=fused, quant=quant))
             dec = with_obj_column(dec, model.nc)
             if hybrid:
                 t_cls, t_box, t_mask = (torch.as_tensor(t, device=device) for t in tgt)
@@ -243,8 +244,6 @@ def run_validation(
         batch_size=batch_size, pad=pad, single_cls=single_cls)
     loader = DataLoader(ds, batch_size, max_targets=max_targets, shuffle=False,
                         drop_last=False, workers=workers)
-    if quant is not None and augment:
-        raise ValueError("int8 with TTA (augment) is not supported")
     infer = make_infer_fn(model, conf_thres, iou_thres, max_det, dtype=dtype, fused=fused,
                           augment=augment, max_nms=max_nms, nms_backend=nms_backend,
                           mesh=mesh, spatial=spatial, hybrid=save_hybrid, quant=quant)

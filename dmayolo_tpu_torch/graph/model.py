@@ -8,6 +8,7 @@ the analogue of the JAX `eval_shape` probe.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
@@ -130,6 +131,7 @@ class DetectionModel(nn.Module):
         self.fused = False
         self.remat = False
         self.lazy_tails = 0  # serving tails that took the lazy route
+        self._convs = None  # {name: Conv2d}, for `int8_convs`
 
         with torch.device("meta"):
             self.model = nn.ModuleList(self._parse())
@@ -271,12 +273,33 @@ class DetectionModel(nn.Module):
         return [(i, name, out.permute(0, 2, 3, 1) if torch.is_tensor(out) and out.dim() == 4
                  else out) for i, name, out in feats]
 
-    def apply(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False, features=None):
+    def apply(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False, features=None,
+              quant=None):
         """Forward, as the JAX `apply`: `fused=True` asks for the folded
-        weights, so the model must have been through `fuse()`."""
+        weights, so the model must have been through `fuse()`.  `quant`
+        ({conv name: input scale}, from `nn/quant.py::calibrate_act_scales`)
+        runs those convs on the int8 path for this call."""
         if fused and not self.fused:
             raise ValueError("fused=True needs the BN-folded model: call fuse() first")
-        return self(x, dtype, features)
+        if quant is None:
+            return self(x, dtype, features)
+        with self.int8_convs(quant):
+            return self(x, dtype, features)
+
+    @contextlib.contextmanager
+    def int8_convs(self, quant):
+        """Within the block, each conv named in `quant` runs its int8 form
+        for its scale (`Conv2d.int8_form`, made once a conv and scale)."""
+        if self._convs is None:
+            self._convs = {name: m for name, m in self.named_modules() if isinstance(m, Conv2d)}
+        convs = [self._convs[name] for name in quant]
+        try:
+            for conv, s_x in zip(convs, quant.values()):
+                conv.int8 = conv.int8_form(s_x)
+            yield
+        finally:
+            for conv in convs:
+                conv.int8 = None
 
     # -- weights ---------------------------------------------------------------
     def reset_parameters(self, generator: torch.Generator):

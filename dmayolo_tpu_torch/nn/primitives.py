@@ -17,6 +17,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from .conv_int8 import Int8Conv
+
 KernelSize = Union[int, Tuple[int, int]]
 
 
@@ -77,11 +79,18 @@ class Conv2d(nn.Module):
     """Raw conv.  Weight and input are cast to the compute dtype; the bias
     is added in the output dtype, as the JAX Conv2d does.  A depthwise
     conv (one input channel a group, groups > 1) runs inside the profiler
-    range "depthwise conv"."""
+    range "depthwise conv".
+
+    While `int8` holds an `Int8Conv` (set for one call by
+    `DetectionModel.apply(quant=...)`), the conv runs the int8 PTQ path
+    instead (`nn/conv_int8.py`), inside the profiler range "int8 conv"."""
 
     def __init__(self, c1, c2, k: KernelSize = 1, s: KernelSize = 1, p=None,
                  g: int = 1, d: int = 1, bias: bool = True):
         super().__init__()
+        self.c1, self.c2 = c1, c2
+        self.int8: Optional[Int8Conv] = None
+        self._int8_form: Optional[Int8Conv] = None
         self.k = _pair(k)
         self.s = _pair(s)
         self.p = _pair(autopad(k, p))
@@ -100,7 +109,18 @@ class Conv2d(nn.Module):
                 v = torch.empty(p.shape).uniform_(-bound, bound, generator=generator)
                 p.data.copy_(v)
 
+    def int8_form(self, s_x: float) -> Int8Conv:
+        """The int8 form of this conv for input scale `s_x`, made once and
+        kept while the scale and the weights stay as they are."""
+        form = self._int8_form
+        if form is None or not form.matches(self, s_x):
+            form = self._int8_form = Int8Conv(self, s_x)
+        return form
+
     def forward(self, x, dtype):
+        if self.int8 is not None:
+            with record_function("int8 conv"):
+                return self.int8(x, dtype)
         with record_function("depthwise conv") if self.depthwise else contextlib.nullcontext():
             y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.s, self.p,
                          self.d, self.g)

@@ -18,10 +18,15 @@ sources:
 The trainer scales the hyp, picks the accumulation, builds the loss, the
 schedule and the train state, and runs the epochs: the warmup accumulate
 ramp (`accum_ramp=False` keeps a fixed cadence), a `last` checkpoint in
-the JAX `.npz` format and a CSV row each epoch; the epoch on which early
-stopping fires saves `last` and ends the run without a row or an
-`epoch{N}` checkpoint, as in JAX.  `device_aug` (HSV and flip) and
-`multi_scale` (a bilinear resize of the batch) run on the model's device.
+the JAX `.npz` format and a row each epoch (`utils/loggers.py`:
+`results.csv`, TensorBoard where it imports, `results.png` at the end);
+the epoch on which early stopping fires saves `last` and ends the run
+without a row or an `epoch{N}` checkpoint, as in JAX.  `callbacks` runs
+the reference's hooks at the JAX trainer's points; with `ckpt_async` the
+checkpoints are written on a background thread (`utils/async_ckpt.py`),
+one at a time, drained before `train` returns.  `device_aug` (HSV and
+flip) and `multi_scale` (a bilinear resize of the batch) run on the
+model's device.
 `remat` recomputes each graph layer's activations in the backward
 (`DetectionModel.remat`); `freeze` keeps model.0 .. model.{freeze - 1}
 as they are; `train_ungrouped` optimizes the parameters the reference
@@ -30,7 +35,6 @@ in place of the cosine one.
 """
 from __future__ import annotations
 
-import csv
 import math
 import random
 import time
@@ -48,8 +52,11 @@ from ..eval.metrics import fitness
 from ..eval.validator import run_validation
 from ..graph import DetectionModel
 from ..nn.heads import Detect, TDetect
+from ..utils.async_ckpt import AsyncTrainCheckpointer
+from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_checkpoint
 from ..utils.device import resolve_device
+from ..utils.loggers import Loggers
 from ..utils.weights import state_dict_from_jax
 from .autoanchor import maybe_autoanchor
 from .loss import ComputeLoss, Targets
@@ -159,6 +166,7 @@ class Trainer:
         accum_ramp: bool = True,
         freeze: int = 0,
         remat: bool = False,
+        ckpt_async: bool = False,
     ):
         if (loader is None) == (data is None):
             raise ValueError("pass exactly one source of batches: loader= or data=")
@@ -302,7 +310,19 @@ class Trainer:
             self.class_weights = labels_to_class_weights(self.train_ds.labels, nc)
         self.maps = np.zeros(nc)  # per-class mAP, for image-weight resampling
         self.out.mkdir(parents=True, exist_ok=True)
-        self.csv_path = self.out / "results.csv"
+        self.loggers = Loggers(self.out)
+        self.callbacks = Callbacks()
+        self.ckpt_async = ckpt_async
+        self._async_ckptr = None
+        if self.train_ds is not None:
+            try:  # the label statistics plot, inside the JAX trainer's guard
+                from ..utils.plots import plot_labels
+
+                lbls = [lb for lb in self.train_ds.labels if len(lb)]
+                if lbls:
+                    plot_labels(np.concatenate(lbls), self.data["names"], self.out)
+            except Exception:
+                pass
 
     # -------------------------------------------------------------------
     def get_step(self, acc: int):
@@ -332,19 +352,16 @@ class Trainer:
         # one device-to-host pull an optimizer step, shared by its best and last
         if self._pulled is None or self._pulled[0] != self.state.step:
             self._pulled = (self.state.step, state_trees(self.state))
+        if self.ckpt_async:
+            if self._async_ckptr is None:
+                self._async_ckptr = AsyncTrainCheckpointer()
+            self._async_ckptr.save(self.out / name, self._pulled[1], meta=meta)
+            return
         save_checkpoint(self.out / name, meta=meta, half=True, **self._pulled[1])
 
     def _log_csv(self, row: Dict):
-        new = not self.csv_path.exists()
-        keys = list(row)
-        if self.data is not None:  # the metrics columns, empty on epochs not validated
-            keys = [k for k in keys if k not in METRIC_KEYS and k != "time_s"] \
-                + list(METRIC_KEYS) + ["time_s"]
-        with open(self.csv_path, "a", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=keys, restval="")
-            if new:
-                w.writeheader()
-            w.writerow(row)
+        step = row.pop("epoch")
+        self.loggers.log_metrics(row, step)
 
     def to_device(self, group):
         """A group of loader batches -> images and Targets on the device."""
@@ -366,72 +383,82 @@ class Trainer:
         # the global batch counter ni drives the ramp and, on that path,
         # the schedule in batch units
         self._ni = self.start_epoch * self.steps_per_epoch
-        for epoch in range(self.start_epoch, self.epochs):
-            t0 = time.time()
-            running, nb, metrics = {}, 0, None
-            opt_steps = max(self.steps_per_epoch // self.accumulate, 1)
-            if self.image_weights and self.train_ds is not None:
-                cw = self.class_weights * (1 - self.maps) ** 2 / self.nc
-                self.loader.sample_weights = labels_to_image_weights(self.train_ds.labels,
-                                                                     self.nc, cw)
-            ms_rng = random.Random(self.seed + epoch)
-            for batch in self.loader:
-                self._pending.append(batch)
-                ni = self._ni
-                self._ni += 1
-                acc_target = self.accumulate
-                if self.accum_ramp and ni <= self.sched.nw:
-                    acc_target = int(max(1, min(self.accumulate, round(
-                        np.interp(ni, [0, self.sched.nw], [1, self.accumulate])))))
-                if len(self._pending) < acc_target:
-                    continue
-                group, self._pending = self._pending, []
-                images, targets = self.to_device(group)
-                if self.multi_scale:  # a bucket of sizes bounds the shapes seen
-                    sz = int(round(self.img_size * ms_rng.choice(MULTI_SCALES) / gs) * gs)
-                    if sz != images.shape[1]:
-                        images = resize_batch(images, sz)
-                if self.accum_ramp:
-                    metrics = self.get_step(len(group))(self.state, images, targets, gen,
-                                                        ni=float(ni))
-                else:
-                    metrics = self.get_step(self.accumulate)(self.state, images, targets, gen)
-                nb += 1
-                if nb % log_every == 0 or nb == opt_steps:
+        self.callbacks.run("on_train_start")
+        try:
+            for epoch in range(self.start_epoch, self.epochs):
+                self.callbacks.run("on_train_epoch_start")
+                t0 = time.time()
+                running, nb, metrics = {}, 0, None
+                opt_steps = max(self.steps_per_epoch // self.accumulate, 1)
+                if self.image_weights and self.train_ds is not None:
+                    cw = self.class_weights * (1 - self.maps) ** 2 / self.nc
+                    self.loader.sample_weights = labels_to_image_weights(self.train_ds.labels,
+                                                                         self.nc, cw)
+                ms_rng = random.Random(self.seed + epoch)
+                for batch in self.loader:
+                    self._pending.append(batch)
+                    ni = self._ni
+                    self._ni += 1
+                    acc_target = self.accumulate
+                    if self.accum_ramp and ni <= self.sched.nw:
+                        acc_target = int(max(1, min(self.accumulate, round(
+                            np.interp(ni, [0, self.sched.nw], [1, self.accumulate])))))
+                    if len(self._pending) < acc_target:
+                        continue
+                    group, self._pending = self._pending, []
+                    images, targets = self.to_device(group)
+                    if self.multi_scale:  # a bucket of sizes bounds the shapes seen
+                        sz = int(round(self.img_size * ms_rng.choice(MULTI_SCALES) / gs) * gs)
+                        if sz != images.shape[1]:
+                            images = resize_batch(images, sz)
+                    if self.accum_ramp:
+                        metrics = self.get_step(len(group))(self.state, images, targets, gen,
+                                                            ni=float(ni))
+                    else:
+                        metrics = self.get_step(self.accumulate)(self.state, images, targets, gen)
+                    nb += 1
+                    if nb % log_every == 0 or nb == opt_steps:
+                        running = {k: float(v) for k, v in metrics.items()}
+                        print(f"epoch {epoch} [{nb}/{opt_steps}] "
+                              + " ".join(f"{k}={v:.4f}" for k, v in running.items()), flush=True)
+                if metrics is not None:
                     running = {k: float(v) for k, v in metrics.items()}
-                    print(f"epoch {epoch} [{nb}/{opt_steps}] "
-                          + " ".join(f"{k}={v:.4f}" for k, v in running.items()), flush=True)
-            if metrics is not None:
-                running = {k: float(v) for k, v in metrics.items()}
-            row = {"epoch": epoch, **{f"train/{k}": v for k, v in running.items()}}
-            final_epoch = epoch == self.epochs - 1
-            if self.data is not None and ((epoch + 1) % self.val_interval == 0 or final_epoch) \
-                    and (not self.noval or final_epoch):
-                res = self.validate()
-                if res.maps is not None:
-                    self.maps = res.maps
-                print(f"epoch {epoch} val: {res.summary()}", flush=True)
-                fi = float(fitness(np.array([[res.mp, res.mr, res.map50, res.map]]))[0])
-                if fi > self.best_fitness:
-                    self.best_fitness = fi
-                    if not self.nosave:
-                        self._save("best", epoch)
-                row.update(zip(METRIC_KEYS, (res.mp, res.mr, res.map50, res.map, fi)))
-                if stopper(epoch, fi):  # as JAX: `last` saved, no row, no epoch{N}
-                    print(f"early stopping at epoch {epoch}")
+                row = {"epoch": epoch, **{f"train/{k}": v for k, v in running.items()}}
+                final_epoch = epoch == self.epochs - 1
+                if self.data is not None and ((epoch + 1) % self.val_interval == 0 or final_epoch) \
+                        and (not self.noval or final_epoch):
+                    res = self.validate()
+                    if res.maps is not None:
+                        self.maps = res.maps
+                    print(f"epoch {epoch} val: {res.summary()}", flush=True)
+                    fi = float(fitness(np.array([[res.mp, res.mr, res.map50, res.map]]))[0])
+                    if fi > self.best_fitness:
+                        self.best_fitness = fi
+                        if not self.nosave:
+                            self._save("best", epoch)
+                    row.update(zip(METRIC_KEYS, (res.mp, res.mr, res.map50, res.map, fi)))
+                    if stopper(epoch, fi):  # as JAX: `last` saved, no row, no epoch{N}
+                        print(f"early stopping at epoch {epoch}")
+                        self._save("last", epoch)
+                        break
+                if not self.nosave or final_epoch:
                     self._save("last", epoch)
-                    break
-            if not self.nosave or final_epoch:
-                self._save("last", epoch)
-            if self.save_period > 0 and (epoch + 1) % self.save_period == 0:
-                self._save(f"epoch{epoch}", epoch)
-            self._pulled = None  # the host copy serves only this epoch's saves
-            row["time_s"] = time.time() - t0
-            self._log_csv(row)
+                if self.save_period > 0 and (epoch + 1) % self.save_period == 0:
+                    self._save(f"epoch{epoch}", epoch)
+                self._pulled = None  # the host copy serves only this epoch's saves
+                self.callbacks.run("on_model_save")
+                row["time_s"] = time.time() - t0
+                self._log_csv(row)
+                self.callbacks.run("on_fit_epoch_end", row, epoch)
+        finally:  # the write in flight lands, also when a step raises
+            if self._async_ckptr is not None:
+                self._async_ckptr.close()
         # stripped checkpoints mark a finished run
         for name in ("last", "best"):
             if (self.out / f"{name}.npz").exists():
                 strip_checkpoint(self.out / name)
+        self.loggers.finalize()
+        self.callbacks.run("on_train_end")
         print(f"training done in {(time.time() - t_start) / 3600:.2f}h; "
               f"best fitness {self.best_fitness:.4f}")
         return self.best_fitness

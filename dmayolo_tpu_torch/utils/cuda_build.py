@@ -36,6 +36,9 @@ SOURCES = {
     "nms_greedy": ["-fmad=false"],
     "nms_fixpoint": ["-fmad=false"],
     "conv3x3_s1": [],
+    # the int8 conv's dequant epilogue rounds each product and sum as
+    # XLA does
+    "conv_int8": ["-fmad=false"],
 }
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]

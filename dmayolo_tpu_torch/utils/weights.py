@@ -105,9 +105,10 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
 
 
 def to_jax_layout(path: Tuple[str, ...], t: torch.Tensor) -> np.ndarray:
-    """A port tensor as the JAX leaf at `path` holds it (f32 on the host;
-    conv kernels OIHW -> HWIO, Linear and in_proj weights transposed)."""
-    arr = t.detach().float().cpu().numpy()
+    """A port tensor as the JAX leaf at `path` holds it (f32 on the host,
+    an array of its own that no later change to `t` reaches; conv
+    kernels OIHW -> HWIO, Linear and in_proj weights transposed)."""
+    arr = t.detach().to("cpu", torch.float32, copy=True).numpy()
     if path[-1] not in _TRANSPOSED:
         return arr
     return np.ascontiguousarray(arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)

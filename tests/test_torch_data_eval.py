@@ -133,6 +133,7 @@ def test_run_validation_device_and_refusals(models, val_set):
     if not torch.cuda.is_available():  # device None means CUDA, never a silent CPU run
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_validation(pm, val_set, img_size=SIZE)
-    for kw, what in ((dict(mesh=object()), "item 13"), (dict(quant="int8"), "item 14")):
-        with pytest.raises(NotImplementedError, match=what):
+    for kw, err, what in ((dict(mesh=object()), NotImplementedError, "item 13"),
+                          (dict(quant={}, augment=True), ValueError, "with TTA")):
+        with pytest.raises(err, match=what):
             run_validation(pm, val_set, img_size=SIZE, device="cpu", **kw)

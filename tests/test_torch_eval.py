@@ -88,8 +88,8 @@ def test_make_infer_fn_refuses_what_is_not_ported(models):
     pm = models[3]
     with pytest.raises(NotImplementedError, match="item 13"):
         make_infer_fn(pm, mesh=object(), **PROTOCOL)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_infer_fn(pm, quant={}, **PROTOCOL)
+    with pytest.raises(ValueError, match="with TTA"):  # int8 is ported; TTA takes none
+        make_infer_fn(pm, quant={}, augment=True, **PROTOCOL)
 
 
 @pytest.mark.parametrize("ratio", [0.83, 0.67, 0.5])

@@ -49,7 +49,7 @@ def test_port_has_its_own_configs():
 
 
 # the only places the port may import these, and only inside the function
-LAZY = {"matplotlib": ("utils/plots.py", "feature_visualization"),
+LAZY = {"matplotlib": ("utils/plots.py", "_plt"),
         "pandas": ("hub.py", "pandas")}
 
 
@@ -68,7 +68,7 @@ def _imports_with_scope(tree):
 
 def test_matplotlib_and_pandas_only_lazily():
     """matplotlib (absent on the card's machine) and pandas are imported
-    only inside `utils/plots.py::feature_visualization` and
+    only inside `utils/plots.py::_plt` (which every plot calls) and
     `hub.py::Detections.pandas`, as the JAX package does, never at a
     module's top."""
     pkg = ROOT / "dmayolo_tpu_torch"

@@ -26,7 +26,7 @@ route, read by both packages to the same pixels) at 128 px.
   to `MicroBatcher` on the same image, the per-request records' keys and
   values equal to JAX's `pandas().xyxy[0].to_dict(orient="records")`.
 - `apply_with_features` equal to JAX's; `feature_visualization` writes
-  its PNG, or raises naming matplotlib and item 15c where it is missing.
+  its PNG, or raises naming matplotlib where it is missing.
 - what the port does not have raises, naming it: video and stream
   sources, `stablehlo`/`tf`/`saved_model`/`tflite`/`onnx`, `--int8`, PIL
   images.
@@ -526,7 +526,7 @@ def test_visualize_without_matplotlib_names_it(monkeypatch, tmp_path):
         return real(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_mpl)
-    with pytest.raises(RuntimeError, match="matplotlib.*15c"):
+    with pytest.raises(RuntimeError, match="need matplotlib, which is not installed"):
         plots.feature_visualization(np.zeros((1, 4, 4, 2), np.float32), "Conv", 0,
                                     save_dir=tmp_path)
 
@@ -553,7 +553,7 @@ def test_unported_backends_raise(tmp_path, name):
 
 
 def test_int8_export_raises(setup):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="writes no TFLite"):
         pexport.main(["--weights", str(setup["ckpt"]), "--int8", "--device", "cpu"])
 
 
