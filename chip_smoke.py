@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --int8-compare DIR   # K4 and int8 serving: DIR's checkout, then this
 
 Builds the port's CUDA kernels from dmayolo_tpu_torch/csrc (one nvcc per
 source, all at once), then:
@@ -237,25 +238,34 @@ source, all at once), then:
    `AutoShape`, an undecodable upload a 400; `cli.gradcam` on 2 images at
    640 px for `model_17_cv3_act`, both methods, in f32 with TF32 off,
    the first CAM against the host CPU's (`CAM_TOL`); `cli.wbf` over the
-   detect run's labels and a second run's at 1280 px.
+   detect run's labels and a second run's at 1280 px, on 8 files.
 
-14. int8 PTQ (`int8_phase`, after 7): K4 (csrc/conv_int8.cu, the s8
-   tensor-core conv) and its input quantize against their plain versions
-   at every int8-eligible conv shape (one group, C1 >= 16, not DFL) of
-   the flagship, yolov5s and C3CASPD2 at bs8 640 px, found by forward
-   hooks on the meta device, and at off-model shapes (C1 24, C2 45, k 5
-   with d 2, odd H and W, a 1x1 conv whose s32 sums sit above 2^24 at
-   double-rounding points): the quantized inputs, the s32 sums and the
-   dequantized outputs at f32 and bf16 must be equal; K4 timed at the
-   flagship's and yolov5s's bs128 step shapes (call, alone, the
-   quantize, cuDNN's bf16 conv and, for 1x1 convs, `torch._int_mm` on
-   the same product, the bounds at the int8 rate), count-weighted over a
-   step.  Then int8 serving as bench.py:188-270 times it: each model
-   calibrated on 8 random 640 px images at f32, bs128 bf16 on "matrix",
-   driven once counted (K4 and the quantize once an int8 conv, K3 once),
-   timed beside bf16 in turns and both steps profiled; the flagship's f32
-   int8 raw head on the card against the host CPU's (`INT8_HEAD_TOL`,
-   which the card's float head must fail).
+14. int8 PTQ (`int8_phase`, after 7): K4 (csrc/conv_int8.cu: routes (a)
+   1x1, (b) 3x3 stride 1 and (c) 3x3 stride 2 on wgmma s8 with TMA loads
+   and the bf16 input quantized in the kernel, (d) every other geometry
+   on mma.sync after `quantize_s8`) against the plain versions at every
+   int8-eligible conv shape (one group, C1 >= 16, not DFL) of the
+   flagship, yolov5s and C3CASPD2 at bs8 640 px, found by forward hooks
+   on the meta device, at CASMM's route-(d) shapes (5x5), and at
+   off-model shapes (`INT8_OFF_MODEL`: each route's edges; a 1x1 conv
+   whose s32 sums sit above 2^24 at double-rounding points): x_q from
+   bf16 and f32, and both entries (`conv_int8` on s8, `quantize_conv_int8`
+   on bf16 and f32) to the s32 sums and the f32 and bf16 outputs, at max
+   |err| 0; at the flagship's and CASMM's bs8 shapes timed beside the
+   plain versions.  K4 timed at the flagship's and yolov5s's bs128 step
+   shapes (the bf16 call as served and its kernels alone, cuDNN's bf16
+   conv and, for the 1x1 convs that `torch._int_mm` takes, `_int_mm` on
+   the same s8 product beside the route's s8 form and the quantize that
+   input needs), count-weighted over a step and by route, the bound the
+   sum of each conv's own (int8 rate, bf16 input read once, no s8 copy,
+   on every route).  Then int8 serving as
+   bench.py:188-270 times it: each model calibrated on 8 random 640 px
+   images at f32, bs128 bf16 on "matrix", driven once counted (each conv
+   once on its route, the quantize only where a route does not quantize
+   itself, K3 once), timed beside bf16 in turns and both steps profiled;
+   the flagship's f32 int8 raw head on the card against the host CPU's
+   (`INT8_HEAD_TOL`, which the card's float head must fail); CASMM served
+   int8 once at bs8, so that route (d) runs on a main path.
    Last, the tiny model trained as tests/test_int8_serve.py trains it
    (256 px, 32 epochs, f32): int8 mAP@.5 within 0.05 of float at f32 and
    bf16 (counted), and `cli.val --int8 --ncalib 8` on its checkpoint.
@@ -298,7 +308,7 @@ K1_TOL = {"f32": 1e-4, "bf16": 2e-2}
 PROFILE_GROUPS = [
     ("nms_greedy (K2)", ("nms_greedy",)),
     ("nms_fixpoint (K3)", ("nms_fixpoint",)),
-    ("int8 conv (K4)", ("conv_int8_kernel",)),
+    ("int8 conv (K4)", ("conv_int8_kernel", "conv_int8_wgmma_kernel")),
     ("int8 quantize (K4)", ("quantize_s8_kernel",)),
     ("conv and matmul (cuDNN, cuBLAS)", ("xmma", "fprop", "cutlass", "nvjet", "gemm", "conv")),
     ("top-k and sort", ("topk", "sort", "Radix", "radix")),
@@ -4345,11 +4355,12 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
     del cpu_model
 
     # ---- 8. cli.wbf over the first run's labels and a second run's at
-    # another size
+    # another size, on the files WBF fuses
     zero()
     t0 = time.perf_counter()
     second = detect("wbf_second", "--imgsz", str(sizes["wbf_imgsz"]), "--batch-size", str(bs),
-                    "--save-txt", "--save-conf", "--nosave", *conf)
+                    "--save-txt", "--save-conf", "--nosave", *conf,
+                    source=subset("wbf", sizes["wbf_files"]))
     out["wbf"] = {"second_detect_s": time.perf_counter() - t0, "second_launches": counted()}
     t0 = time.perf_counter()
     # WBF's clustering is a host loop over every pair of boxes an image
@@ -4430,11 +4441,21 @@ def print_tools(jp, tp, smi):
 
 INT8_CHECKED = (FLAGSHIP, "yolov5s", "C3CASPD2")  # every eligible shape held at bs8
 INT8_SERVED = (FLAGSHIP, "yolov5s")  # served at bs128 (bench.py:188-270), timed at their shapes
-# off-model K4 cases (B, H, W, C1, C2, k, s, p, d): C1 24 (a padded channel
-# tail), C2 45, k 5 with d 2, odd H and W, C2 past one 128-channel tile
+# off-model K4 cases (B, H, W, C1, C2, k, s, p, d), each route's edges:
+# C1 24 and 40 (padded channel tails), C1 20 (a bf16 row TMA cannot
+# stride: quantize_s8 and the s8 form), C1 136 (a second, partial
+# 128-channel chunk), C2 45, 8, 130, 200 and 300 (ragged BN tiles), H or W
+# of 1, ragged patches, stride 2 on odd sizes; route (d): k 5 with d 2, a
+# 1x1 at stride 2 and a 3x3 without pad
 INT8_OFF_MODEL = [(2, 37, 53, 24, 45, 3, 1, 1, 1), (1, 21, 19, 32, 60, 5, 1, 4, 2),
                   (3, 17, 15, 16, 200, 3, 2, 1, 1), (2, 11, 13, 48, 8, 1, 1, 0, 1),
-                  (1, 29, 31, 64, 130, 1, 1, 0, 1)]
+                  (1, 29, 31, 64, 130, 1, 1, 0, 1), (2, 1, 37, 40, 24, 3, 1, 1, 1),
+                  (3, 23, 1, 24, 45, 1, 1, 0, 1), (1, 9, 1, 136, 300, 3, 2, 1, 1),
+                  (2, 13, 9, 20, 16, 3, 1, 1, 1), (2, 15, 17, 32, 64, 1, 2, 0, 1),
+                  (1, 12, 10, 48, 72, 3, 1, 0, 1)]
+# a zoo model whose int8 convs take route (d) (four 5x5 convs): served
+# int8 once a run, so that the route runs on a main path
+INT8_GENERAL_MODEL = "CASMM"
 INT8_CAL_IMAGES = 8  # random 640 px calibration images, as bench.py calibrates
 # f32 int8 head, card vs CPU (equal to the bit on an H100): room for a
 # flip, and none for a float head (off at ~all values; int8_head_vs_cpu)
@@ -4492,16 +4513,36 @@ def int8_sites(cfg, imgsz=640, nc=10):
 
 
 def int8_bytes_ops(b, h, w, c1, c2, k, s, p, d):
-    """K4's least traffic (s8 input and weights read once, bf16 output
-    written once, the f32 scale and bias) and its operations (2 a
-    multiply-add, the real C1, not the padded one), and the quantize's
-    (bf16 in, s8 out; one multiply, round and clip a value)."""
+    """The least traffic and the operations of one int8 conv of a bf16
+    input, and of the quantize alone.  The conv: the bf16 input read once
+    and no s8 copy of it, the s8 weights, the bf16 output written once and
+    the f32 scale and bias; 2 operations a multiply-add on the real C1, not
+    the padded one.  The quantize: bf16 in, s8 out; one multiply, round and
+    clip a value."""
     from dmayolo_tpu_torch.nn.conv_int8 import out_size
 
     ho, wo = out_size(h, k, s, p, d), out_size(w, k, s, p, d)
-    conv = (b * h * w * c1 + c2 * k * k * c1 + b * ho * wo * c2 * 2 + 2 * c2 * 4,
+    conv = (b * h * w * c1 * 2 + c2 * k * k * c1 + b * ho * wo * c2 * 2 + 2 * c2 * 4,
             2 * b * ho * wo * c2 * k * k * c1)
     return conv, (b * h * w * c1 * 3, 3 * b * h * w * c1)
+
+
+def int8_route(b, h, w, c1, c2, k, s, p, d):
+    """The K4 route that serves a bf16 input of this conv, and whether it
+    quantizes inside the conv kernel."""
+    from dmayolo_tpu_torch.nn.conv_int8 import plan_int8
+
+    import torch
+
+    plan = plan_int8(b, h, w, c1, c2, (k, k), (s, s), (p, p), (d, d), torch.bfloat16)
+    return plan.route, plan.convert
+
+
+def int8_bound(b, h, w, c1, c2, k, s, p, d):
+    """(bound_ms, bound_by) of one bf16-input int8 conv: the function's
+    least time, whatever route serves it (route (d) quantizes first, in a
+    kernel of its own, and is held to the same bound)."""
+    return bound(*int8_bytes_ops(b, h, w, c1, c2, k, s, p, d)[0], "int8")
 
 
 def tie_case(device):
@@ -4530,22 +4571,30 @@ def tie_case(device):
 
 
 def check_int8_case(device, x, w, bias, s_x, s, p, d, timed=False, iters=10):
-    """K4 and the quantize against their plain versions on one input: the
-    quantized input from bf16 and f32, the s32 sums, and the dequantized
-    output at f32 and bf16 must be equal.  `timed`: the bf16 call and
-    kernel alone (CUDA-graph replay), the plain version, the quantize
-    and its plain version.  `max_abs_err`: the largest |K4 - plain| over
-    the sums and the outputs; `quantize_max_abs_err`, the quantize's."""
+    """K4 and the quantize against their plain versions on one input, at
+    max |err| 0: the quantized input from bf16 and from f32 (`quantize_s8`),
+    then both entries at every output: `conv_int8` on the s8 input (the
+    route's s8 form) and `quantize_conv_int8` on the bf16 and the f32
+    input (routes (a)-(c) quantize a bf16 input inside the conv), each to
+    the s32 sums and the f32 and bf16 outputs.  `timed`: the bf16 call
+    (bf16 in and out, as served), its kernels alone (CUDA-graph replay)
+    and its plain version; where the route quantizes first, the quantize
+    alone and its plain version; where `_int_mm` takes the conv, `_int_mm`
+    on the same s8 product (held equal to the sums).  `max_abs_err`: the
+    largest |K4 - plain| over the sums and the outputs;
+    `quantize_max_abs_err`, the quantize's."""
     import torch
 
     from dmayolo_tpu_torch.nn.conv_int8 import (conv_int8, conv_int8_plain, dequant_params,
-                                                prepare_weight, quantize_s8, quantize_s8_plain,
-                                                reciprocal_f32)
+                                                dequant_plain, prepare_weight, quantize_conv_int8,
+                                                quantize_conv_int8_plain, quantize_s8,
+                                                quantize_s8_plain, reciprocal_f32)
 
     inv = reciprocal_f32(s_x)
     wq, s_w = prepare_weight(w.to(device))
     c1p = wq.shape[3]
-    xq, q_err = {}, 0
+    xq, q_err, sums = {}, 0, {}
+    geo = ((s, s), (p, p), (d, d))
     for dt in (torch.float32, torch.bfloat16):
         xd = x.to(dt)
         xq[dt] = quantize_s8(xd, inv, c1p)
@@ -4553,40 +4602,95 @@ def check_int8_case(device, x, w, bias, s_x, s, p, d, timed=False, iters=10):
         q_err = max(q_err, int((xq[dt].short() - q_plain.short()).abs().max()))
         check(torch.equal(xq[dt], q_plain),
               f"quantize_s8 differs from its plain version from {dt} at {tuple(x.shape)}")
-    xq = xq[torch.bfloat16]
-    geo = ((s, s), (p, p), (d, d))
-    acc = conv_int8(xq, wq, None, None, *geo, torch.int32)
-    acc_plain = conv_int8_plain(xq, wq, None, None, *geo, torch.int32)
-    check(torch.equal(acc, acc_plain),
-          f"K4's s32 sums differ from the plain version's at {tuple(x.shape)} -> "
-          f"{tuple(acc.shape)}: max {int((acc - acc_plain).abs().max())}")
-    row = {"max_abs_sum": int(acc_plain.abs().max()), "sums_over_2_24": int(
-        (acc_plain.abs() > 2 ** 24).sum()), "max_abs_err": float((acc - acc_plain).abs().max()),
-        "quantize_max_abs_err": float(q_err)}
+        sums[dt] = conv_int8_plain(q_plain, wq, None, None, *geo, torch.int32)
+    c2, k = w.shape[0], w.shape[2]
+    route, convert = int8_route(*x.shape, c2, k, s, p, d)
+    row = {"route": route,
+           "max_abs_sum": int(sums[torch.bfloat16].abs().max()),
+           "sums_over_2_24": int((sums[torch.bfloat16].abs() > 2 ** 24).sum()),
+           "max_abs_err": 0.0, "quantize_max_abs_err": float(q_err)}
+    params = {torch.int32: (None, None)}
     for dt in (torch.float32, torch.bfloat16):
-        scale, b = dequant_params(s_x, s_w, bias.to(device), dt)
-        y = conv_int8(xq, wq, scale, b, *geo, dt)
-        y_plain = conv_int8_plain(xq, wq, scale, b, *geo, dt)
-        err = float((y.float() - y_plain.float()).abs().max())
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        check(y.dtype == dt and torch.equal(y, y_plain),
-              f"K4's {dt} output differs from the plain version's at {tuple(x.shape)}: max {err}")
+        params[dt] = dequant_params(s_x, s_w, bias.to(device), dt)
+    calls = [("conv_int8 s8 -> ", torch.bfloat16,
+              lambda out: conv_int8(xq[torch.bfloat16], wq, *params[out], *geo, out))]
+    calls += [(f"quantize_conv_int8 {dt} -> ", dt,
+               lambda out, dt=dt: quantize_conv_int8(x.to(dt), inv, wq, *params[out], *geo, out))
+              for dt in (torch.bfloat16, torch.float32)]
+    for label, dt, call in calls:
+        for out in (torch.int32, torch.float32, torch.bfloat16):
+            y = call(out)
+            want = dequant_plain(sums[dt], *params[out], out)
+            err = float((y.double() - want.double()).abs().max())
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            check(y.dtype == out and torch.equal(y, want),
+                  f"K4 {label}{out} ({row['route']}) differs from the plain version at "
+                  f"{tuple(x.shape)} k{w.shape[2]} s{s} p{p} d{d}: max {err}")
     if timed and device.type == "cuda":
-        scale, b = dequant_params(s_x, s_w, bias.to(device), torch.bfloat16)
+        scale, b = params[torch.bfloat16]
         xb = x.to(torch.bfloat16)
-        call = lambda: conv_int8(xq, wq, scale, b, *geo, torch.bfloat16)  # noqa: E731
+        call = lambda: quantize_conv_int8(xb, inv, wq, scale, b, *geo, torch.bfloat16)  # noqa: E731
         row.update(ms=cuda_ms(call, iters), kernel_ms=graph_ms(call, iters),
-                   plain_ms=cuda_ms(lambda: conv_int8_plain(xq, wq, scale, b, *geo,
-                                                            torch.bfloat16), 2),
-                   quantize_ms=cuda_ms(lambda: quantize_s8(xb, inv, c1p), iters),
-                   quantize_plain_ms=cuda_ms(lambda: quantize_s8_plain(xb, inv, c1p), iters))
+                   plain_ms=cuda_ms(lambda: quantize_conv_int8_plain(
+                       xb, inv, wq, scale, b, *geo, torch.bfloat16), 2))
+        if not convert:
+            quant = lambda: quantize_s8(xb, inv, c1p)  # noqa: E731
+            row.update(quantize_ms=cuda_ms(quant, iters), quantize_kernel_ms=graph_ms(quant, iters),
+                       quantize_plain_ms=cuda_ms(lambda: quantize_s8_plain(xb, inv, c1p), iters))
+        if int_mm_takes(c2, k, s, p):
+            a, bt = xq[torch.bfloat16].view(-1, c1p), wq.view(c2, c1p).t()
+            check(torch.equal(torch._int_mm(a, bt), sums[torch.bfloat16].view(-1, c2)),
+                  f"_int_mm and the plain sums disagree at {tuple(x.shape)} -> {c2}")
+            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, bt), iters)
     return row
+
+
+def int_mm_takes(c2, k, s, p):
+    """Whether `torch._int_mm` computes this conv's s8 product: a 1x1
+    conv at stride 1 without pad, C2 a multiple of 8 (its shape rule)."""
+    return k == 1 and s == 1 and p == 0 and c2 % 8 == 0
+
+
+# keys of a timed row that `route_sums` adds up, where the row has them
+ROUTE_SUM_KEYS = ("ms", "kernel_ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms",
+                  "s8_kernel_ms", "quantize_ms", "quantize_kernel_ms", "quantize_plain_ms",
+                  "quantize_bound_ms")
+
+
+def route_sums(rows, weight="count"):
+    """Per K4 route: the convs (`weight` each shape: its count, or 1) and
+    the weighted sums of each timed key (`ROUTE_SUM_KEYS`), the bound's
+    sum and the share of it that the kernels reach; the convs `_int_mm`
+    takes and the route's kernels on those alone."""
+    out = {}
+    for r in rows:
+        n = r["count"] if weight == "count" else 1
+        g = out.setdefault(r["route"], {"convs": 0, "shapes": 0, "bytes_bound_ms": 0.0})
+        g["convs"] += n
+        g["shapes"] += 1
+        for key in ROUTE_SUM_KEYS:
+            if r.get(key) is not None:
+                g[key] = g.get(key, 0.0) + n * r[key]
+        if r.get("int_mm_ms") is not None:
+            g["int_mm_convs"] = g.get("int_mm_convs", 0) + n
+            g["kernel_ms_on_int_mm_convs"] = g.get("kernel_ms_on_int_mm_convs", 0.0) + n * r[
+                "kernel_ms"]
+        if r.get("bound_by") == "bytes":
+            g["bytes_bound_ms"] += n * r["bound_ms"]
+    for g in out.values():
+        if "bound_ms" in g:
+            g["bound_by"] = "bytes" if 2 * g["bytes_bound_ms"] >= g["bound_ms"] else "operations"
+        if "kernel_ms" in g:
+            g["share_of_bound"] = g["bound_ms"] / g["kernel_ms"]
+    return out
 
 
 def check_int8_shapes(device, sites, batch=8, timed=False, seed=0):
     """`check_int8_case` at each eligible shape of `sites` at `batch`,
     random inputs and weights from a seed; with `timed`, the sums over the
-    shapes (each once) and their bounds."""
+    shapes (each once), their bound (the sum of each conv's own), the
+    quantize's bound where a route quantizes first, and the same by
+    route."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -4598,78 +4702,83 @@ def check_int8_shapes(device, sites, batch=8, timed=False, seed=0):
         row = {"shape": [batch, h, w, c1, c2, k, s, p, d], "count": count,
                **check_int8_case(device, x, wt, bias, float(x.abs().max()) / 127.0, s, p, d,
                                  timed=timed)}
-        (row["bytes"], row["ops"]), (row["quantize_bytes"], row["quantize_ops"]) = \
-            int8_bytes_ops(batch, h, w, c1, c2, k, s, p, d)
+        row["bound_ms"], row["bound_by"] = int8_bound(batch, h, w, c1, c2, k, s, p, d)
+        if "quantize_ms" in row:
+            qb, qo = int8_bytes_ops(batch, h, w, c1, c2, k, s, p, d)[1]
+            row["quantize_bound_ms"] = bound(qb, qo, "bf16")[0]
         rows.append(row)
         del x
     out = {"batch": batch, "shapes": rows,
            **{k: max(r[k] for r in rows) for k in ("max_abs_err", "quantize_max_abs_err")}}
     if timed and device.type == "cuda":
-        for key in ("ms", "kernel_ms", "plain_ms", "quantize_ms", "quantize_plain_ms", "bytes",
-                    "ops", "quantize_bytes", "quantize_ops"):
+        for key in ("ms", "kernel_ms", "plain_ms", "bound_ms"):
             out[key] = sum(r[key] for r in rows)
-        out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"], "int8")
-        out["quantize_bound_ms"], out["quantize_bound_by"] = bound(
-            out["quantize_bytes"], out["quantize_ops"], "bf16")
+        out["routes"] = route_sums(rows, weight="once")
     return out
 
 
 def time_int8_step(device, sites, batch=128, iters=10, seed=0):
-    """K4 at each eligible shape of one step at `batch`, in bf16: the call
-    and the kernel alone (CUDA-graph replay), the quantize, cuDNN's bf16
-    `F.conv2d` on the same shape (channels_last, the context), and for
-    the 1x1 convs `torch._int_mm` on the same s8 product (where its shape
-    rules allow: C2 a multiple of 8); the bounds at the int8 rate; and the
-    sums over the step's convs, each shape weighted by its count."""
+    """K4 at each eligible shape of one step at `batch`, as served: the
+    bf16 call (bf16 in, bf16 out; routes (a)-(c) quantize inside the
+    conv) and its kernels alone (CUDA-graph replay), and cuDNN's bf16
+    `F.conv2d` on the same shape (channels_last, the context).  On the
+    convs `torch._int_mm` takes (`int_mm_takes`), `_int_mm` on the same
+    s8 product beside the route's s8 form alone and the quantize that its
+    s8 input needs.  Each conv's bound (`int8_bound`); the sums over the
+    step's convs, each shape weighted by its count, the bound as the sum
+    of each conv's own, and the same by route."""
     import torch
     import torch.nn.functional as F
 
-    from dmayolo_tpu_torch.nn.conv_int8 import conv_int8, padded_channels, quantize_s8
+    from dmayolo_tpu_torch.nn.conv_int8 import (conv_int8, padded_channels, quantize_conv_int8,
+                                                quantize_s8)
 
     g = torch.Generator(device=device).manual_seed(seed)
     rows = []
     for (h, w, c1, c2, k, s, p, d), count in sites.items():
         c1p = padded_channels(c1)
         xb = torch.randn(batch, h, w, c1, device=device, generator=g).to(torch.bfloat16)
-        xq = torch.randint(-127, 128, (batch, h, w, c1p), device=device, generator=g,
-                           dtype=torch.int8)
         wq = torch.randint(-127, 128, (c2, k, k, c1p), device=device, generator=g,
                            dtype=torch.int8)
         scale = torch.rand(c2, device=device, generator=g).to(torch.bfloat16)
         bias = torch.rand(c2, device=device, generator=g).to(torch.bfloat16)
         geo = ((s, s), (p, p), (d, d))
-        call = lambda: conv_int8(xq, wq, scale, bias, *geo, torch.bfloat16)  # noqa: E731
-        (nbytes, ops), (qbytes, qops) = int8_bytes_ops(batch, h, w, c1, c2, k, s, p, d)
+        call = lambda: quantize_conv_int8(xb, 0.5, wq, scale, bias, *geo,  # noqa: E731
+                                          torch.bfloat16)
         row = {"shape": [batch, h, w, c1, c2, k, s, p, d], "count": count,
-               "ms": cuda_ms(call, iters), "kernel_ms": graph_ms(call, iters),
-               "quantize_ms": graph_ms(lambda: quantize_s8(xb, 0.5, c1p), iters),
-               "bytes": nbytes, "ops": ops}
-        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "int8")
-        row["quantize_bound_ms"], _ = bound(qbytes, qops, "bf16")
+               "route": int8_route(batch, h, w, c1, c2, k, s, p, d)[0],
+               "ms": cuda_ms(call, iters), "kernel_ms": graph_ms(call, iters)}
+        row["bound_ms"], row["bound_by"] = int8_bound(batch, h, w, c1, c2, k, s, p, d)
         xn = xb.permute(0, 3, 1, 2)  # channels_last view for cuDNN
         wn = torch.randn(c2, c1, k, k, device=device, generator=g).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         row["cudnn_bf16_ms"] = cuda_ms(lambda: F.conv2d(xn, wn, None, s, p, d), iters)
         row["int_mm_ms"] = None
-        if k == 1 and s == 1 and p == 0 and c2 % 8 == 0:
+        if int_mm_takes(c2, k, s, p):
+            xq = quantize_s8(xb, 0.5, c1p)
             a, bt = xq.view(-1, c1p), wq.view(c2, c1p).t()
             sums = conv_int8(xq, wq, None, None, *geo, torch.int32).view(-1, c2)
             check(torch.equal(torch._int_mm(a[:64], bt), sums[:64]),
                   f"_int_mm and K4 disagree at {row['shape']}")
             del sums
-            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, bt), iters)
+            row.update(int_mm_ms=cuda_ms(lambda: torch._int_mm(a, bt), iters),
+                       s8_kernel_ms=graph_ms(lambda: conv_int8(xq, wq, scale, bias, *geo,
+                                                               torch.bfloat16), iters),
+                       quantize_ms=graph_ms(lambda: quantize_s8(xb, 0.5, c1p), iters))
+            del xq, a, bt
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
         rows.append(row)
-        del xb, xq, wq, xn, wn
+        del xb, wq, xn, wn
     weighted = lambda key, rs=rows: sum(r["count"] * r[key] for r in rs)  # noqa: E731
     ones = [r for r in rows if r["int_mm_ms"] is not None]
     out = {"batch": batch, "convs": sum(sites.values()), "shapes": rows,
-           **{f"step_{key}": weighted(key) for key in ("ms", "kernel_ms", "quantize_ms",
-                                                       "cudnn_bf16_ms", "bytes", "ops")},
+           **{f"step_{key}": weighted(key) for key in (
+               "ms", "kernel_ms", "cudnn_bf16_ms", "bound_ms")},
            "step_1x1_convs": sum(r["count"] for r in ones),
-           "step_1x1_kernel_ms": weighted("kernel_ms", ones),
-           "step_1x1_int_mm_ms": weighted("int_mm_ms", ones)}
-    out["step_bound_ms"], out["step_bound_by"] = bound(out["step_bytes"], out["step_ops"], "int8")
+           **{f"step_1x1_{key}": weighted(key, ones) for key in (
+               "kernel_ms", "s8_kernel_ms", "quantize_ms", "int_mm_ms")},
+           "routes": route_sums(rows)}
+    out["step_share_of_bound"] = out["step_bound_ms"] / out["step_kernel_ms"]
     return out
 
 
@@ -4852,14 +4961,62 @@ def int8_tiny(device, counters, sizes=INT8_TINY):
     return out
 
 
+def int8_general(device, cfg, name, counters, batch=8, imgsz=640, nc=10):
+    """Route (d) on a main path: a model with such convs (5x5) served int8
+    once, bf16 at `batch` on "matrix", calibrated on two random images,
+    counted."""
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.nn.quant import calibrate_act_scales
+
+    t0 = time.perf_counter()
+    model = build_model(device, imgsz, cfg=cfg, nc=nc).fuse()
+    rng = np.random.default_rng(8)
+    scales = calibrate_act_scales(model, [rng.integers(0, 256, (2, imgsz, imgsz, 3),
+                                                        dtype=np.uint8)], dtype=torch.float32)
+    xb = torch.from_numpy(rng.integers(0, 256, (batch, imgsz, imgsz, 3),
+                                       dtype=np.uint8)).to(device)
+    for c in counters:
+        c.launches = 0
+    with torch.inference_mode():
+        raw = model.apply(xb.to(torch.bfloat16) / 255.0, torch.bfloat16, fused=True, quant=scales)
+        d, _ = model.serve_detections(raw, conf_thres=0.25, iou_thres=0.45, max_det=300,
+                                      max_nms=512, backend="matrix")
+    out = {"model": name, "batch": batch, "int8_convs": len(scales),
+           "launches": {c.__name__: c.launches for c in counters}}
+    check(d.shape == (batch, 300, 6) and bool(torch.isfinite(d).all()),
+          f"bad int8 serving output ({name})")
+    del model, xb
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def int8_expected_launches(sites, batch):
+    """{counter name: launches} that one int8 forward over `sites` makes:
+    each conv on its route, and the separate quantize where the route does
+    not quantize inside the conv."""
+    from dmayolo_tpu_torch.nn.conv_int8 import ROUTES
+
+    want = {f"conv_int8_{r}": 0 for r in ROUTES}
+    want["quantize_s8"] = 0
+    for key, n in sites.items():
+        route, convert = int8_route(batch, *key)
+        want[f"conv_int8_{route}"] += n
+        want["quantize_s8"] += 0 if convert else n
+    return want
+
+
 def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
-    """K4 and its quantize against their plain versions at every eligible
-    shape of the flagship, yolov5s and C3CASPD2 at bs8 640 px and off the
-    models; K4 timed at the served models' bs128 step shapes; int8 serving
-    of the flagship and yolov5s at bs128 beside bf16; the trained tiny
-    model's int8 mAP at f32 and bf16 and `cli.val --int8`.  `cfgs` and
-    `sizes` replace the yamls and the sizes for a rehearsal on the CPU
-    (untimed there)."""
+    """K4's routes and its quantize against their plain versions at every
+    eligible shape of the flagship, yolov5s and C3CASPD2 at bs8 640 px, at
+    the route-(d) shapes of `INT8_GENERAL_MODEL` and off the models, the
+    flagship's and the route-(d) shapes timed beside the plain versions;
+    K4 timed at the served models' bs128 step shapes; int8 serving of the
+    flagship and yolov5s at bs128 beside bf16,
+    and of `INT8_GENERAL_MODEL` once; the trained tiny model's int8 mAP at
+    f32 and bf16 and `cli.val --int8`.  `cfgs` and `sizes` replace the
+    yamls and the sizes for a rehearsal on the CPU (untimed there)."""
     import shutil
 
     import torch
@@ -4867,10 +5024,11 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
     from dmayolo_tpu_torch.graph import model_config
 
     t0 = time.perf_counter()
-    cfgs = cfgs or {name: model_config(name) for name in INT8_CHECKED}
+    names = (*INT8_CHECKED, INT8_GENERAL_MODEL)
+    cfgs = cfgs or {name: model_config(name) for name in names}
     on_card = device.type == "cuda"
     out = {"sites": {}}
-    sites = {name: int8_sites(cfgs[name], sizes["imgsz"]) for name in INT8_CHECKED}
+    sites = {name: int8_sites(cfgs[name], sizes["imgsz"]) for name in names}
     for name, s in sites.items():
         out["sites"][name] = {"convs": sum(s.values()), "shapes": len(s)}
     union = {}
@@ -4878,9 +5036,13 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
         for key, n in sites[name].items():
             if key not in sites[FLAGSHIP]:
                 union[key] = union.get(key, 0) + n
+    general = {key: n for key, n in sites[INT8_GENERAL_MODEL].items()
+               if int8_route(sizes["check_batch"], *key)[0] == "general"}
     out["check_flagship"] = check_int8_shapes(device, sites[FLAGSHIP], sizes["check_batch"],
                                               timed=True)
     out["check_others"] = check_int8_shapes(device, union, sizes["check_batch"], seed=1)
+    out["check_general"] = check_int8_shapes(device, general, sizes["check_batch"], timed=True,
+                                             seed=2)
     off = [check_int8_case(device, torch.randn(b, h, w, c1, generator=torch.Generator()
                                                .manual_seed(i)).to(device) * 3,
                            torch.randn(c2, c1, k, k, generator=torch.Generator().manual_seed(i))
@@ -4890,32 +5052,60 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
     tie = check_int8_case(device, x, w, bias, s_x, 1, 0, 1)
     check(tie["sums_over_2_24"] >= 16 * 8, f"the tie case's sums are not above 2^24: {tie}")
     out["off_model"] = off + [tie]
-    out["checked_shapes"] = (len(out["check_flagship"]["shapes"])
-                             + len(out["check_others"]["shapes"]) + len(out["off_model"]))
+    checked = [*out["check_flagship"]["shapes"], *out["check_others"]["shapes"],
+               *out["check_general"]["shapes"], *out["off_model"]]
+    out["checked_shapes"] = len(checked)
+    out["checked_by_route"] = {}
+    for r in checked:
+        out["checked_by_route"][r["route"]] = out["checked_by_route"].get(r["route"], 0) + 1
     for key in ("max_abs_err", "quantize_max_abs_err"):  # over every checked shape
-        out[key] = max(out["check_flagship"][key], out["check_others"][key],
-                       *(r[key] for r in out["off_model"]))
-    print(f"K4 conv_int8: s32 sums and f32/bf16 outputs equal to the plain version at "
-          f"{out['checked_shapes']} shapes ({', '.join(f'{n} {v}' for n, v in out['sites'].items())}; "
-          f"off-model {len(out['off_model'])}, one with sums above 2^24)", flush=True)
+        out[key] = max(r[key] for r in checked)
+    out["max_abs_err_by_route"] = {}
+    for r in checked:
+        e = out["max_abs_err_by_route"]
+        e[r["route"]] = max(e.get(r["route"], 0.0), r["max_abs_err"])
+    print(f"K4: x_q, the s32 sums and the f32/bf16 outputs of both entries equal to the plain "
+          f"versions at {out['checked_shapes']} shapes ("
+          f"{', '.join(f'{n} {v}' for n, v in out['sites'].items())}; by route "
+          f"{out['checked_by_route']}; off-model {len(out['off_model'])}, one with sums above "
+          f"2^24)", flush=True)
+    if on_card:
+        for name in ("check_flagship", "check_general"):
+            for route, g in out[name]["routes"].items():
+                print(f"K4 route {route} at bs{sizes['check_batch']} ({g['shapes']} shapes, each "
+                      f"once): call {g['ms']:.3f} ms, kernels alone {g['kernel_ms']:.3f} ms, "
+                      f"plain {g['plain_ms']:.2f} ms, bound {g['bound_ms']:.3f} ms "
+                      f"({g['bound_by']}), {g['share_of_bound']:.3f} of it; on {smi}", flush=True)
+    part_s = out["part_s"] = {"checks": time.perf_counter() - t0}
     out["step"] = ({name: time_int8_step(device, sites[name], sizes["step_batch"])
                     for name in INT8_SERVED} if on_card else {})
     for name, st in out["step"].items():
         print(f"K4 over {name}'s {st['convs']} int8 convs at bs{st['batch']} 640px "
               f"({len(st['shapes'])} shapes, count-weighted): call {st['step_ms']:.3f} ms, "
-              f"kernel {st['step_kernel_ms']:.3f} ms, quantize {st['step_quantize_ms']:.3f} ms; "
-              f"cuDNN bf16 {st['step_cudnn_bf16_ms']:.3f} ms; bound {st['step_bound_ms']:.3f} ms "
-              f"({st['step_bound_by']}); 1x1 convs ({st['step_1x1_convs']}): K4 "
-              f"{st['step_1x1_kernel_ms']:.3f} ms, _int_mm {st['step_1x1_int_mm_ms']:.3f} ms; "
-              f"on {smi}", flush=True)
+              f"kernels alone {st['step_kernel_ms']:.3f} ms, bound {st['step_bound_ms']:.3f} ms "
+              f"(the sum of each conv's), {st['step_share_of_bound']:.3f} of it; cuDNN bf16 "
+              f"{st['step_cudnn_bf16_ms']:.3f} ms; the {st['step_1x1_convs']} 1x1 convs _int_mm "
+              f"takes: K4 {st['step_1x1_kernel_ms']:.3f} ms, its s8 form "
+              f"{st['step_1x1_s8_kernel_ms']:.3f} ms, _int_mm {st['step_1x1_int_mm_ms']:.3f} ms + "
+              f"quantize {st['step_1x1_quantize_ms']:.3f} ms; on {smi}", flush=True)
+        for route, g in st["routes"].items():
+            print(f"  route {route}: {g['convs']} convs ({g['shapes']} shapes), kernels "
+                  f"{g['kernel_ms']:.3f} ms, bound {g['bound_ms']:.3f} ms ({g['bound_by']}), "
+                  f"{g['share_of_bound']:.3f} of it", flush=True)
+    part_s["bs128 steps"] = time.perf_counter() - t0 - sum(part_s.values())
     out["serving"] = {name: int8_serving(device, cfgs[name], name, counters, sizes["serve_batch"],
                                          sizes["imgsz"], head_check=name == FLAGSHIP)
                       for name in INT8_SERVED}
-    for name, sv in out["serving"].items():
-        check(not on_card or sv["launches"]["conv_int8"] == sv["int8_convs"]
-              == sv["launches"]["quantize_s8"] and sv["launches"]["fixpoint_keep"] == 1,
-              f"the int8 serving step of {name} did not launch K4 once an int8 conv: "
-              f"{sv['launches']} for {sv['int8_convs']} convs")
+    part_s["serving"] = time.perf_counter() - t0 - sum(part_s.values())
+    out["general"] = int8_general(device, cfgs[INT8_GENERAL_MODEL], INT8_GENERAL_MODEL,
+                                  counters, sizes["check_batch"], sizes["imgsz"])
+    for name, sv in (*out["serving"].items(), (INT8_GENERAL_MODEL, out["general"])):
+        want = int8_expected_launches(sites[name], sizes["check_batch"])
+        got = {k: sv["launches"][k] for k in want}
+        check(not on_card or (got == want and sum(v for k, v in got.items() if k != "quantize_s8")
+                              == sv["int8_convs"] and sv["launches"]["fixpoint_keep"] == 1),
+              f"the int8 serving step of {name} did not launch each K4 route once a conv: "
+              f"{sv['launches']} for {sv['int8_convs']} convs, want {want}")
         if "int8" in sv:
             pi, pb = sv["int8"]["profile"], sv["bf16"]["profile"]
             conv, quant = (pi["groups_ms"].get(g, 0.0) for g in ("int8 conv (K4)",
@@ -4927,8 +5117,8 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
                   f"{quant:.2f}, other {pi['device_ms'] - conv - quant:.2f} (busy "
                   f"{pi['device_busy_share']:.3f}); bf16 step: convs "
                   f"{pb['groups_ms'].get('conv and matmul (cuDNN, cuBLAS)', 0.0):.2f} of "
-                  f"{pb['device_ms']:.2f} (busy {pb['device_busy_share']:.3f}); on {smi}",
-                  flush=True)
+                  f"{pb['device_ms']:.2f} (busy {pb['device_busy_share']:.3f}); launches "
+                  f"{got}; on {smi}", flush=True)
         if "head" in sv:
             hd = sv["head"]
             print(f"int8 raw head of {name} at f32 {hd['imgsz']} px, card vs CPU: "
@@ -4936,13 +5126,20 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
                   f"the spread, max {hd['max_err']:.2e} (tol {hd['tol']}); the card's float "
                   f"head: {hd['float_head_share_off']:.4f}, max {hd['float_head_max_err']:.2e}",
                   flush=True)
+    print(f"int8 serving {INT8_GENERAL_MODEL} bs{out['general']['batch']}: launches {got} "
+          f"({out['general']['s']:.1f} s)", flush=True)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    part_s[INT8_GENERAL_MODEL] = time.perf_counter() - t0 - sum(part_s.values())
     out["tiny"] = tiny = int8_tiny(device, counters, sizes["tiny"])
+    part_s["tiny model"] = time.perf_counter() - t0 - sum(part_s.values())
+    k4 = [c.__name__ for c in counters if c.__name__.startswith("conv_int8_")]
     for name in ("f32", "bf16"):
-        check(not on_card or tiny[name]["launches"]["conv_int8"] > 0,
+        check(not on_card or sum(tiny[name]["launches"][k] for k in k4) > 0,
               f"int8 eval at {name} did not launch K4: {tiny[name]['launches']}")
-    check(not on_card or tiny["cli_val"]["launches"]["conv_int8"] > 0,
+    check(not on_card or tiny["f32"]["launches"]["quantize_s8"] > 0,
+          f"int8 eval at f32 did not launch the quantize: {tiny['f32']['launches']}")
+    check(not on_card or sum(tiny["cli_val"]["launches"][k] for k in k4) > 0,
           "cli.val --int8 did not launch K4")
     print(f"int8 tiny model: mAP@.5 float / int8 at f32 {tiny['f32']['float_map50']:.4f} / "
           f"{tiny['f32']['int8_map50']:.4f}, at bf16 {tiny['bf16']['float_map50']:.4f} / "
@@ -4950,22 +5147,156 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
           f"mAP@.5 {tiny['cli_val']['map50']:.4f}; trained in {tiny['train_s']:.1f} s", flush=True)
     shutil.rmtree(INT8_DIR, ignore_errors=True)
     out["s"] = time.perf_counter() - t0
-    print(f"int8 phase: {out['s']:.1f} s", flush=True)
+    print(f"int8 phase: {out['s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()) + ")", flush=True)
     return out
 
 
+INT8_DESIGN = {
+    "1x1": "route (a): GEMM on wgmma m64nBNk32 s8, TMA loads, the bf16 input quantized in the "
+           "kernel, persistent, warp-specialised",
+    "3x3s1": "route (b): K1's haloed tile on wgmma s8 (nine row-shifted views), quantized once "
+             "a tile in the kernel",
+    "3x3s2": "route (c): four TMA loads a chunk with element strides 2, one an input phase, "
+             "its taps row-shifted views, wgmma s8, quantized once a load in the kernel",
+    "general": "route (d): implicit GEMM on mma.sync m16n8k32 s8, cp.async 4 stages, on "
+               "quantize_s8's output",
+}
 
-def main():
+
+def int8_kernel_entries(i8, launches):
+    """The kernels line's K4 entries, one a route, and the quantize's.
+    Each entry's times, bound and plain time are over one set of shapes:
+    the route's bs8 shapes, each once, of the flagship (routes (a)-(c)) or
+    of `INT8_GENERAL_MODEL` (route (d), which it serves at bs8);
+    `library_ms` is `_int_mm` on the shapes it takes (route (a)).  Beside
+    them, under "steps", each route's sums over the served models' bs128
+    steps, count-weighted.  The quantize's entry: over the route-(d)
+    shapes' bf16 inputs, the ones that take it on the bf16 path."""
+    from dmayolo_tpu_torch.nn.conv_int8 import ROUTE_COUNTS, quantize_s8
+
+    entries = []
+    for route, counter in ROUTE_COUNTS.items():
+        general = route == "general"
+        check_set = i8["check_general"] if general else i8["check_flagship"]
+        c = check_set["routes"][route]
+        entry = {
+            "name": counter.__name__, "route": "cuda", "design": INT8_DESIGN[route],
+            "source": "dmayolo_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "dmayolo_tpu/nn/primitives.py:134 (an XLA int8 conv; no TPU kernel)",
+            **launches(counter), "max_abs_err": i8["max_abs_err_by_route"][route],
+            **{k: c[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "share_of_bound")},
+            "library_ms": c.get("int_mm_ms"),
+            "shapes": f"{INT8_GENERAL_MODEL if general else FLAGSHIP} eligible, "
+                      f"bs{check_set['batch']}, {c['shapes']} shapes each once",
+            "checked_shapes": i8["checked_by_route"][route]}
+        if c.get("int_mm_ms") is not None:
+            entry.update(library="torch._int_mm on the same s8 product, on the shapes it takes "
+                                 "(1x1, C2 % 8 == 0)", library_shapes=c["int_mm_convs"],
+                         kernel_ms_on_library_shapes=c["kernel_ms_on_int_mm_convs"])
+        entry["steps"] = {f"{name}_bs{st['batch']}": {k: v for k, v in st["routes"][route].items()
+                                                      if k != "bytes_bound_ms"}
+                          for name, st in i8["step"].items() if route in st["routes"]}
+        entries.append(entry)
+    q = i8["check_general"]["routes"]["general"]
+    entries.append({
+        "name": "quantize_s8", "route": "cuda", "design": "one thread 8 channels",
+        "source": "dmayolo_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "dmayolo_tpu/nn/primitives.py:149 (x_q, an XLA op; no TPU kernel)",
+        **launches(quantize_s8), "max_abs_err": i8["quantize_max_abs_err"],
+        "ms": q["quantize_ms"], "kernel_ms": q["quantize_kernel_ms"],
+        "plain_ms": q["quantize_plain_ms"], "bound_ms": q["quantize_bound_ms"],
+        "bound_by": "bytes", "share_of_bound": q["quantize_bound_ms"] / q["quantize_kernel_ms"],
+        "library_ms": None,
+        "shapes": f"{INT8_GENERAL_MODEL}'s route-(d) conv inputs, bf16, "
+                  f"bs{i8['check_general']['batch']}, {q['shapes']} shapes each once (f32 inputs "
+                  f"take it on every route)"})
+    return entries
+
+
+# One round of `int8_compare`, run in a fresh process from the root of a
+# checkout (this one or another commit's), with that checkout's own
+# `time_int8_step` and `int8_serving`: K4 timed at the served models'
+# bs128 step shapes, then int8 serving beside bf16.  Each tree reports the
+# step sums it times (`step_*`): `step_kernel_ms` is what the served call
+# launches, its separate quantize included where the design has one and
+# times it under `step_quantize_ms`.
+INT8_COMPARE_ROUND = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from dmayolo_tpu_torch.graph import model_config
+dev = torch.device("cuda", 0)
+out = {}
+for name in cs.INT8_SERVED:
+    st = cs.time_int8_step(dev, cs.int8_sites(model_config(name)), 128)
+    row = {k: v for k, v in st.items() if k.startswith("step_") or k == "routes"}
+    sv = cs.int8_serving(dev, model_config(name), name, (), 128, 640)
+    row["serving"] = {k: {"img_per_s": sv[k]["img_per_s"], "ms": sv[k]["ms"],
+                          "device_ms": sv[k]["profile"]["device_ms"],
+                          "groups_ms": sv[k]["profile"]["groups_ms"]} for k in ("bf16", "int8")}
+    out[name] = row
+print(json.dumps(out))
+"""
+
+
+def int8_compare(other, order=("other", "change", "change", "other")):
+    """K4's bs128 step timing and int8 serving of another checkout
+    (`other`, e.g. the parent commit from `git archive`) and of this one,
+    in turns, each round in its own process (each builds its own kernels
+    under its own build/).  Returns {"rounds": [...]}, each round the
+    tree, the card's state and the round's numbers."""
+    trees = {"other": Path(other).resolve(), "change": ROOT}
+    rounds = []
+    for which in order:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", INT8_COMPARE_ROUND, str(trees[which])],
+                              cwd=trees[which], capture_output=True, text=True)
+        check(proc.returncode == 0, f"int8 compare round on {which} failed:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        rounds.append({"tree": which, "s": time.perf_counter() - t0, "card": card_state(),
+                       **res})
+        for name, r in res.items():
+            steps = ", ".join(f"{k[5:]} {v:.3f}" for k, v in r.items()
+                              if k.startswith("step_") and k.endswith("_ms"))
+            print(f"int8 compare {which} {name} bs128 step ms: {steps}; serving int8 "
+                  f"{r['serving']['int8']['img_per_s']:.1f} img/s, bf16 "
+                  f"{r['serving']['bf16']['img_per_s']:.1f}", flush=True)
+    return {"rounds": rounds}
+
+
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--int8-compare", metavar="DIR",
+                    help="only time K4 and int8 serving of the checkout in DIR and of this one, "
+                         "in turns (DIR, this, this, DIR)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.int8_compare:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader", "-i", "0"],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        print(f"card: {smi}", flush=True)
+        res = int8_compare(args.int8_compare)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "int8_compare.json").write_text(json.dumps({"card": smi, **res}, indent=1))
+        print(json.dumps({"int8_compare": [{k: r[k] for k in ("tree", "s")} for r in
+                                           res["rounds"]], "card": smi}))
+        return 0
     from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep, fixpoint_keep_blocked
     from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_stream
     from dmayolo_tpu_torch.nn.conv3x3 import conv3x3_s1
-    from dmayolo_tpu_torch.nn.conv_int8 import conv_int8, quantize_s8
+    from dmayolo_tpu_torch.nn.conv_int8 import ROUTE_COUNTS, quantize_s8
     from dmayolo_tpu_torch.utils import cuda_build
 
     t_start = time.perf_counter()
@@ -5031,7 +5362,7 @@ def main():
     phases["K1 checks"] = time.perf_counter() - t0
     stream_cluster = Counter(nms_greedy_stream, "cluster_launches", "nms_greedy_stream_cluster")
     counters = (nms_greedy, nms_greedy_stream, stream_cluster, fixpoint_keep,
-                fixpoint_keep_blocked, conv3x3_s1, conv_int8, quantize_s8)
+                fixpoint_keep_blocked, conv3x3_s1, *ROUTE_COUNTS.values(), quantize_s8)
     t_phase = t0 = time.perf_counter()
     model = build_model(device)
     report["model_build_s"] = time.perf_counter() - t0
@@ -5203,6 +5534,7 @@ def main():
                   "tools detect for wbf": tp["wbf"]["second_launches"]})
 
     paths.update({f"int8 serving {name}": r["launches"] for name, r in i8["serving"].items()})
+    paths[f"int8 serving {INT8_GENERAL_MODEL}"] = i8["general"]["launches"]
     paths.update({f"int8 eval tiny {dt}": i8["tiny"][dt]["launches"] for dt in ("f32", "bf16")})
     paths["int8 cli val tiny"] = i8["tiny"]["cli_val"]["launches"]
 
@@ -5263,33 +5595,7 @@ def main():
          "spd_bs128": k1_spd,
          "flagship_f32_b2_max_scaled_err": k1f32["max_scaled_err"]},
     ]
-    i8c = i8["check_flagship"]
-    step_keys = ("convs", "step_ms", "step_kernel_ms", "step_quantize_ms", "step_cudnn_bf16_ms",
-                 "step_bound_ms", "step_bound_by", "step_1x1_convs", "step_1x1_kernel_ms",
-                 "step_1x1_int_mm_ms")
-    kernels += [
-        # headline: the flagship's eligible shapes at bs8, each once (the
-        # checked set, where the plain version runs too); the bs128 step
-        # count-weighted beside it.  No PyTorch call computes an int8 conv
-        # on CUDA (_int_mm: the 1x1 products only, in the step sums).
-        {"name": "conv_int8", "route": "cuda",
-         "design": "implicit GEMM on mma.sync m16n8k32 s8, cp.async 4 stages, dequant epilogue",
-         "source": "dmayolo_tpu_torch/csrc/conv_int8.cu",
-         "replaces": "dmayolo_tpu/nn/primitives.py:134 (an XLA int8 conv; no TPU kernel)",
-         **launches(conv_int8), "max_abs_err": i8["max_abs_err"],
-         **{k: i8c[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None, "shapes": f"{FLAGSHIP} eligible, bs{i8c['batch']}, each once",
-         "checked_shapes": i8["checked_shapes"],
-         **{f"{name}_bs128": {k: st[k] for k in step_keys} for name, st in i8["step"].items()}},
-        {"name": "quantize_s8", "route": "cuda", "design": "one thread 8 channels",
-         "source": "dmayolo_tpu_torch/csrc/conv_int8.cu",
-         "replaces": "dmayolo_tpu/nn/primitives.py:149 (x_q, an XLA op; no TPU kernel)",
-         **launches(quantize_s8), "max_abs_err": i8["quantize_max_abs_err"],
-         "ms": i8c["quantize_ms"],
-         "plain_ms": i8c["quantize_plain_ms"], "bound_ms": i8c["quantize_bound_ms"],
-         "bound_by": i8c["quantize_bound_by"], "library_ms": None,
-         "shapes": f"{FLAGSHIP} eligible conv inputs, bs{i8c['batch']} bf16, each once"},
-    ]
+    kernels += int8_kernel_entries(i8, launches)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -3,10 +3,11 @@
 Each source in `dmayolo_tpu_torch/csrc/` has a plain C interface and
 builds into its own shared library for `sm_90a`, at first use, under
 `build/torch_kernels/` at the root of the checkout (listed in
-`.gitignore`).  A library's file name carries a hash of its source, the
-headers beside it (`*.cuh`) and its flags, so an edited source is rebuilt
-and an unchanged one is reused.
-`build()` starts one nvcc per source, all at once.
+`.gitignore`); a source that takes long builds into several, each with a
+macro that keeps a part of its kernels (`PART_OF`).  A library's file
+name carries a hash of its source, the headers beside it (`*.cuh`) and
+its flags, so an edited source is rebuilt and an unchanged one is reused.
+`build()` starts one nvcc per library, all at once.
 
 The host library of the data path (`csrc/host/imgio.cpp`, plain C++ for
 the CPU) is built the same way with g++ (`load_host_library`).  Its JPEG
@@ -29,7 +30,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-# per-source nvcc flags beyond the common ones
+# per-library nvcc flags beyond the common ones
 SOURCES = {
     # bit-exact IoU: no FMA contraction, so every product and sum rounds
     # as in the plain PyTorch version and the JAX reference
@@ -37,9 +38,13 @@ SOURCES = {
     "nms_fixpoint": ["-fmad=false"],
     "conv3x3_s1": [],
     # the int8 conv's dequant epilogue rounds each product and sum as
-    # XLA does
-    "conv_int8": ["-fmad=false"],
+    # XLA does; route (d) and the quantize in one library, the wgmma
+    # kernel's instances in one a BN (csrc/conv_int8.cu, CI8_TC_BN)
+    "conv_int8": ["-fmad=false", "-DCI8_TC_BN=-1"],
+    **{f"conv_int8_bn{bn}": ["-fmad=false", f"-DCI8_TC_BN={bn}"] for bn in (64, 128, 256)},
 }
+# the libraries built from a part of another's source
+PART_OF = {f"conv_int8_bn{bn}": "conv_int8" for bn in (64, 128, 256)}
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -58,15 +63,19 @@ def _flags(name: str):
     return _COMMON + SOURCES[name]
 
 
+def source_path(name: str) -> Path:
+    return CSRC / f"{PART_OF.get(name, name)}.cu"
+
+
 def library_path(name: str) -> Path:
     # the headers in csrc/ count as part of every source
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    src = b"".join(p.read_bytes() for p in [source_path(name), *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
-    """Compile every listed source that has no library yet, one nvcc each,
+    """Compile every listed library that is not built yet, one nvcc each,
     all started together.  Returns {name: compiler output}; raises with the
     compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +85,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(source_path(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
