@@ -122,7 +122,7 @@ source, all at once), then:
    VisDrone-analog set at 1536 px (64 train and 96 val images, JPEG at
    quality 85 through the machine's JPEG route: nvJPEG on the card) under
    build/data_smoke/ (removed at the end); the val passes read each val
-   file through 8 symlinked copies (768 images, 24 batches of 32), so
+   file through 4 symlinked copies (384 images, 12 batches of 32), so
    that 8 loader threads, each taking a whole batch, stay busy.  The
    loader alone: decode ms, img/s at 1 worker (to the last batch's
    arrival) and at min(8, cpu_count) workers (the whole pass, and after
@@ -195,10 +195,11 @@ source, all at once), then:
    1536 px bs4 bf16 step against the plain one from one state (grads and
    BN statistics within `REMAT_TOL` or twice the plain step's own spread;
    peak GiB of both, remat's not larger; ms a step); `--batch-size -1` at
-   the recipe (the probe ladder, the chosen batch, and one real step at
-   it peaking under 0.9 of the budget); `cli.val` at the author's eval
+   the recipe, probed at accumulate 1 (the probe ladder, the chosen batch,
+   and one real step at it, at the recipe's accumulate, peaking under 0.9
+   of the budget); `cli.val` at the author's eval
    recipe (val.sh:4-6: 1996 px, rounded to 2016, TTA, bs8, --save-txt
-   --save-conf --verbose) on the 96 val files from the trained best.npz,
+   --save-conf --verbose) on the first 32 val files from the trained best.npz,
    then `--save-json` on "scan" and one run each on "pallas" and "matrix"
    at 1536 px on the first 32 (each run's img/s for the whole run and
    after its first batch; counted: K2's cluster kernel and K3's blocked entry once a
@@ -226,9 +227,9 @@ source, all at once), then:
    its plain version on the run's own first (16, 30,000) candidates at
    max_det 1000 (timed, with its bound), the labels equal to
    `serve_detections` of the same batches; the frame decoded by nvJPEG
-   and by libjpeg served to the same detections; `--augment` on 16
+   and by libjpeg served to the same detections; `--augment` on 8
    files; `cli.export --include torch_export npz torch` at bs8, detect on
-   the `.pt2` (equal to its model's decode through `batched_nms`; the
+   the `.pt2` on 16 files (equal to its model's decode through `batched_nms`; the
    exported program equal to the model), the `.pt` loaded back to the
    same weights and the fused `.npz` to the same head; `hub.load`,
    `AutoShape` on 8 files, `Detections.crop`, `save`, `tolist`; the REST
@@ -272,6 +273,23 @@ source, all at once), then:
    The CLI phase (12) runs its train recipe with `--ckpt-async`, holds
    `results.csv`'s header to the JAX trainer's columns, and times one
    epoch's save and train steps with synchronous and async saving.
+15. Data parallelism (`dist_phase`, after 13, on 9's files;
+   `parallel/mesh.py`): the flagship's f32 step (batch 2, 640 px, TF32
+   off) through the data-parallel step at world 1 over NCCL in this
+   process, and at world 2 over gloo in two spawned ranks on cuda:0, one
+   image each (NCCL refuses two ranks on one card), each against the
+   plain step on the card within `TRAIN_F32_TOL` (loss and items, every
+   gradient, every updated parameter, the BN buffers); the flagship
+   recipe's step (1536 px, bs4, Adam, bf16) through the `Trainer` on the
+   world-1 group beside the plain `Trainer`, ms a step in turns, one step
+   of each profiled (NCCL kernels, all-reduce calls, host syncs), and a
+   BN-width all-reduce's host cost; `run_validation` on 64 of the data
+   phase's val files on "matrix" at world 2 (each rank counting K3) and
+   at world 1 with the same 16 images a forward: the same detection sets
+   (`same_sets`) and P, R and mAP within `DIST_EVAL_TOL`; `cli.train` for
+   two steps under `python -m torch.distributed.run --standalone
+   --nproc-per-node 1`, beside the world-2 ranks.  A rank that fails
+   fails the run.
 
 Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
@@ -1517,7 +1535,7 @@ class ReplayedAssignment:
 
 
 def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
-                   recipe=RECIPE, anchors=None, replay=None):
+                   recipe=RECIPE, anchors=None, replay=None, mesh=None, with_buffers=False):
     """One SGD step past warmup (lr and momentum at their base values) of
     the model of `cfg` (`anchors`: its head's, stride units, where the
     yaml's are placeholders) from `state_dict` on `batch`, with the
@@ -1528,8 +1546,13 @@ def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
     the grads do (Adam's first step moves each by +-lr whatever the
     gradient's size).  With `layers`, every conv's and BN's backward is
     held against its formula on its own operands (`layer_grad_errs`), and
-    the dtypes of the master weights and their grads are kept; else None."""
+    the dtypes of the master weights and their grads are kept; else None.
+    `mesh` (`parallel/mesh.py`) with a group: this rank's share of the
+    step over `batch` (its rows), through the data-parallel step.  With
+    `with_buffers`, a fifth item: the BN running statistics after it."""
     import torch
+
+    from dmayolo_tpu_torch.parallel.mesh import shard_batch
 
     from dmayolo_tpu_torch.graph import DetectionModel
     from dmayolo_tpu_torch.train.loss import Targets
@@ -1548,9 +1571,11 @@ def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
     loss = make_loss(model, h, nc, recipe["assignment"])
     if replay is not None:
         replay.install(loss)
-    step = make_train_step(loss, sched, dtype=dtype)
+    step = make_train_step(loss, sched, dtype=dtype, mesh=mesh)
     imgs = torch.from_numpy(batch.images).to(device)
     tg = Targets(*(torch.from_numpy(t).to(device) for t in batch.targets))
+    if mesh is not None and mesh.distributed:
+        imgs, tg = shard_batch(mesh, imgs), shard_batch(mesh, tg)
     records, handles = layer_grad_hooks(model) if layers else ({}, [])
     grads, errs = {}, None
 
@@ -1568,8 +1593,11 @@ def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
     metrics = step(state, imgs, tg, ni=float(sched.nw + 1))
     for hd in handles:
         hd.remove()
-    return ({k: float(v) for k, v in metrics.items()}, grads,
-            {k: p.detach().float().cpu() for k, p in model.named_parameters()}, errs)
+    out = ({k: float(v) for k, v in metrics.items()}, grads,
+           {k: p.detach().float().cpu() for k, p in model.named_parameters()}, errs)
+    if with_buffers:
+        out += ({k: b.detach().float().cpu() for k, b in model.named_buffers()},)
+    return out
 
 
 def layer_grad_hooks(model):
@@ -1650,7 +1678,7 @@ def bn_backward_in(dtype):
         n = x.numel() // x.shape[1]
         dx = (g - (dbias / n)[:, None, None] - xhat * (dscale / n)[:, None, None]) \
             * (rstd * scale).to(dtype)[:, None, None]
-        return dx.to(x.dtype), dscale.float(), dbias.float(), None
+        return dx.to(x.dtype), dscale.float(), dbias.float(), None, None
 
     _BatchNormTrain.backward = staticmethod(faulty)
     try:
@@ -2453,8 +2481,8 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # VisDrone's pixel scale on VisDrone-size frames: the train recipe's 1536 px;
 # 160 images, so that generation stays under 30 s on a slow host (192 took
 # 19.6-30.5 s on 8 threads).  The val passes read the 96 val files through
-# `val_copies` symlinked copies each: 24 batches of 32, so that 8 loader
-# threads (each takes a whole batch) stay busy for three rounds.  The
+# `val_copies` symlinked copies each: 12 batches of 32, so that 8 loader
+# threads (each takes a whole batch) stay busy for a round and a half.  The
 # Trainer reads `train_copies` copies of the train files: an epoch of 64
 # batches, at accumulate 4, so that the optimizer steps 16 times as a
 # 16-batch epoch at accumulate 1 would (the warmup's bias lr of 0.1 pulls
@@ -2465,7 +2493,7 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # unprofiled over batches `train_timed` (after the fill and the first two
 # optimizer steps) and profiled over `train_profiled`, both while the
 # loader still works.
-DATA = dict(img_size=1536, n_train=64, n_val=96, val_copies=8, train_copies=4, val_imgsz=640,
+DATA = dict(img_size=1536, n_train=64, n_val=96, val_copies=4, train_copies=4, val_imgsz=640,
             val_batch=32, train_batch=4, train_accumulate=4, train_val=32,
             one_worker_batches={"val": 1, "train": 2}, train_timed=(8, 32),
             train_profiled=(32, 40), train_device_aug=(False,))  # on: cli.train --device-aug
@@ -3080,7 +3108,7 @@ def print_data(dp, ev, tr_mem, smi):
 # val.sh's recipe reads the data phase's `recipe_val` unique val files; the
 # --save-json and backend runs the first `n_val` of them
 CLI = dict(train_imgsz=1536, train_batch=4, epochs=2, train_val=16, val_imgsz=1996,
-           val_batch=8, recipe_val=96, n_val=32, backend_imgsz=1536, profile_batch=128,
+           val_batch=8, recipe_val=32, n_val=32, backend_imgsz=1536, profile_batch=128,
            profile_iters=3, remat_imgsz=1536, remat_batch=4, model_nc=10)
 CLI_DIR = DATA_DIR / "cli"
 PT_ANCHOR_SCALE = 1.3  # the .pt's trained anchors: the checkpoint's, scaled
@@ -3424,8 +3452,8 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
     trainers, vals, steps = [], [], []
     real_make, real_val = cli_train._make_trainer, trainer_mod.run_validation
 
-    def make(opt, hyp, out_dir):
-        tr = real_make(opt, hyp, out_dir)
+    def make(opt, hyp, out_dir, *mesh):
+        tr = real_make(opt, hyp, out_dir, *mesh)
         trainers.append(tr)
         get_step = tr.get_step
 
@@ -3512,9 +3540,10 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
     check(header[0].split(",") == JAX_RESULTS_COLUMNS and len(header) == 3,
           f"results.csv is not the JAX trainer's: {out['train']['results_csv']}")
     check(first.ckpt_async and second.ckpt_async, "--ckpt-async did not reach both Trainers")
+    # half an epoch's steps a window (the time limit's share)
     out["train"]["ckpt_async"] = async_save_cost(second, device, sizes["train_imgsz"],
                                                  sizes["train_batch"], nc,
-                                                 n_train // sizes["train_batch"])
+                                                 n_train // sizes["train_batch"] // 2)
     print("cli train: " + json.dumps(out["train"]), flush=True)
     del first, second, trainers
     if on_card:
@@ -3541,8 +3570,10 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
     autobatch_mod.find_train_batch_size = logged
     try:
         t0 = time.perf_counter()
+        # probed at accumulate 1: a step's peak is its microbatch's (the
+        # gradients accumulate in place), at a sixth of the recipe's images
         cli_train.main(["--cfg", cfg_arg, "--data", str(data_yaml), "--epochs", "0",
-                        *recipe(-1),
+                        *recipe(-1), "--accumulate", "1",
                         "--project", str(CLI_DIR / "runs"), "--name", "autobatch",
                         "--workers", str(workers), *dev])
         ab = {"s": time.perf_counter() - t0, "batch": found.get("batch")}
@@ -3846,8 +3877,8 @@ def jpeg_phase():
 # ---------------------------------------------------------------------------
 # The inference tools: detect, export, hub, REST, Grad-CAM, WBF
 # ---------------------------------------------------------------------------
-TOOLS = dict(imgsz=1536, batch=16, live=4000, crop_files=4, augment_files=16, export_batch=8,
-             pt2_files=32, hub_files=8, rest_imgsz=640, rest_batch=16, rest_requests=32,
+TOOLS = dict(imgsz=1536, batch=16, live=4000, crop_files=4, augment_files=8, export_batch=8,
+             pt2_files=16, hub_files=8, rest_imgsz=640, rest_batch=16, rest_requests=32,
              rest_single=4, gradcam_files=2, gradcam_imgsz=640, gradcam_max_dets=4,
              gradcam_layer="model_17_cv3_act", frame_top=100, wbf_imgsz=1280, wbf_files=8)
 TOOLS_DIR = DATA_DIR / "tools"
@@ -3892,18 +3923,21 @@ def same_sets(a, b, box_tol, score_tol, conf, by_class=True):
     """(n, 6) rows [cls, 4 box, conf]: the larger of the two sets'
     unmatched-above-`conf` counts (0 when they are the same sets),
     matching each row to one row of the other (of the same class, with
-    `by_class`) within the box tolerance and the relative score one."""
+    `by_class`) within the box tolerance and the relative score one: the
+    nearest such row in box and score, so that near-duplicates pair with
+    their own."""
     import numpy as np
 
     def unmatched(x, y):
         free = np.ones(len(y), bool)
         miss = 0
         for row in x[np.argsort(-x[:, -1])]:
-            ok = free & ((y[:, 0] == row[0]) | (not by_class)) \
-                & (np.abs(y[:, 1:5] - row[1:5]) <= box_tol).all(1) \
+            dist = np.abs(y[:, 1:5] - row[1:5]).max(1) if len(y) else np.zeros(0)
+            ok = free & ((y[:, 0] == row[0]) | (not by_class)) & (dist <= box_tol) \
                 & (np.abs(y[:, 5] - row[5]) <= score_tol * np.maximum(y[:, 5], row[5]))
             if ok.any():
-                free[np.argmax(ok)] = False
+                cost = dist + np.abs(y[:, 5] - row[5])
+                free[np.argmin(np.where(ok, cost, np.inf))] = False
             elif row[5] > conf:
                 miss += 1
         return miss
@@ -5267,6 +5301,412 @@ def int8_compare(other, order=("other", "change", "change", "other")):
     return {"rounds": rounds}
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+DIST = dict(check_imgsz=640, check_batch=2, recipe_steps=3, recipe_warmup=1, val_images=64,
+            val_imgsz=640, val_batch=16, torchrun_imgsz=256, torchrun_batch=2,
+            torchrun_train=4, torchrun_val=2, workers=4)
+DIST_DIR = ROOT / "build" / "dist_smoke"
+DIST_EVAL_TOL = 1e-3  # P, R and mAP of world 2 against world 1
+DIST_SEED = 7
+
+
+def dist_step_check(device, cfg, nc, sizes, seed, mesh):
+    """The flagship's f32 step (TF32 off) at `check_batch` x `check_imgsz`
+    through `mesh`'s data-parallel step against the plain step on the
+    same card: the errors of the loss and items, every gradient, every
+    updated parameter and the BN buffers, and whether they hold
+    `TRAIN_F32_TOL` (the buffers the parameters' tolerance)."""
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = DetectionModel(cfg, nc=nc, device="cpu").init_with_priors(
+        torch.Generator().manual_seed(seed)).state_dict()
+    small = train_batches(1, sizes["check_batch"], sizes["check_imgsz"], nc,
+                          RECIPE["max_targets"], seed)[0]
+    want = one_train_step(device, cfg, sd, small, torch.float32, nc=nc, with_buffers=True)
+    got = one_train_step(device, cfg, sd, small, torch.float32, nc=nc, mesh=mesh,
+                         with_buffers=True)
+    errs = {"loss_rel_err": max(abs(got[0][k] - want[0][k]) / abs(want[0][k]) for k in want[0]),
+            "grad_scaled_err": scaled_err(got[1], want[1]),
+            "param_scaled_err": scaled_err(got[2], want[2]),
+            "buffer_scaled_err": scaled_err(got[4], want[4]),
+            "metrics": got[0], "metrics_plain": want[0], "rows": small.images.shape[0]
+            // mesh.world}
+    errs["ok"] = (errs["loss_rel_err"] <= TRAIN_F32_TOL["loss"]
+                  and errs["grad_scaled_err"] <= TRAIN_F32_TOL["grad"]
+                  and max(errs["param_scaled_err"], errs["buffer_scaled_err"])
+                  <= TRAIN_F32_TOL["param"])
+    return errs
+
+
+def dist_eval(device, model, val_list, sizes, nc, out_dir, mesh=None):
+    """`run_validation` on "matrix" (bf16, the protocol) of `model` over
+    `val_list` at `mesh`'s world (global batch `val_batch` times the world
+    size, so that every forward holds `val_batch` images, the same at
+    every world); the txt rows to `out_dir` (rank 0), the metrics and the
+    K3 launches this process made."""
+    from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep, fixpoint_keep_blocked
+    from dmayolo_tpu_torch.eval.validator import run_validation
+
+    counters = (fixpoint_keep, fixpoint_keep_blocked)
+    world = 1 if mesh is None else mesh.world
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = run_validation(model, str(val_list), img_size=sizes["val_imgsz"],
+                         batch_size=sizes["val_batch"] * world, nc=nc, nms_backend="matrix",
+                         save_txt_dir=out_dir, save_conf=True, workers=sizes["workers"],
+                         device=device, mesh=mesh, **PROTOCOL)
+    return {"launches": {c.__name__: c.launches for c in counters},
+            "s": time.perf_counter() - t0, "nt": res.nt,
+            **{k: getattr(res, k) for k in ("mp", "mr", "map50", "map75", "map")}}
+
+
+def dist_rank(mesh, cfg, nc, sizes, seed, model_path, val_list, out_dir):
+    """One rank of world 2 (gloo, both ranks on cuda:0): the f32 step
+    against the plain one, the recipe's step timed on the card (its
+    global batch of 4, two images a rank), then the data-parallel eval."""
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.train.trainer import Trainer, load_hyp
+
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend}
+    t0 = time.perf_counter()
+    out["step"] = dist_step_check(mesh.device, cfg, nc, sizes, seed, mesh)
+    out["step_s"] = time.perf_counter() - t0
+    if mesh.device.type == "cuda":
+        batches = train_batches(1, RECIPE["batch"], RECIPE["imgsz"], nc, RECIPE["max_targets"],
+                                seed)
+        tr = Trainer(cfg, batches, load_hyp(RECIPE["hyp"]), nc=nc, epochs=1,
+                     batch_size=RECIPE["batch"], img_size=RECIPE["imgsz"], adam=RECIPE["adam"],
+                     out_dir=str(DIST_DIR / f"recipe_rank{mesh.rank}"), dtype=torch.bfloat16,
+                     seed=seed, device=mesh.device, mesh=mesh)
+        imgs, tg = tr.to_device(batches)
+        gen = torch.Generator(device=mesh.device).manual_seed(seed)
+        step = tr.get_step(1)
+        out["recipe_ms"] = cuda_ms(lambda: step(tr.state, imgs, tg, gen), 2)
+        del tr, imgs, tg
+    model = DetectionModel(cfg, nc=nc, device=mesh.device)
+    model.load_state_dict(torch.load(model_path, map_location=mesh.device))
+    out["eval"] = dist_eval(mesh.device, model.eval(), val_list, sizes, nc, out_dir, mesh)
+    return out
+
+
+def collectives_profile(step):
+    """One step under torch.profiler: its device time, the NCCL kernels'
+    device time and launches, the collectives the host issued, and the
+    host's syncs with the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    cuda = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
+            and not annotation(e)]
+    nccl = [e for e in cuda if "nccl" in e.key.lower()]
+    cpu = [e for e in avg if e.device_type == torch.autograd.DeviceType.CPU]
+    host = {e.key: e.count for e in cpu}
+    return {"wall_ms": wall_ms, "device_ms": sum(e.self_device_time_total for e in cuda) / 1e3,
+            "cuda_launches": sum(e.count for e in cuda),
+            "host_top_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count) for e in
+                            sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]],
+            "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+            "nccl_launches": sum(e.count for e in nccl),
+            "nccl_kernels": sorted({e.key[:80] for e in nccl}),
+            "all_reduce_calls": sum(n for k, n in host.items()
+                                    if "all_reduce" in k.lower() or "allreduce" in k.lower()),
+            "host_syncs": sum(host.get(k, 0) for k in ("cudaStreamSynchronize",
+                                                        "cudaDeviceSynchronize",
+                                                        "cudaEventSynchronize"))}
+
+
+def dist_recipe_timing(device, mesh, cfg, nc, sizes, seed):
+    """The flagship recipe (train.sh:5-9: 1536 px, bs4, Adam, bf16, no
+    remat) through the `Trainer`'s step on `mesh` (world 1) and through the
+    plain `Trainer`, from the same seed: ms a step (accumulate 1) by CUDA
+    events in turns, plain, mesh, local, local, mesh, plain, where "local"
+    is the mesh's step with each all-reduce taken as the identity it is
+    at world 1 (the same arithmetic without the NCCL calls); then one step
+    of plain and mesh profiled."""
+    import shutil
+
+    import torch
+
+    from dmayolo_tpu_torch.parallel.mesh import Mesh
+    from dmayolo_tpu_torch.train.trainer import Trainer, load_hyp
+
+    def identity(self, t):
+        return t
+
+    n = sizes["recipe_steps"] + sizes["recipe_warmup"]
+    batches = train_batches(n, RECIPE["batch"], RECIPE["imgsz"], nc, RECIPE["max_targets"],
+                            seed)
+    out, trainers = {}, {}
+    try:
+        # the plain Trainer's mesh has no group, although this process is in one
+        for name, m in (("plain", Mesh(device=device)), ("mesh", mesh)):
+            tr = Trainer(cfg, batches, load_hyp(RECIPE["hyp"]), nc=nc, epochs=1,
+                         batch_size=RECIPE["batch"], img_size=RECIPE["imgsz"],
+                         adam=RECIPE["adam"], out_dir=str(DIST_DIR / f"recipe_{name}"),
+                         dtype=torch.bfloat16, seed=seed, device=device, mesh=m)
+            imgs, tg = tr.to_device(batches[:1])
+            gen = torch.Generator(device=device).manual_seed(seed)
+            step = tr.get_step(1)
+            trainers[name] = (lambda step=step, tr=tr, imgs=imgs, tg=tg, gen=gen:
+                              step(tr.state, imgs, tg, gen))
+        ms = {"plain": [], "mesh": [], "local": []}
+        real = Mesh.all_reduce
+        for name in ("plain", "mesh", "local", "local", "mesh", "plain"):
+            Mesh.all_reduce = identity if name == "local" else real
+            try:
+                ms[name].append(cuda_ms(trainers["plain" if name == "plain" else "mesh"],
+                                        sizes["recipe_steps"], warmup=sizes["recipe_warmup"]))
+            finally:
+                Mesh.all_reduce = real
+        out["ms"] = {k: sum(v) / len(v) for k, v in ms.items()}
+        out["ms_rounds"] = ms
+        out["profile"] = {name: collectives_profile(trainers[name]) for name in ("plain", "mesh")}
+    finally:
+        trainers.clear()
+        for name in ("plain", "mesh"):
+            shutil.rmtree(DIST_DIR / f"recipe_{name}", ignore_errors=True)
+    return out
+
+
+def torchrun_train(data_dir, sizes, nc, on_card=True):
+    """Start `cli.train` for two optimizer steps under `python -m
+    torch.distributed.run --standalone --nproc-per-node 1` (the reference's
+    DDP launch) on the data phase's files: the tiny model, one epoch of
+    `torchrun_train` images at `torchrun_batch`, validated on
+    `torchrun_val`.  Returns `finish()`, which waits for it and checks it."""
+    import os
+
+    import yaml
+
+    from dmayolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    run = DIST_DIR / "torchrun"
+    run.mkdir(parents=True, exist_ok=True)
+    files = lambda split, k: "".join(  # noqa: E731
+        f"{f}\n" for f in sorted((data_dir / "images" / split).iterdir())[:k])
+    (run / "train.txt").write_text(files("train", sizes["torchrun_train"]))
+    (run / "val.txt").write_text(files("val", sizes["torchrun_val"]))
+    (run / "data.yaml").write_text(yaml.safe_dump(
+        {"path": str(data_dir), "train": str(run / "train.txt"), "val": str(run / "val.txt"),
+         "nc": nc, "names": [f"c{i}" for i in range(nc)]}))
+    (run / "tiny.yaml").write_text(yaml.safe_dump(TINY_CFG))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "dmayolo_tpu_torch.cli.train", "--cfg", str(run / "tiny.yaml"),
+           "--data", str(run / "data.yaml"), "--epochs", "1", "--batch-size",
+           str(sizes["torchrun_batch"]), "--imgsz", str(sizes["torchrun_imgsz"]),
+           "--accumulate", "1", "--no-accum-ramp", "--noautoanchor", "--workers", "2",
+           "--project", str(run), "--name", "exp", "--exist-ok", "--sync-bn",
+           *(() if on_card else ("--device", "cpu"))]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        try:
+            printed, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        out = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+               "tail": printed.strip().splitlines()[-6:]}
+        check(proc.returncode == 0, f"cli.train under torchrun failed: {out}")
+        _, meta = load_checkpoint(run / "exp" / "last.npz")  # stripped: no step count
+        want = sizes["torchrun_train"] // sizes["torchrun_batch"]
+        out.update(epoch=int(meta.get("epoch", -1)),
+                   results_csv=(run / "exp" / "results.csv").exists(),
+                   steps_logged=f"epoch 0 [{want}/{want}]" in printed, step=want)
+        check(out["epoch"] == 0 and out["results_csv"] and out["steps_logged"],
+              f"cli.train under torchrun did not take its {want} steps: {out}")
+        return out
+
+    finish.proc = proc
+    return finish
+
+
+def collective_call_us(mesh, n=235, width=513, thread=False):
+    """Host microseconds a SUM all-reduce of a BN's width takes on
+    `mesh`'s group, over `n` calls (a flagship step's count), and with the
+    card drained after them; from a second thread with `thread` (BN's
+    backward all-reduces run on the autograd engine's)."""
+    import torch
+
+    if thread:
+        out = {}
+        th = threading.Thread(target=lambda: out.update(collective_call_us(mesh, n, width)))
+        th.start()
+        th.join()
+        return out
+    t = torch.zeros(width, device=mesh.device)
+    for _ in range(10):
+        mesh.all_reduce(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        mesh.all_reduce(t)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"calls": n, "width": width, "host_us": host / n * 1e6,
+            "drained_us": (time.perf_counter() - t0) / n * 1e6}
+
+
+def dist_phase(device, smi, data_dir=DATA_DIR, cfg=None, sizes=DIST, nc=10):
+    """Data parallelism (`parallel/mesh.py`) on the one card: the f32 step
+    at world 1 over NCCL (in this process) and at world 2 over gloo (two
+    ranks on cuda:0, one image each) against the plain step;
+    `run_validation` on the data phase's val images at world 2 against
+    world 1 (K3 counted in each rank); `cli.train` under torchrun, beside
+    those (untimed); last, alone on the card, the recipe's ms a step at
+    world 1 beside the plain `Trainer`, one step each profiled."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.graph import model_config
+    from dmayolo_tpu_torch.parallel.mesh import close_group, init_group, spawn
+
+    cfg = cfg or model_config(FLAGSHIP)
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"sizes": dict(sizes)}
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    torchrun_done = None
+    try:
+        # ---- cli.train under torchrun (the tiny model), beside the checks
+        torchrun_done = torchrun_train(data_dir, sizes, nc, on_card)
+        # ---- world 1 over NCCL (gloo on the CPU), in this process
+        mesh = init_group(0, 1, "nccl" if on_card else "gloo", device,
+                          store_path=str(DIST_DIR / "store_w1"))
+        try:
+            t0 = time.perf_counter()
+            out["world1_step"] = dist_step_check(device, cfg, nc, sizes, DIST_SEED, mesh)
+            check(out["world1_step"]["ok"],
+                  f"the world-1 step differs from the plain one: {out['world1_step']}")
+            out["world1_s"] = time.perf_counter() - t0
+
+            # ---- world 2 over gloo, both ranks on the card: the step, its
+            # time, then eval
+            t0 = time.perf_counter()
+            model = build_model(device, cfg=cfg, nc=nc).eval()
+            model_path = DIST_DIR / "model.pt"
+            torch.save(model.state_dict(), model_path)
+            val_list = DIST_DIR / "val.txt"
+            val_list.write_text("".join(f"{f}\n" for f in sorted(
+                (data_dir / "images" / "val").iterdir())[:sizes["val_images"]]))
+            ranks = spawn(dist_rank, 2, args=(cfg, nc, sizes, DIST_SEED, str(model_path),
+                                              str(val_list), str(DIST_DIR / "w2")),
+                          device=device.type, backend="gloo", share_device=on_card,
+                          threads=None if on_card else torch.get_num_threads())
+            out["world2_spawn_s"] = time.perf_counter() - t0
+            out["world2"] = ranks
+            for r in ranks:
+                check(r["step"]["ok"], f"rank {r['rank']}'s world-2 step differs from the "
+                                       f"plain one: {r['step']}")
+            # world 1 on the same forwards (`val_batch` images each)
+            out["world1_eval"] = w1 = dist_eval(device, model, val_list, sizes, nc,
+                                                DIST_DIR / "w1")
+            del model
+            w2 = ranks[0]["eval"]
+            a, b = label_lines(DIST_DIR / "w2"), label_lines(DIST_DIR / "w1")
+            unmatched = [same_sets(rows_of(a.get(k, [])), rows_of(b[k]), 2e-3, 0.05,
+                                   SAME_SET_BAND * PROTOCOL["conf_thres"]) for k in b]
+            out["eval"] = {"files": [len(a), len(b)],
+                           "detections": [sum(map(len, a.values())),
+                                          sum(map(len, b.values()))],
+                           "unmatched": max(unmatched, default=0),
+                           "metric_err": max(abs(w2[k] - w1[k])
+                                             for k in ("mp", "mr", "map50", "map"))}
+            check(len(a) == len(b) == sizes["val_images"] and out["eval"]["unmatched"] == 0
+                  and out["eval"]["metric_err"] <= DIST_EVAL_TOL
+                  and all(r["eval"]["nt"] == w1["nt"] for r in ranks) and 0 < w1["map50"] < 1
+                  and all(np.isfinite(w1[k]) for k in ("mp", "mr", "map")),
+                  f"world-2 eval differs from world 1: {out['eval']}, {w1}, {w2}")
+            if on_card:
+                check(all(r["eval"]["launches"]["fixpoint_keep_blocked"] > 0 for r in ranks),
+                      f"K3 did not launch in a world-2 rank: {[r['eval'] for r in ranks]}")
+            out["torchrun"] = torchrun_done()
+
+            # ---- the recipe's step at world 1, timed with the card to itself
+            if on_card:
+                t0 = time.perf_counter()
+                out["recipe"] = dist_recipe_timing(device, mesh, cfg, nc, sizes, DIST_SEED)
+                out["collective_call"] = collective_call_us(mesh)
+                out["collective_call_thread"] = collective_call_us(mesh, thread=True)
+                out["recipe_s"] = time.perf_counter() - t0
+        finally:
+            close_group()
+    finally:
+        if torchrun_done is not None and torchrun_done.proc.poll() is None:
+            torchrun_done.proc.kill()
+            torchrun_done.proc.wait()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_dist(dp, smi):
+    w1, rec = dp["world1_step"], dp.get("recipe")
+    for label, st in [("world 1, NCCL", w1)] + [
+            (f"world 2, gloo, rank {r['rank']} on {r['device']}", r["step"]) for r in dp["world2"]]:
+        print(f"dist f32 step ({label}, {st['rows']} image(s) a rank) vs the plain step: loss "
+              f"{st['loss_rel_err']:.2e}, grads {st['grad_scaled_err']:.2e}, params "
+              f"{st['param_scaled_err']:.2e}, BN buffers {st['buffer_scaled_err']:.2e} "
+              f"(tol {TRAIN_F32_TOL}) on {smi}", flush=True)
+    if rec:
+        p = rec["profile"]
+        print(f"dist recipe (1536 px bs4 Adam bf16, accumulate 1): world 1 over NCCL "
+              f"{rec['ms']['mesh']:.2f} ms a step, its all-reduces as the identity "
+              f"{rec['ms']['local']:.2f}, plain Trainer {rec['ms']['plain']:.2f} ms "
+              f"(rounds {rec['ms_rounds']}); profiled: device {p['mesh']['device_ms']:.2f} ms "
+              f"(plain {p['plain']['device_ms']:.2f}), NCCL kernels {p['mesh']['nccl_ms']:.3f} "
+              f"ms over {p['mesh']['nccl_launches']} launches, wall {p['mesh']['wall_ms']:.2f} "
+              f"ms (plain {p['plain']['wall_ms']:.2f}), kernels {p['mesh']['cuda_launches']} "
+              f"(plain {p['plain']['cuda_launches']}), {p['mesh']['all_reduce_calls']} "
+              f"all-reduce calls, host syncs {p['mesh']['host_syncs']} (plain "
+              f"{p['plain']['host_syncs']}); one all-reduce of {dp['collective_call']['width']} "
+              f"floats {dp['collective_call']['host_us']:.1f} us of host time "
+              f"({dp['collective_call']['drained_us']:.1f} drained), from a second thread "
+              f"{dp['collective_call_thread']['host_us']:.1f} us on {smi}", flush=True)
+    ev, w1e = dp["eval"], dp["world1_eval"]
+    sz = dp["sizes"]
+    print(f"dist eval ({sz['val_images']} val images, {sz['val_imgsz']} px, 'matrix', "
+          f"{sz['val_batch']} images a forward): world 2 P/R/mAP@.5/mAP "
+          + "/".join(f"{dp['world2'][0]['eval'][k]:.4f}" for k in ("mp", "mr", "map50", "map"))
+          + " vs world 1 " + "/".join(f"{w1e[k]:.4f}" for k in ("mp", "mr", "map50", "map"))
+          + f", unmatched {ev['unmatched']}, K3 blocked launches by rank "
+          f"{[r['eval']['launches']['fixpoint_keep_blocked'] for r in dp['world2']]} "
+          f"(world 1 {w1e['launches']['fixpoint_keep_blocked']}); {w1e['s']:.1f} s at world 1, "
+          f"{[round(r['eval']['s'], 1) for r in dp['world2']]} s a rank at world 2", flush=True)
+    if "recipe_ms" in dp["world2"][0]:
+        print(f"dist recipe at world 2 over gloo, both ranks on the one card, 2 images a rank: "
+              f"{[round(r['recipe_ms'], 2) for r in dp['world2']]} ms a step by rank (host-"
+              f"staged: no target) on {smi}", flush=True)
+    tr = dp["torchrun"]
+    print(f"dist cli.train under torchrun: {tr['step']} steps, {tr['s']:.1f} s; phase "
+          f"{dp['s']:.1f} s (world-1 step {dp['world1_s']:.1f}, world-2 spawn "
+          f"{dp['world2_spawn_s']:.1f}, recipe timing {dp.get('recipe_s', 0.0):.1f})",
+          flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -5483,8 +5923,13 @@ def main(argv=None):
         report["tools"] = tp = tools_phase(device, counters, smi, frame)
         phases["tools"] = tp["s"]
         print_tools(report["jpeg"], tp, smi)
+        report["dist"] = dist = dist_phase(device, smi)
+        phases["dist"] = dist["s"]
+        print_dist(dist, smi)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+        print("phase seconds so far: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()),
+              flush=True)
 
     # K1's headline: one bf16 call at each of the four shapes, summed; the
     # bound of that sum is the larger of its summed byte and operation
@@ -5533,6 +5978,9 @@ def main(argv=None):
                   "tools hub": tp["hub"]["launches"], "tools rest batched": tp["rest"]["launches"],
                   "tools detect for wbf": tp["wbf"]["second_launches"]})
 
+    paths["dist eval world 1, matrix"] = dist["world1_eval"]["launches"]
+    paths.update({f"dist eval world 2 rank {r['rank']}, matrix": r["eval"]["launches"]
+                  for r in dist["world2"]})
     paths.update({f"int8 serving {name}": r["launches"] for name, r in i8["serving"].items()})
     paths[f"int8 serving {INT8_GENERAL_MODEL}"] = i8["general"]["launches"]
     paths.update({f"int8 eval tiny {dt}": i8["tiny"][dt]["launches"] for dt in ("f32", "bf16")})

@@ -8,14 +8,23 @@ hyperparameter search (`train/evolve.py`) and plots it (`plot_evolve`,
 where matplotlib imports).  `--remat` turns on by itself at `--imgsz` 1024
 and above (`--no-remat` keeps it off).  `--ckpt-async` writes the
 checkpoints (the same JAX `.npz`) on a background thread
-(`utils/async_ckpt.py`).  Not ported yet: `--spatial-shard` (ROADMAP.md,
-Queue 1 item 13); it raises.  `main` returns the best fitness, or the
-evolved hyp.
+(`utils/async_ckpt.py`).  Under torchrun (`python -m torch.distributed.run
+--nproc-per-node N`, the reference's DDP launch) each rank trains on
+`cuda:LOCAL_RANK` (`parallel/mesh.py`): `--batch-size` is the global batch,
+each rank runs its share of the global step, and rank 0 writes the run
+directory; `--batch-size -1` probes each device's memory with its share.
+Without torchrun one process trains.  `--sync-bn` changes nothing: BN
+always takes the global batch's moments, as in JAX.  Not ported yet:
+`--spatial-shard` (ROADMAP.md, Queue 1 item 13b), and `--evolve` in a
+group of more than one rank; they raise.  `main` returns the best
+fitness, or the evolved hyp.
 
 The flagship recipe (train.sh:5-9):
     python -m dmayolo_tpu_torch.cli.train --imgsz 1536 --adam --batch-size 4 \\
         --epochs 200 --data VisDrone.yaml --hyp visdrone \\
         --cfg ablation-ca-scconv-sppfcspc.yaml --fastload --device-aug --remat
+    python -m torch.distributed.run --nproc-per-node 4 -m dmayolo_tpu_torch.cli.train \\
+        --batch-size 16 ...
 """
 from __future__ import annotations
 
@@ -71,7 +80,7 @@ def build_parser():
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
     p.add_argument("--spatial-shard", action="store_true",
                    help="shard image H over devices: not ported yet "
-                        "(ROADMAP.md, Queue 1 item 13)")
+                        "(ROADMAP.md, Queue 1 item 13b)")
     p.add_argument("--train-ungrouped", action="store_true",
                    help="also optimize params the reference leaves out")
     p.add_argument("--device", type=str, default=None,
@@ -93,8 +102,8 @@ def build_parser():
     p.add_argument("--save-period", type=int, default=-1,
                    help="save epoch{N}.npz every N epochs (<1 disables)")
     p.add_argument("--sync-bn", action="store_true",
-                   help="accepted for parity; on one device BN already uses the "
-                        "moments of the whole batch")
+                   help="accepted for parity; does nothing: BN always takes the moments "
+                        "of the global batch, over every rank (as JAX under pjit)")
     p.add_argument("--image-weights", action="store_true", help="class-mAP weighted image sampling")
     p.add_argument("--accumulate", type=int, default=0,
                    help="grad-accumulation factor (0 = auto round(64/bs))")
@@ -123,18 +132,36 @@ def main(argv=None):
     opt = build_parser().parse_args(argv)
     if not opt.resume and not (opt.cfg and opt.data):
         build_parser().error("--cfg and --data are required unless --resume")
+    from ..parallel import mesh as pm
+
     if opt.spatial_shard:
-        raise NotImplementedError("--spatial-shard is not ported yet (ROADMAP.md, Queue 1 item 13)")
+        raise NotImplementedError(f"--spatial-shard: {pm.SPATIAL_REFUSAL}")
+    if not pm.under_torchrun():
+        return _main(opt)
+    mesh = pm.join_torchrun(device=opt.device)
+    try:
+        return _main(opt, mesh)
+    finally:
+        pm.close_group()
+
+
+def _main(opt, mesh=None):
     from .common import setup_device
 
-    setup_device(opt.device)
+    main_rank = mesh is None or mesh.is_main
+    if mesh is None:
+        setup_device(opt.device)
+    elif opt.evolve and mesh.world > 1:
+        raise NotImplementedError("--evolve runs in one process, not in a group of "
+                                  f"{mesh.world} ranks")
 
     # resolved before the opt.yaml dump below, so the run's config records
     # the remat actually used (resume re-derives from the saved opt)
     if resolve_remat(opt.remat, opt.no_remat, opt.imgsz) and not opt.remat:
         opt.remat = True
-        print(f"imgsz {opt.imgsz} >= 1024: enabling --remat (smaller at high res; "
-              "--no-remat to opt out)")
+        if main_rank:
+            print(f"imgsz {opt.imgsz} >= 1024: enabling --remat (smaller at high res; "
+                  "--no-remat to opt out)")
 
     if opt.resume:
         # the interrupted run's own options and directory
@@ -155,17 +182,24 @@ def main(argv=None):
         hyp = load_hyp(str(hyp_file)) if hyp_file.exists() else load_hyp(opt.hyp)
         print(f"resuming {last} (options restored from {opt_file})")
     else:
-        out = increment_path(f"{opt.project}/{opt.name}", exist_ok=opt.exist_ok)
         hyp = load_hyp(opt.hyp)
-        out.mkdir(parents=True, exist_ok=True)
-        with open(out / "hyp.yaml", "w") as f:
-            yaml.safe_dump(dict(hyp), f, sort_keys=False)
-        with open(out / "opt.yaml", "w") as f:
-            yaml.safe_dump({k: v for k, v in vars(opt).items() if k != "device"}, f,
-                           sort_keys=False)
+        out = None
+        if main_rank:
+            out = increment_path(f"{opt.project}/{opt.name}", exist_ok=opt.exist_ok)
+            out.mkdir(parents=True, exist_ok=True)
+            with open(out / "hyp.yaml", "w") as f:
+                yaml.safe_dump(dict(hyp), f, sort_keys=False)
+            with open(out / "opt.yaml", "w") as f:
+                yaml.safe_dump({k: v for k, v in vars(opt).items() if k != "device"}, f,
+                               sort_keys=False)
+        if mesh is not None:  # rank 0's run directory
+            out = mesh.broadcast_object(out)
 
     if opt.batch_size == -1:
-        opt.batch_size = autobatch_size(opt, hyp)
+        # every rank probes its own device; rank 0's choice is the run's
+        opt.batch_size = autobatch_size(opt, hyp, mesh)
+        if mesh is not None:
+            opt.batch_size = mesh.broadcast_object(opt.batch_size)
 
     if opt.evolve:
         from ..train.evolve import evolve
@@ -185,15 +219,17 @@ def main(argv=None):
             print(f"plot_evolve failed: {type(e).__name__}: {e}")
         return best
 
-    trainer = _make_trainer(opt, hyp, str(out))
-    print(f"training -> {out}")
+    trainer = _make_trainer(opt, hyp, str(out), mesh)
+    if main_rank:
+        print(f"training -> {out}")
     return trainer.train()
 
 
-def autobatch_size(opt, hyp) -> int:
-    """`--batch-size -1`: the batch from the card's memory, probed on the
-    step the Trainer will run (accumulate, device_aug, remat, optimizer);
-    the default 16 on the CPU."""
+def autobatch_size(opt, hyp, mesh=None) -> int:
+    """`--batch-size -1`: the global batch from the card's memory, probed
+    on the step the Trainer will run (accumulate, device_aug, remat,
+    optimizer) at this rank's share of each batch size, a multiple of the
+    world size; the default 16 on the CPU."""
     import torch
 
     from ..data.datasets import check_dataset
@@ -205,7 +241,7 @@ def autobatch_size(opt, hyp) -> int:
 
     data = check_dataset(opt.data)
     model = DetectionModel(resolve_config(opt.cfg, "models"), nc=data["nc"],
-                           device=setup_device(opt.device))
+                           device=setup_device(opt.device) if mesh is None else mesh.device)
     model.init_with_priors(torch.Generator().manual_seed(0))
     h = dict(hyp)
     if opt.assignment == "tal":
@@ -219,10 +255,11 @@ def autobatch_size(opt, hyp) -> int:
         device_aug=({"hgain": h.get("hsv_h", 0.015), "sgain": h.get("hsv_s", 0.7),
                      "vgain": h.get("hsv_v", 0.4), "fliplr": h.get("fliplr", 0.5)}
                     if opt.device_aug else None),
-        accumulate=int(opt.accumulate) if opt.accumulate else None)
+        accumulate=int(opt.accumulate) if opt.accumulate else None,
+        world=1 if mesh is None else mesh.world)
 
 
-def _make_trainer(opt, hyp, out_dir):
+def _make_trainer(opt, hyp, out_dir, mesh=None):
     import torch
 
     from ..train.trainer import Trainer
@@ -265,7 +302,8 @@ def _make_trainer(opt, hyp, out_dir):
         save_period=opt.save_period,
         remat=opt.remat,
         ckpt_async=opt.ckpt_async,
-        device=opt.device,
+        device=opt.device if mesh is None else mesh.device,
+        mesh=mesh,
     )
 
 

@@ -7,10 +7,16 @@ into `study.csv`; `--save-json` writes COCO predictions and runs COCOeval
 against the official annotations, or against ground truth built from the
 YOLO labels where there are none.  `--int8` calibrates the input scales
 on `--ncalib` dataset images and runs the eligible convs on the int8 path
-(`nn/quant.py`).  Not ported yet: `--devices` above 1 and
-`--spatial-shard` (ROADMAP.md, Queue 1 item 13); they raise.
+(`nn/quant.py`).  `--devices N` (N > 1) evaluates data-parallel
+(`parallel/mesh.py`): inside a torchrun group of N it joins it, else it
+spawns N ranks (on the CPU over gloo with `--device cpu`; on CUDA over
+NCCL, one GPU a rank, which must exist); `--batch-size` is the global
+batch, the result that of one process, printed and written by rank 0.
+Not ported yet: `--spatial-shard` (ROADMAP.md, Queue 1 item 13b); it
+raises.
 
     python -m dmayolo_tpu_torch.cli.val --weights best.npz --data VisDrone.yaml --imgsz 1536
+    python -m dmayolo_tpu_torch.cli.val --weights best.npz --data VisDrone.yaml --devices 4
 """
 from __future__ import annotations
 
@@ -60,11 +66,11 @@ def build_parser():
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default; raises without it) or cpu")
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel eval over N devices: not ported yet "
-                        "(ROADMAP.md, Queue 1 item 13)")
+                   help="data-parallel eval over N devices (N GPUs, or N CPU processes "
+                        "with --device cpu); batch-size must divide")
     p.add_argument("--spatial-shard", action="store_true",
                    help="shard image H over devices: not ported yet "
-                        "(ROADMAP.md, Queue 1 item 13)")
+                        "(ROADMAP.md, Queue 1 item 13b)")
     p.add_argument("--max-nms", type=int, default=30000,
                    help="pre-NMS candidate budget")
     p.add_argument("--nms-backend", type=str, default="scan",
@@ -74,16 +80,47 @@ def build_parser():
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
-    if opt.devices > 1 or opt.spatial_shard:
-        raise NotImplementedError("--devices > 1 and --spatial-shard are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 13)")
+    from ..parallel import mesh as pm
+
+    if opt.spatial_shard:
+        raise NotImplementedError(f"--spatial-shard: {pm.SPATIAL_REFUSAL}")
+    if opt.devices <= 1:
+        return run(opt)
+    if opt.batch_size % opt.devices:
+        raise ValueError(f"--batch-size {opt.batch_size} must be divisible by --devices "
+                         f"{opt.devices}")
+    if pm.under_torchrun():
+        mesh = pm.join_torchrun(device=opt.device)
+        try:
+            if mesh.world != opt.devices:
+                raise ValueError(f"--devices {opt.devices} in a torchrun group of {mesh.world}")
+            return run(opt, mesh)
+        finally:
+            pm.close_group()
+    import torch
+
+    device = "cpu" if opt.device == "cpu" else "cuda"
+    pm.rank_devices(opt.devices, device)  # N visible GPUs, or it raises naming the count
+    threads = max(1, torch.get_num_threads() // opt.devices) if device == "cpu" else None
+    return pm.spawn(_rank, opt.devices, args=(opt,), device=device, threads=threads)[0]
+
+
+def _rank(mesh, opt):
+    """One rank of `--devices N`."""
+    return run(opt, mesh)
+
+
+def run(opt, mesh=None):
+    """The validation of `opt` (parsed flags), on `mesh`'s rank where given."""
     import torch
 
     from ..data.datasets import check_dataset
     from ..eval.validator import run_validation
     from .common import check_img_size, increment_path, load_model_from_checkpoint, setup_device
 
-    device = setup_device(opt.device)
+    main_rank = mesh is None or mesh.is_main
+    say = print if main_rank else (lambda *a, **k: None)
+    device = setup_device(opt.device) if mesh is None else mesh.device
     model = load_model_from_checkpoint(opt.weights, opt.cfg, device=device)
     opt.imgsz = check_img_size(opt.imgsz, int(model.stride.max()))
     fused = not opt.no_fuse
@@ -92,7 +129,10 @@ def main(argv=None):
     dtype = torch.float32 if opt.fp32 else torch.bfloat16
 
     data = check_dataset(opt.data)
-    out = increment_path(f"{opt.project}/{opt.name}", exist_ok=opt.exist_ok)
+    out = increment_path(f"{opt.project}/{opt.name}", exist_ok=opt.exist_ok) \
+        if main_rank else None
+    if mesh is not None:  # rank 0's run directory
+        out = mesh.broadcast_object(out)
     out.mkdir(parents=True, exist_ok=True)
 
     quant = None
@@ -100,7 +140,9 @@ def main(argv=None):
         if not fused:
             raise SystemExit("--int8 requires the fused inference path "
                              "(drop --no-fuse)")
-        quant = calibrate(model, data, opt.imgsz, opt.ncalib)
+        quant = calibrate(model, data, opt.imgsz, opt.ncalib, say) if main_rank else None
+        if mesh is not None:  # rank 0's scales
+            quant = mesh.broadcast_object(quant)
 
     split = data.get(opt.task if opt.task in ("val", "test") else "val") or data["val"]
     if opt.task == "speed":
@@ -108,7 +150,7 @@ def main(argv=None):
     kw = dict(batch_size=opt.batch_size, nc=data["nc"], conf_thres=opt.conf_thres,
                   iou_thres=opt.iou_thres, max_det=opt.max_det, max_nms=opt.max_nms,
                   nms_backend=opt.nms_backend, save_hybrid=opt.save_hybrid, dtype=dtype,
-                  fused=fused, device=device)
+                  fused=fused, device=device, mesh=mesh)
 
     if opt.task == "study":
         # mAP and speed across image sizes
@@ -116,14 +158,15 @@ def main(argv=None):
         for sz in range(256, opt.imgsz + 128, 128):
             r = run_validation(model, split, img_size=sz, **kw)
             rows.append((sz, r.mp, r.mr, r.map50, r.map, r.speed_ms.get("inference+nms", 0)))
-            print(f"study {sz}px: {r.summary()} {r.speed_ms}")
+            say(f"study {sz}px: {r.summary()} {r.speed_ms}")
         import csv as _csv
 
-        with open(out / "study.csv", "w", newline="") as f:
-            w = _csv.writer(f)
-            w.writerow(["imgsz", "P", "R", "mAP50", "mAP", "ms_img"])
-            w.writerows(rows)
-        print(f"study -> {out/'study.csv'}")
+        if main_rank:
+            with open(out / "study.csv", "w", newline="") as f:
+                w = _csv.writer(f)
+                w.writerow(["imgsz", "P", "R", "mAP50", "mAP", "ms_img"])
+                w.writerows(rows)
+        say(f"study -> {out/'study.csv'}")
         return rows
 
     jdict = [] if opt.save_json else None
@@ -138,6 +181,8 @@ def main(argv=None):
         save_txt_dir=(out / "labels") if opt.save_txt else None,
         save_conf=opt.save_conf, augment=opt.augment, rect=opt.rect,
         single_cls=opt.single_cls, save_json=jdict, class_map=class_map, quant=quant)
+    if not main_rank:
+        return res
     if jdict is not None:
         from ..eval.coco_json import evaluate_coco, write_coco_json
 
@@ -182,7 +227,7 @@ def main(argv=None):
     return res
 
 
-def calibrate(model, data, imgsz: int, ncalib: int):
+def calibrate(model, data, imgsz: int, ncalib: int, say=print):
     """--int8's input scales, from the first `ncalib` images of the train
     split (else val), letterboxed to `imgsz` without auto padding, RGB, in
     batches of 8, at f32; prints the calibration line."""
@@ -206,7 +251,7 @@ def calibrate(model, data, imgsz: int, ncalib: int):
         raise SystemExit(f"--int8: no readable calibration images under {cal_src}")
     batches = [np.stack(imgs[i:i + 8]) for i in range(0, len(imgs), 8)]
     quant = calibrate_act_scales(model, batches, dtype=torch.float32)
-    print(f"int8 calibration: {len(imgs)} images, {quant_coverage(model, quant)}")
+    say(f"int8 calibration: {len(imgs)} images, {quant_coverage(model, quant)}")
     return quant
 
 

@@ -10,7 +10,7 @@ batch's device; `apply_hsv_flip` takes them as given.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,16 +67,20 @@ def apply_hsv_flip(images: torch.Tensor, gains: torch.Tensor, flipped: torch.Ten
 
 
 def augment_batch(images: torch.Tensor, generator: Optional[torch.Generator] = None,
-                  hgain=0.015, sgain=0.7, vgain=0.4, fliplr_p=0.5, dtype=torch.float32):
+                  hgain=0.015, sgain=0.7, vgain=0.4, fliplr_p=0.5, dtype=torch.float32,
+                  rows: Optional[Tuple[int, int]] = None):
     """uint8 NHWC batch -> (augmented batch in [0, 1] in `dtype`, flipped
     (B,) bool).  Per image: HSV gains uniform in 1 +- (hgain, sgain,
     vgain), and a left-right flip with probability `fliplr_p`, drawn from
     `generator` (on the batch's device).  The caller mirrors the targets
-    of the flipped rows (`flip_targets_lr`)."""
+    of the flipped rows (`flip_targets_lr`).  `rows` (offset, n): the
+    batch is rows offset .. offset + B of a batch of n (a data-parallel
+    rank's share): the draws are the n rows', and these rows take theirs."""
     b, dev = images.shape[0], images.device
-    u = torch.rand((b, 3), generator=generator, device=dev) * 2.0 - 1.0
+    off, n = (0, b) if rows is None else rows
+    u = torch.rand((n, 3), generator=generator, device=dev)[off:off + b] * 2.0 - 1.0
     gains = u * torch.tensor([hgain, sgain, vgain], device=dev) + 1.0
-    flipped = torch.rand((b,), generator=generator, device=dev) < fliplr_p
+    flipped = torch.rand((n,), generator=generator, device=dev)[off:off + b] < fliplr_p
     return apply_hsv_flip(images, gains, flipped, dtype), flipped
 
 

@@ -68,16 +68,33 @@ def collate(samples, max_targets: int, indices=None, warn: Optional[_Warn] = Non
 
 
 class DataLoader:
-    """Epoch iterator with prefetch threads."""
+    """Epoch iterator with prefetch threads.
+
+    process_index / process_count: data-parallel loading, as the JAX
+    loader's process stripe.  Every rank draws the same global order (the
+    same seed) and reads only its contiguous row block of each global
+    batch of `batch_size`: `local_bs = batch_size // process_count` rows
+    (the reference's DistributedSampler with batch_size // WORLD_SIZE).
+    A short last batch (`drop_last=False`) is wrap-padded to the global
+    size, so every rank gets `local_bs` rows; with `wrap_short=False` it is
+    not, and a rank's block may be short or empty (a `Batch` of no images,
+    `images` None), for the validator to zero-pad."""
 
     sample_weights = None  # per-image sampling weights (image_weights mode)
 
     def __init__(self, dataset, batch_size: int, max_targets: int = 128, shuffle: bool = True,
                  workers: int = 4, seed: int = 0, drop_last: bool = True,
-                 process_index: int = 0, process_count: int = 1, quad: bool = False):
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError("multi-host loading is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 13)")
+                 process_index: int = 0, process_count: int = 1, quad: bool = False,
+                 wrap_short: bool = True):
+        if batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the "
+                             f"process count {process_count}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of {process_count}")
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_bs = batch_size // process_count
+        self.wrap_short = wrap_short
         self.ds = dataset
         self.bs = batch_size
         self.max_targets = max_targets
@@ -104,8 +121,12 @@ class DataLoader:
             order = np.arange(n)
             if self.shuffle:
                 self.rng.shuffle(order)
+        lo = self.process_index * self.local_bs
         for i in range(len(self)):
-            yield order[i * self.bs:(i + 1) * self.bs].tolist()
+            g = order[i * self.bs:(i + 1) * self.bs]
+            if self.process_count > 1 and len(g) < self.bs and self.wrap_short:
+                g = np.resize(g, self.bs)  # wrap-pad (DistributedSampler-style)
+            yield g[lo:lo + self.local_bs].tolist()
 
     def __iter__(self) -> Iterator[Batch]:
         work: "queue.Queue" = queue.Queue()
@@ -132,6 +153,9 @@ class DataLoader:
                     j, idxs = work.get_nowait()
                 except queue.Empty:
                     return
+                if not idxs:  # this rank's block of a short last batch is empty
+                    put((j, Batch(None, None, [])))
+                    continue
                 try:
                     samples = [self.ds.get(i, random.Random(hash((self._seed, epoch, int(i)))))
                                for i in idxs]

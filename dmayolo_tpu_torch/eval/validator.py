@@ -28,7 +28,9 @@ import torch.nn.functional as F
 
 from ..core.nms import batched_nms
 from ..data.datasets import DetectionDataset
-from ..data.loader import DataLoader
+from ..data.loader import Batch, DataLoader
+from ..parallel.mesh import SPATIAL_REFUSAL, gather_rows, with_group
+from ..train.loss import Targets
 from ..utils.device import resolve_device
 from .coco_json import append_coco_json, image_id_map
 from .metrics import ap_per_class, process_batch
@@ -79,10 +81,16 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
     (cls (B, M), box xywhn (B, M, 4), mask (B, M)) join the predictions
     before NMS as conf-1.0 candidates (the reference's --save-hybrid).
     `quant` ({conv name: input scale}, `nn/quant.py`) runs those convs on
-    the int8 path; TTA takes none."""
-    if mesh is not None or spatial:
-        raise NotImplementedError("multi-GPU eval is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 13)")
+    the int8 path; TTA takes none.
+
+    `mesh` (`parallel/mesh.py`) with a group: `images` (and the targets)
+    are this rank's rows of the global batch, and `infer` returns the
+    global batch's detections and `valid` on every rank (each rank's rows
+    gathered by one SUM all-reduce of a zero-filled buffer, exact), as the
+    JAX package's multi-host path does.  `spatial` (H-sharding) raises."""
+    if spatial:
+        raise NotImplementedError(SPATIAL_REFUSAL)
+    dp = with_group(mesh)
     if quant is not None and augment:  # the JAX package's words
         raise ValueError("--int8 with TTA (--augment) is not supported")
     device = next(model.parameters()).device
@@ -104,11 +112,50 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
                 onehot = F.one_hot(t_cls.long(), model.nc).to(dec.dtype) * obj
                 rows = torch.cat([t_box.to(dec.dtype) * scale, obj, onehot], -1)
                 dec = torch.cat([dec, rows], 1)
-            return batched_nms(dec, conf_thres=conf_thres, iou_thres=iou_thres,
-                               multi_label=True, max_det=max_det, max_nms=max_nms,
-                               backend=nms_backend)
+            dets, valid = batched_nms(dec, conf_thres=conf_thres, iou_thres=iou_thres,
+                                      multi_label=True, max_det=max_det, max_nms=max_nms,
+                                      backend=nms_backend)
+            if dp is None:
+                return dets, valid
+            rows = gather_rows(dp, torch.cat([dets.float(), valid[..., None].float()], -1))
+            return rows[..., :6].to(dets.dtype), rows[..., 6] > 0.5
 
     return infer
+
+
+def _shared_batch(mesh, ds, j, batch: Batch, batch_size: int, max_targets: int,
+                  img_size: int, rect: bool) -> Batch:
+    """This rank's rows of global batch `j`, zero-padded to its share of
+    the batch (the rows past the dataset's end are zero images with no
+    labels, as JAX pads a short last batch)."""
+    local_bs = batch_size // mesh.world
+    n = len(batch.indices)
+    if n == local_bs:
+        return batch
+    shape = (tuple(int(v) for v in ds.batch_shapes[j]) if rect
+             else batch.images.shape[1:3] if n else (img_size, img_size))
+    imgs = np.zeros((local_bs,) + tuple(shape) + (3,), np.uint8)
+    t = Targets(np.zeros((local_bs, max_targets), np.float32),
+                np.zeros((local_bs, max_targets, 4), np.float32),
+                np.zeros((local_bs, max_targets), bool))
+    if n:
+        imgs[:n] = batch.images
+        for full, part in zip(t, batch.targets):
+            full[:n] = part
+    return Batch(imgs, t, list(batch.indices) + [-1] * (local_bs - n))
+
+
+def _global_batch(mesh, local: Batch, n: int) -> Batch:
+    """The first `n` rows of the global batch's targets and dataset indices
+    on every rank, from each rank's rows (one all-reduce; the images stay
+    local)."""
+    cls, box, mask = (np.asarray(a) for a in local.targets)
+    b, m = cls.shape
+    rows = np.concatenate([cls, box.reshape(b, -1), mask.astype(np.float32),
+                           np.asarray(local.indices, np.float32)[:, None]], 1)
+    rows = gather_rows(mesh, torch.from_numpy(rows).to(mesh.device)).cpu().numpy()[:n]
+    t = Targets(rows[:, :m], rows[:, m:5 * m].reshape(n, m, 4), rows[:, 5 * m:6 * m] > 0.5)
+    return Batch(None, t, rows[:, -1].astype(np.int64).tolist())
 
 
 def _scale_to_native(boxes: np.ndarray, lb_shape, native_shape):
@@ -231,8 +278,22 @@ def run_validation(
     or COCO entries; save_hybrid: the labels join the candidates before
     NMS.  `workers` loader threads.  speed_ms: the device step (forward,
     decode, NMS, the copy back) a image after the first batch, and the
-    loader's wait a image."""
-    device = resolve_device(device)
+    loader's wait a image.
+
+    mesh (`parallel/mesh.py`) with a group: data-parallel eval, the batch
+    size the global one (it must divide by the world size).  Each rank
+    loads only its rows of each batch (the loader's process stripe), a
+    short last batch zero-padded as JAX pads it, and `infer` returns the
+    global detections on every rank; the targets and dataset indices are
+    gathered likewise, so every rank holds the same statistics and result
+    as one process.  Only rank 0 writes the `save_txt_dir` files; every
+    rank fills `save_json`.  `spatial` raises."""
+    device = resolve_device(device if device is not None or mesh is None else mesh.device)
+    dp = with_group(mesh)
+    world = mesh.world if mesh is not None else 1
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must be divisible by the mesh data "
+                         f"axis ({world})")
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the model is on {next(model.parameters()).device}, "
                          f"validation asked for {device}")
@@ -243,7 +304,9 @@ def run_validation(
         nc=nc if not single_cls else 10 ** 6,  # ids validated against the raw dataset
         batch_size=batch_size, pad=pad, single_cls=single_cls)
     loader = DataLoader(ds, batch_size, max_targets=max_targets, shuffle=False,
-                        drop_last=False, workers=workers)
+                        drop_last=False, workers=workers,
+                        process_index=0 if dp is None else dp.rank, process_count=world,
+                        wrap_short=False)
     infer = make_infer_fn(model, conf_thres, iou_thres, max_det, dtype=dtype, fused=fused,
                           augment=augment, max_nms=max_nms, nms_backend=nms_backend,
                           mesh=mesh, spatial=spatial, hybrid=save_hybrid, quant=quant)
@@ -261,12 +324,18 @@ def run_validation(
     model.eval()
     try:
         t_w = time.perf_counter()
-        for batch in loader:
+        for j, batch in enumerate(loader):
             t0 = time.perf_counter()
             t_wait += t0 - t_w
+            if dp is not None:
+                batch = _shared_batch(dp, ds, j, batch, batch_size, max_targets, img_size, rect)
             n = batch.images.shape[0]
             tgt = batch.targets if save_hybrid else ()
             dets, valid = infer(batch.images, *tgt)
+            hw = batch.images.shape[1:3]
+            if dp is not None:
+                batch = _global_batch(dp, batch, min(batch_size, len(ds) - j * batch_size))
+                n = len(batch.indices)
             dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
             if n_all == 0:  # the first batch carries the builds and the autotuning
                 t_first, n_first = time.perf_counter() - t0, n
@@ -274,7 +343,6 @@ def run_validation(
                 t_infer += time.perf_counter() - t0
                 n_timed += n
             n_all += n
-            hw = batch.images.shape[1:3]
             stats, kept = _match_batch(dets, valid, hw, *batch.targets, single_cls=single_cls)
             stats_acc += stats
             if save_txt_dir is not None or save_json is not None:
@@ -283,7 +351,7 @@ def run_validation(
                     native = tuple(ds.shapes[idx])
                     dn = d.copy()
                     dn[:, :4] = _scale_to_native(d[:, :4], hw, native)
-                    if save_txt_dir is not None:
+                    if save_txt_dir is not None and (dp is None or dp.is_main):
                         _save_txt(dn, native, save_txt_dir / f"{Path(ds.im_files[idx]).stem}.txt",
                                   save_conf)
                     if save_json is not None:

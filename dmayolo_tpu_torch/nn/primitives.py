@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import with_group
 from .conv_int8 import Int8Conv
 
 KernelSize = Union[int, Tuple[int, int]]
@@ -134,19 +135,40 @@ class _BatchNormTrain(torch.autograd.Function):
     it: moments in f32 as E[x^2] - E[x]^2 clamped at 0, output
     `((x - mean) * rsqrt(var + eps) * scale + bias)` in f32, cast to the
     input dtype.  The backward is that formula's derivative; only the
-    input (in its own dtype) and two f32 vectors are kept for it."""
+    input (in its own dtype) and two f32 vectors are kept for it.  Its
+    outputs: y, the mean, and the variance times n / (n - 1) for the
+    running statistics.
+
+    Under a data-parallel group (`mesh`), the moments are the global
+    batch's: the channel sums, the sums of squares and the count in one
+    all-reduce; the backward all-reduces its two channel sums for the
+    input's gradient, and returns the rank's own sums as the scale's and
+    bias's (the train step sums those over the group)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, mesh=None):
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0)
+        c = x.shape[1]
+        if mesh is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0)
+            n = x.numel() // c
+            unbiased = var * (n / max(n - 1, 1))
+        else:
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                              xf.new_full((1,), x.numel() // c)])
+            mesh.all_reduce(sums)
+            n = sums[2 * c:]
+            mean = sums[:c] / n
+            var = (sums[c:2 * c] / n - mean.square()).clamp(min=0)
+            unbiased = var * (n / (n - 1).clamp(min=1))
         rstd = torch.rsqrt(var + eps)
         inv = rstd * scale
         y = ((xf - mean[:, None, None]) * inv[:, None, None] + bias[:, None, None]).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, rstd)
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.mesh, ctx.n = mesh, n
+        ctx.mark_non_differentiable(mean, unbiased)
+        return y, mean, unbiased
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
@@ -155,10 +177,15 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
         dbias = g.sum(dim=(0, 2, 3))
         dscale = (g * xhat).sum(dim=(0, 2, 3))
-        n = x.numel() // x.shape[1]
-        dx = (g - (dbias / n)[:, None, None] - xhat * (dscale / n)[:, None, None]) \
+        n, mesh = ctx.n, ctx.mesh
+        gb, gs = dbias, dscale
+        if mesh is not None:  # the global sums for the input's gradient
+            c = dbias.shape[0]
+            both = mesh.all_reduce(torch.cat([dbias, dscale]))
+            gb, gs = both[:c], both[c:]
+        dx = (g - (gb / n)[:, None, None] - xhat * (gs / n)[:, None, None]) \
             * (rstd * scale)[:, None, None]
-        return dx.to(x.dtype), dscale, dbias, None
+        return dx.to(x.dtype), dscale, dbias, None, None
 
 
 class BatchNorm2d(nn.Module):
@@ -171,7 +198,10 @@ class BatchNorm2d(nn.Module):
     (`_BatchNormTrain`), and the running mean and the unbiased variance
     (factor n / (n - 1)) updated in place with momentum 0.03, except in
     the backward's recompute of a rematerialised layer (`remat_layer`
-    sets `recomputing`), whose forward has updated them already."""
+    sets `recomputing`), whose forward has updated them already.  While
+    `lend_mesh` lends it a data-parallel group (`mesh`), the batch is the
+    global one: moments and n over every rank's rows, as under a JAX
+    mesh, where BN is always cross-replica."""
 
     def __init__(self, c, eps: float = 1e-3, momentum: float = 0.03):
         super().__init__()
@@ -182,6 +212,7 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.recomputing = False
+        self.mesh = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -192,14 +223,14 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x, dtype):
         if self.training:
-            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            y, mean, unbiased = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
+                                                      self.mesh)
             if self.recomputing:
                 return y
-            n = x.numel() // x.shape[1]
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+                self.running_var.mul_(1 - m).add_(unbiased, alpha=m)
             return y
         a = torch.rsqrt(self.running_var + self.eps) * self.weight
         b = self.bias - self.running_mean * a
@@ -269,12 +300,15 @@ class LayerNorm(nn.Module):
 class _Stochastic(nn.Module):
     """A layer that draws a mask in train mode at a rate above 0, from the
     generator that `lend_generator` gives it for the step, never from the
-    global RNG."""
+    global RNG.  While `lend_mesh` lends it a data-parallel group, it draws
+    the global batch's numbers (dim 0 times the world size) and takes this
+    rank's rows, so a row's mask is the one a single process would draw."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.mesh = None
 
     def draws(self) -> bool:
         return self.training and self.rate > 0.0
@@ -284,7 +318,13 @@ class _Stochastic(nn.Module):
             raise RuntimeError(f"{type(self).__name__}({self.rate}) in train mode draws its "
                                "mask from the step's generator: call it inside "
                                "lend_generator(model, generator)")
-        return torch.rand(shape, dtype=x.dtype, device=x.device, generator=self.generator)
+        mesh = self.mesh
+        if mesh is None:
+            return torch.rand(shape, dtype=x.dtype, device=x.device, generator=self.generator)
+        n = shape[0]
+        u = torch.rand((n * mesh.world,) + tuple(shape[1:]), dtype=x.dtype, device=x.device,
+                       generator=self.generator)
+        return u[mesh.rank * n:(mesh.rank + 1) * n]
 
 
 class Dropout(_Stochastic):
@@ -322,6 +362,23 @@ def lend_generator(model: nn.Module, generator: Optional[torch.Generator]):
     finally:
         for m in mods:
             m.generator = None
+
+
+@contextlib.contextmanager
+def lend_mesh(model: nn.Module, mesh):
+    """Every BatchNorm2d, Dropout and DropPath of `model` reduces over, or
+    draws for, the global batch of `mesh`'s group inside the block (the
+    train step's forwards and backwards, recomputes included); a mesh
+    without a group, or None, lends nothing."""
+    mesh = with_group(mesh)
+    mods = [m for m in model.modules() if isinstance(m, (BatchNorm2d, _Stochastic))]
+    for m in mods:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.mesh = None
 
 
 # ---------------------------------------------------------------------------

@@ -178,7 +178,8 @@ def find_train_batch_size(model, loss_fn, hyp: dict, img_size: int = 640,
                           accumulate: Optional[int] = None,
                           nbs: int = 64,
                           adam: bool = False,
-                          log: Optional[List] = None) -> int:
+                          log: Optional[List] = None,
+                          world: int = 1) -> int:
     """Autobatch over the whole train step (forward, loss, backward,
     optimizer, EMA) of `model` (on its device) at `img_size`.
 
@@ -186,11 +187,16 @@ def find_train_batch_size(model, loss_fn, hyp: dict, img_size: int = 640,
     accumulate (round(nbs / bs) unless given), so the step takes
     accumulate * bs uint8 images, the same `device_aug`, `remat` and
     optimizer.  On the CPU there is no budget and `default` is returned
-    without a probe."""
+    without a probe.  `world` > 1 (data-parallel training): the batch is
+    the global one, a multiple of `world` (as `multiple_of`), and each
+    probe runs one device's share of it, bs / world rows a microbatch,
+    against that device's budget (the probe itself issues no
+    collective)."""
     from .optim import Schedule, param_groups
     from .step import init_train_state, make_train_step
 
     device = next(model.parameters()).device
+    multiple_of = max(int(multiple_of), int(world))
     if hbm_bytes is None:
         hbm_bytes = device_memory_budget(device)
     if hbm_bytes is None:  # off the card: the default, nothing probed
@@ -207,7 +213,7 @@ def find_train_batch_size(model, loss_fn, hyp: dict, img_size: int = 640,
                          step_scale=acc)
         step = make_train_step(loss_fn, sched, dtype=dtype, accumulate=acc,
                                device_aug=device_aug)
-        n = acc * bs
+        n = acc * (bs // world)
         images = torch.randint(0, 256, (n, img_size, img_size, 3), dtype=torch.uint8,
                                device=device, generator=gen)
         targets = probe_targets(n, max_targets, device)

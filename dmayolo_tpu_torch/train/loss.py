@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.iou import bbox_iou
+from ..parallel.mesh import with_group
 
 
 def smooth_bce(eps: float = 0.1):
@@ -119,20 +120,35 @@ class ComputeLoss:
                                        torch.tensor(_OFFSETS, device=device))
         return self._on_device[device]
 
-    def __call__(self, preds: Sequence[torch.Tensor], targets: Targets):
+    def __call__(self, preds: Sequence[torch.Tensor], targets: Targets, mesh=None):
         """preds: list of (B, ny, nx, na, 5 + nc) raw logits.  Returns
-        (total, {"box", "obj", "cls"}), total = (lbox + lobj + lcls) * bs."""
+        (total, {"box", "obj", "cls"}), total = (lbox + lobj + lcls) * bs.
+
+        With `mesh`'s data-parallel group, B is this rank's rows of the
+        global batch, and the matched counts, the objectness mean's cell
+        count and bs are the global batch's (taken over the group with no
+        gradient through them): the total and the items are this rank's
+        shares, which sum over the ranks to the global ones."""
         hyp = self.hyp
-        bs = preds[0].shape[0]
+        mesh = with_group(mesh)
+        world = 1 if mesh is None else mesh.world
+        bs = preds[0].shape[0] * world
         lbox = lobj = lcls = 0.0
         fl_gamma = hyp.get("fl_gamma", 0.0)
+
+        cands = [self._build_targets_level(targets, i, p.shape[1], p.shape[2])
+                 for i, p in enumerate(preds)]
+        counts = torch.stack([c["mask"].sum() for c in cands])
+        if mesh is not None:
+            mesh.all_reduce(counts)
+        denoms = counts.clamp(min=1.0)
 
         for i, p in enumerate(preds):
             b, ny, nx, na, no = p.shape
             p = p.float()
-            cand = self._build_targets_level(targets, i, ny, nx)
+            cand = cands[i]
             m = cand["mask"]  # (B, K)
-            denom = m.sum().clamp(min=1.0)
+            denom = denoms[i]
 
             pf = p.reshape(b, ny * nx * na, no)
             idx = (cand["gj"] * nx + cand["gi"]) * na + cand["a"]  # (B, K)
@@ -155,7 +171,9 @@ class ComputeLoss:
             tobj = torch.where(flat_obj > 0, tobj, torch.zeros_like(tobj))
             obj_bce = (focal_bce_with_logits(pf[..., 4], tobj, fl_gamma, pos_weight=hyp["obj_pw"])
                        if fl_gamma > 0 else bce_with_logits(pf[..., 4], tobj, hyp["obj_pw"]))
-            lobj = lobj + torch.mean(obj_bce) * self.balance[i]
+            obj_mean = (torch.mean(obj_bce) if mesh is None
+                        else obj_bce.sum() / (obj_bce.numel() * world))
+            lobj = lobj + obj_mean * self.balance[i]
 
             # classification
             if self.nc > 1:

@@ -17,7 +17,8 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from ..data.device_aug import augment_batch, flip_targets_lr
-from ..nn.primitives import lend_generator
+from ..nn.primitives import lend_generator, lend_mesh
+from ..parallel.mesh import Mesh, all_reduce_flat, with_group
 from ..utils.weights import jax_from_state_dict, jax_paths, state_dict_from_jax, to_jax_layout
 from .loss import Targets
 from .optim import Schedule, ema_decay, ema_update, make_optimizer, set_schedule
@@ -53,7 +54,8 @@ def _frozen(name: str, freeze: int) -> bool:
 
 
 def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
-                    accumulate: int = 1, freeze: int = 0, device_aug: Optional[Dict] = None):
+                    accumulate: int = 1, freeze: int = 0, device_aug: Optional[Dict] = None,
+                    mesh: Optional[Mesh] = None):
     """Build the step `(state, images, targets, generator=None, ni=None) ->
     metrics`.
 
@@ -75,7 +77,18 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
     metrics: loss (total / accumulate) and the loss's items (box, obj and
     cls, or TAL's box, cls and dfl) averaged over the microbatches, as 0-d
     tensors on the device.
+
+    `mesh` (`parallel/mesh.py`) with a group makes this rank's step a share
+    of one step over the global batch, as the JAX step under `jit` on a
+    mesh: `images` are this rank's rows of each global microbatch
+    (`parallel.mesh.local_rows`), BN (`lend_mesh`) and the loss (called
+    with `mesh=`) reduce over the group, `device_aug` and the Dropout and DropPath draws take
+    this rank's rows of the global batch's numbers, the gradients are SUM
+    all-reduced in flat buckets after the last microbatch (before `freeze`
+    and the optimizer), and so are the metrics.  Every rank then applies
+    the same update.
     """
+    dp = with_group(mesh)
 
     def step(state: TrainState, imgs: torch.Tensor, targets: Targets,
              generator: Optional[torch.Generator] = None, ni=None) -> Dict:
@@ -83,25 +96,34 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         mb = imgs.shape[0] // accumulate
+        rows = None if dp is None else (dp.rank * mb, mb * dp.world)
         total, items = 0.0, {}
-        for k in range(accumulate):
-            sl = slice(k * mb, (k + 1) * mb)
-            x = imgs[sl]
-            tgt = Targets(*(t[sl] for t in targets))
-            if device_aug is not None and x.dtype == torch.uint8:
-                x, flipped = augment_batch(
-                    x, generator, hgain=device_aug["hgain"], sgain=device_aug["sgain"],
-                    vgain=device_aug["vgain"], fliplr_p=device_aug["fliplr"], dtype=dtype)
-                tgt = Targets(tgt.cls, flip_targets_lr(tgt.box, flipped), tgt.mask)
-            else:
-                x = x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
-            with lend_generator(model, generator):
-                raw = model(x, dtype)
-            with record_function("loss"):
-                tot, its = loss_fn(raw, tgt)
-            tot.backward()
-            total = total + tot.detach()
-            items = {n: items.get(n, 0.0) + torch.as_tensor(v).detach() for n, v in its.items()}
+        with lend_mesh(model, dp):
+            for k in range(accumulate):
+                sl = slice(k * mb, (k + 1) * mb)
+                x = imgs[sl]
+                tgt = Targets(*(t[sl] for t in targets))
+                if device_aug is not None and x.dtype == torch.uint8:
+                    x, flipped = augment_batch(
+                        x, generator, hgain=device_aug["hgain"], sgain=device_aug["sgain"],
+                        vgain=device_aug["vgain"], fliplr_p=device_aug["fliplr"], dtype=dtype,
+                        rows=rows)
+                    tgt = Targets(tgt.cls, flip_targets_lr(tgt.box, flipped), tgt.mask)
+                else:
+                    x = x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
+                with lend_generator(model, generator):
+                    raw = model(x, dtype)
+                with record_function("loss"):
+                    tot, its = loss_fn(raw, tgt) if dp is None else loss_fn(raw, tgt, mesh=dp)
+                tot.backward()
+                total = total + tot.detach()
+                items = {n: items.get(n, 0.0) + torch.as_tensor(v).detach()
+                         for n, v in its.items()}
+        if dp is not None:
+            with record_function("gradient all-reduce"):
+                all_reduce_flat(dp, [p.grad for p in model.parameters() if p.grad is not None])
+            summed = dp.all_reduce(torch.stack([total, *items.values()]))
+            total, items = summed[0], dict(zip(items, summed[1:]))
         if freeze:
             for name, p in model.named_parameters():
                 if _frozen(name, freeze):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..core.boxes import xywh2xyxy
 from ..core.iou import bbox_iou
 from ..nn.heads import dfl_expectation, dist2bbox, make_anchor_points
+from ..parallel.mesh import with_group
 from .loss import Targets, bce_with_logits
 
 
@@ -133,10 +134,16 @@ class ComputeLossTAL:
             beta = float(os.getenv("YB", 6.0))
         self.assigner = TaskAlignedAssigner(topk=10, num_classes=nc, alpha=alpha, beta=beta)
 
-    def __call__(self, raw: Sequence[torch.Tensor], targets: Targets):
+    def __call__(self, raw: Sequence[torch.Tensor], targets: Targets, mesh=None):
         """raw: TDetect's maps (B, ny, nx, 4 * reg_max + nc) -> (total,
-        {"box", "cls", "dfl"}), total = the items' sum times B."""
+        {"box", "cls", "dfl"}), total = the items' sum times B.
+
+        With `mesh`'s data-parallel group, B is this rank's rows, and the
+        score sum and B are the global batch's: the total and the items are
+        this rank's shares, which sum over the ranks to the global ones."""
         b = raw[0].shape[0]
+        mesh = with_group(mesh)
+        world = 1 if mesh is None else mesh.world
         dev = raw[0].device
         shapes = [(x.shape[1], x.shape[2]) for x in raw]
         anchor_points, stride_tensor = make_anchor_points(shapes, self.stride, device=dev)
@@ -159,6 +166,8 @@ class ComputeLossTAL:
         # divided by the raw score sum, as the reference; only a batch with
         # no target at all (sum exactly 0) divides by 1
         raw_sum = ts.sum()
+        if mesh is not None:  # the global batch's sum (the targets carry no gradient)
+            mesh.all_reduce(raw_sum)
         ts_sum = torch.where(raw_sum > 0, raw_sum, torch.ones_like(raw_sum))
 
         lcls = bce_with_logits(pred_scores, ts, self.cls_pw).sum() / ts_sum
@@ -178,4 +187,4 @@ class ComputeLossTAL:
         ldfl = ((ce_l * wl + ce_r * wr).mean(-1) * weight).sum() / ts_sum
 
         lbox, lcls, ldfl = lbox * 7.5, lcls * 0.5, ldfl * 1.5
-        return (lbox + lcls + ldfl) * b, {"box": lbox, "cls": lcls, "dfl": ldfl}
+        return (lbox + lcls + ldfl) * (b * world), {"box": lbox, "cls": lcls, "dfl": ldfl}

@@ -27,6 +27,16 @@ checkpoints are written on a background thread (`utils/async_ckpt.py`),
 one at a time, drained before `train` returns.  `device_aug` (HSV and
 flip) and `multi_scale` (a bilinear resize of the batch) run on the
 model's device.
+`mesh` (`parallel/mesh.py`, default `make_mesh()`: the group this process
+joined, else world 1) makes the run data-parallel: `batch_size` is the
+global batch and must divide by the world size; rank 0's weights are
+broadcast before the first step; each rank loads only its rows of every
+batch (the loader's process stripe; an in-memory loader's batches are
+global and each rank takes its rows) and runs its share of the global
+step (`make_train_step(mesh=...)`), so every rank holds the same state
+as one process on the whole batch.  Validation is data-parallel too, and
+rank 0's fitness decides `best` and early stopping on every rank; only
+rank 0 writes checkpoints, `results.csv`, TensorBoard and the plots.
 `remat` recomputes each graph layer's activations in the backward
 (`DetectionModel.remat`); `freeze` keeps model.0 .. model.{freeze - 1}
 as they are; `train_ungrouped` optimizes the parameters the reference
@@ -52,6 +62,7 @@ from ..eval.metrics import fitness
 from ..eval.validator import run_validation
 from ..graph import DetectionModel
 from ..nn.heads import Detect, TDetect
+from ..parallel.mesh import local_rows, make_mesh, replicate_tree
 from ..utils.async_ckpt import AsyncTrainCheckpointer
 from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_checkpoint
@@ -167,6 +178,7 @@ class Trainer:
         freeze: int = 0,
         remat: bool = False,
         ckpt_async: bool = False,
+        mesh=None,
     ):
         if (loader is None) == (data is None):
             raise ValueError("pass exactly one source of batches: loader= or data=")
@@ -175,7 +187,12 @@ class Trainer:
         if data is None and (image_weights or rect or quad or cache_images or single_cls):
             raise ValueError("image_weights, rect, quad, cache_images and single_cls "
                              "need the dataset: pass data=")
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.device = resolve_device(device if device is not None else self.mesh.device)
+        self.is_main = self.mesh.is_main
+        if batch_size % self.mesh.world:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the number of "
+                             f"devices ({self.mesh.world})")
         self.epochs = epochs
         self.bs = batch_size
         self.dtype = dtype
@@ -222,8 +239,10 @@ class Trainer:
                 cache_disk=(cache_images == "disk"),
                 rect=rect)  # rectangular training: no mosaic
             loader = DataLoader(self.train_ds, batch_size, max_targets=max_targets,
-                                shuffle=not rect, workers=workers, seed=seed, quad=quad)
+                                shuffle=not rect, workers=workers, seed=seed, quad=quad,
+                                process_index=self.mesh.rank, process_count=self.mesh.world)
         self.loader = loader
+        self._global_batches = self.data is None  # an in-memory loader's: each rank takes its rows
 
         # the optimizer steps once per `accumulate` loader batches (toward
         # the nominal batch 64), clamped to an epoch's batch count
@@ -253,6 +272,7 @@ class Trainer:
             if not (hasattr(ds, "shapes") and hasattr(ds, "labels")):
                 raise ValueError("autoanchor needs the loader's dataset .shapes and .labels")
             maybe_autoanchor(self.model, ds, img_size, thr=h.get("anchor_t", 4.0))
+            head.anchors = self.mesh.broadcast_object(head.anchors)  # rank 0's, everywhere
         if assignment == "tal":
             if not isinstance(head, TDetect):
                 raise ValueError("assignment 'tal' needs a TDetect head")
@@ -306,15 +326,17 @@ class Trainer:
             self.start_epoch = meta.get("epoch", -1) + 1
             self.best_fitness = meta.get("best_fitness", 0.0)
             print(f"resumed from {resume_from} at epoch {self.start_epoch}")
+        replicate_tree(self.mesh, self.model)  # rank 0's weights on every rank
+        replicate_tree(self.mesh, self.state.ema)
         if self.train_ds is not None:
             self.class_weights = labels_to_class_weights(self.train_ds.labels, nc)
         self.maps = np.zeros(nc)  # per-class mAP, for image-weight resampling
         self.out.mkdir(parents=True, exist_ok=True)
-        self.loggers = Loggers(self.out)
+        self.loggers = Loggers(self.out) if self.is_main else None
         self.callbacks = Callbacks()
         self.ckpt_async = ckpt_async
         self._async_ckptr = None
-        if self.train_ds is not None:
+        if self.train_ds is not None and self.is_main:
             try:  # the label statistics plot, inside the JAX trainer's guard
                 from ..utils.plots import plot_labels
 
@@ -330,7 +352,7 @@ class Trainer:
         if acc not in self._steps:
             self._steps[acc] = make_train_step(self.loss, self.sched, dtype=self.dtype,
                                                accumulate=acc, freeze=self.freeze,
-                                               device_aug=self.device_aug)
+                                               device_aug=self.device_aug, mesh=self.mesh)
         return self._steps[acc]
 
     def validate(self, use_ema: bool = True):
@@ -341,9 +363,11 @@ class Trainer:
             self.state.ema if use_ema else self.state.model, self.data["val"],
             img_size=self.img_size, batch_size=self.bs, nc=self.nc, dtype=self.dtype,
             max_targets=self.max_targets, single_cls=self.single_cls, workers=self.workers,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
 
     def _save(self, name: str, epoch: int):
+        if not self.is_main:
+            return
         meta = {"epoch": epoch, "best_fitness": float(self.best_fitness),
                 "step": self.state.step, "updates": self.state.ema_updates,
                 "nc": self.nc, "cfg": self.cfg_ref}
@@ -361,10 +385,16 @@ class Trainer:
 
     def _log_csv(self, row: Dict):
         step = row.pop("epoch")
-        self.loggers.log_metrics(row, step)
+        if self.loggers is not None:
+            self.loggers.log_metrics(row, step)
 
     def to_device(self, group):
-        """A group of loader batches -> images and Targets on the device."""
+        """A group of loader batches -> images and Targets on the device
+        (this rank's rows of each where the batches are global)."""
+        if self._global_batches and self.mesh.distributed:
+            group = [Batch(np.asarray(b.images)[rows], Targets(*(np.asarray(t)[rows]
+                                                                 for t in b.targets)))
+                     for b in group for rows in (local_rows(len(b.images), self.mesh),)]
         cat = (lambda xs: np.concatenate([np.asarray(x) for x in xs])) if len(group) > 1 \
             else (lambda xs: np.asarray(xs[0]))
         images = torch.from_numpy(cat([b.images for b in group])).to(self.device)
@@ -419,8 +449,10 @@ class Trainer:
                     nb += 1
                     if nb % log_every == 0 or nb == opt_steps:
                         running = {k: float(v) for k, v in metrics.items()}
-                        print(f"epoch {epoch} [{nb}/{opt_steps}] "
-                              + " ".join(f"{k}={v:.4f}" for k, v in running.items()), flush=True)
+                        if self.is_main:
+                            print(f"epoch {epoch} [{nb}/{opt_steps}] "
+                                    + " ".join(f"{k}={v:.4f}" for k, v in running.items()),
+                                  flush=True)
                 if metrics is not None:
                     running = {k: float(v) for k, v in metrics.items()}
                 row = {"epoch": epoch, **{f"train/{k}": v for k, v in running.items()}}
@@ -430,8 +462,10 @@ class Trainer:
                     res = self.validate()
                     if res.maps is not None:
                         self.maps = res.maps
-                    print(f"epoch {epoch} val: {res.summary()}", flush=True)
+                    if self.is_main:
+                        print(f"epoch {epoch} val: {res.summary()}", flush=True)
                     fi = float(fitness(np.array([[res.mp, res.mr, res.map50, res.map]]))[0])
+                    fi = self.mesh.broadcast_object(fi)  # one decision on every rank
                     if fi > self.best_fitness:
                         self.best_fitness = fi
                         if not self.nosave:
@@ -455,10 +489,13 @@ class Trainer:
                 self._async_ckptr.close()
         # stripped checkpoints mark a finished run
         for name in ("last", "best"):
-            if (self.out / f"{name}.npz").exists():
+            if self.is_main and (self.out / f"{name}.npz").exists():
                 strip_checkpoint(self.out / name)
-        self.loggers.finalize()
+        if self.loggers is not None:
+            self.loggers.finalize()
+        self.mesh.barrier()  # no rank reads a checkpoint before rank 0 has written it
         self.callbacks.run("on_train_end")
-        print(f"training done in {(time.time() - t_start) / 3600:.2f}h; "
-              f"best fitness {self.best_fitness:.4f}")
+        if self.is_main:
+            print(f"training done in {(time.time() - t_start) / 3600:.2f}h; "
+                  f"best fitness {self.best_fitness:.4f}")
         return self.best_fitness

@@ -597,15 +597,18 @@ def test_val_cli_save_json(val_ckpt):
 @pytest.mark.parametrize("flags,item", [
     # int8 is ported: what it refuses is the unfused path, with JAX's words
     pytest.param(("--int8", "--no-fuse"), "requires the fused", id="flags0-item 14"),
-    (("--devices", "2"), "item 13"), (("--spatial-shard",), "item 13")])
+    # --devices is ported (tests/test_torch_dist.py): what it refuses is a
+    # batch that does not divide over the devices
+    pytest.param(("--devices", "3"), "divisible", id="flags1-item 13"),
+    pytest.param(("--spatial-shard",), "item 13b", id="flags2-item 13")])
 def test_val_cli_refusals(val_ckpt, flags, item):
-    err = SystemExit if "--int8" in flags else NotImplementedError
+    err = {"--int8": SystemExit, "--devices": ValueError}.get(flags[0], NotImplementedError)
     with pytest.raises(err, match=item):
         pval.main(val_argv(val_ckpt, "refused", *flags, "--device", "cpu"))
 
 
 @pytest.mark.parametrize("flags,item", [  # --ckpt-async is ported (test_torch_train_extras.py)
-    pytest.param(("--spatial-shard",), "item 13", id="flags1-item 13")])
+    pytest.param(("--spatial-shard",), "item 13b", id="flags1-item 13")])
 def test_train_cli_refusals(shapes, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         ptrain.main(train_argv(shapes, "refused") + [*flags, "--device", "cpu"])

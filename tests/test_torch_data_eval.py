@@ -27,6 +27,9 @@ from dmayolo_tpu_torch.graph import DetectionModel
 from dmayolo_tpu_torch.utils.weights import state_dict_from_jax
 
 from test_torch_model import random_vars, small_cfg
+from torch_dist_ranks import one_rank_group
+
+from dmayolo_tpu_torch.parallel.mesh import close_group
 
 SIZE = 96
 METRICS = ("mp", "mr", "map50", "map75", "map")
@@ -133,7 +136,20 @@ def test_run_validation_device_and_refusals(models, val_set):
     if not torch.cuda.is_available():  # device None means CUDA, never a silent CPU run
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_validation(pm, val_set, img_size=SIZE)
-    for kw, err, what in ((dict(mesh=object()), NotImplementedError, "item 13"),
+    # data-parallel eval is ported (tests/test_torch_dist.py at world 2): in
+    # a group of one, every row goes through the gather and the result is
+    # the plain one; the H-sharding raises
+    want = run_validation(pm, val_set, img_size=SIZE, batch_size=4, device="cpu",
+                          dtype=torch.float32, workers=1)
+    mesh = one_rank_group()
+    try:
+        got = run_validation(pm, val_set, img_size=SIZE, batch_size=4, device="cpu",
+                             dtype=torch.float32, workers=1, mesh=mesh)
+    finally:
+        close_group()
+    assert got.summary() == want.summary() and want.nt > 0
+    np.testing.assert_array_equal(got.maps, want.maps)
+    for kw, err, what in ((dict(mesh=mesh, spatial=True), NotImplementedError, "item 13b"),
                           (dict(quant={}, augment=True), ValueError, "with TTA")):
         with pytest.raises(err, match=what):
             run_validation(pm, val_set, img_size=SIZE, device="cpu", **kw)

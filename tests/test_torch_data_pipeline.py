@@ -218,8 +218,35 @@ def test_collate_and_pad():
     np.testing.assert_array_equal(ov, rv)
     for a, b in zip(ot, rt):
         np.testing.assert_array_equal(a, np.asarray(b))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pl.DataLoader(None, 4, process_count=2)
+    # the process stripe (data-parallel loading): each rank's rows of every
+    # batch are the JAX loader's, a short last batch wrap-padded as JAX's
+    ds = _Indexed(10)
+    for r in range(2):
+        ours = pl.DataLoader(ds, 4, max_targets=5, seed=3, drop_last=False, workers=2,
+                             process_index=r, process_count=2)
+        ref = jl.DataLoader(ds, 4, max_targets=5, seed=3, drop_last=False, workers=2,
+                            process_index=r, process_count=2)
+        got, want = list(ours), list(ref)
+        assert [b.indices for b in got] == [b.indices for b in want]
+        assert all(len(b.indices) == 2 for b in got)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.images, w.images)
+    with pytest.raises(ValueError, match="divisible"):
+        pl.DataLoader(ds, 5, process_count=2)
+
+
+class _Indexed:
+    """A dataset whose image i is filled with i and holds one label."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def get(self, i, rng):
+        return (np.full((4, 4, 3), i, np.uint8),
+                np.array([[i % 3, 0.5, 0.5, 0.1, 0.1]], np.float32))
 
 
 def test_device_aug():

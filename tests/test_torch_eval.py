@@ -40,6 +40,9 @@ from dmayolo_tpu_torch.graph import DetectionModel
 from dmayolo_tpu_torch.utils.weights import state_dict_from_jax
 
 from test_torch_model import _match_rows, random_vars, small_cfg
+from torch_dist_ranks import one_rank_group
+
+from dmayolo_tpu_torch.parallel.mesh import close_group
 
 PROTOCOL = dict(conf_thres=0.001, iou_thres=0.6, max_det=300)
 
@@ -86,8 +89,20 @@ def test_make_infer_fn_matches_jax(models, augment, hybrid, backend):
 
 def test_make_infer_fn_refuses_what_is_not_ported(models):
     pm = models[3]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_infer_fn(pm, mesh=object(), **PROTOCOL)
+    # data-parallel eval is ported (tests/test_torch_dist.py at world 2):
+    # a group of one gives the plain detections; the H-sharding raises
+    x = np.random.default_rng(4).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    want = make_infer_fn(pm, **PROTOCOL)(x)
+    mesh = one_rank_group()
+    try:
+        got = make_infer_fn(pm, mesh=mesh, **PROTOCOL)(x)
+    finally:
+        close_group()
+    assert mesh.distributed and mesh.world == 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    assert torch.equal(got[1], want[1])
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        make_infer_fn(pm, mesh=mesh, spatial=True, **PROTOCOL)
     with pytest.raises(ValueError, match="with TTA"):  # int8 is ported; TTA takes none
         make_infer_fn(pm, quant={}, augment=True, **PROTOCOL)
 
