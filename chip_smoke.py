@@ -96,14 +96,14 @@ source, all at once), then:
 8. The SPD-Conv family on four scales (P2-P5, strides 4-32): C3CASPD2
    (anchor-based Detect, its `anchors: 4` placeholders replaced by
    autoanchor on the labels of seeded rectangle images) and CASPD_ODRTA
-   (anchor-free TDetect with DFL), full width, nc 10, built as the
-   flagship is.  Each is served as in 5 (K2, then K3 counted; TDetect's
+   (anchor-free TDetect with DFL), full width at depth 0.33
+   (`EARLIER_DEPTH`), nc 10, built as the flagship is.  Each is served as in 5 (K2, then K3 counted; TDetect's
    serving tails counted on the lazy route, `decode_topk` then
    `nms_from_topk`, every Detect tail on the eager one), its three
    serving tails identical at conf 0.0, its raw head on the card within
    1e-3 of the CPU's, bs128 timed and profiled; evaluated as in 6 (one TTA
    batch of 8 for TDetect); and trained at the author's recipe through the
-   `Trainer` over 10 in-memory batches (img/s over the last 8, ms per
+   `Trainer` over 8 in-memory batches (img/s over the last 6, ms per
    optimizer step at accumulate 1, peak memory, one step profiled):
    C3CASPD2 at train.sh:10-13 (1024 px, batch 8, Adam, hyp scratch,
    autoanchor), CASPD_ODRTA at train.sh:15-19 (1536 px, batch 4, Adam, hyp
@@ -119,10 +119,10 @@ source, all at once), then:
    built with g++ at first use), after a probe of what the host offers
    it (image modules found, not imported; JPEG, PNG and zlib headers and
    libraries; nvJPEG; g++): the port's generator writes a
-   VisDrone-analog set at 1536 px (64 train and 96 val images, JPEG at
+   VisDrone-analog set at 1536 px (64 train and 64 val images, JPEG at
    quality 85 through the machine's JPEG route: nvJPEG on the card) under
    build/data_smoke/ (removed at the end); the val passes read each val
-   file through 4 symlinked copies (384 images, 12 batches of 32), so
+   file through 6 symlinked copies (384 images, 12 batches of 32), so
    that 8 loader threads, each taking a whole batch, stay busy.  The
    loader alone: decode ms, img/s at 1 worker (to the last batch's
    arrival) and at min(8, cpu_count) workers (the whole pass, and after
@@ -159,15 +159,15 @@ source, all at once), then:
    (C3STR on P2-P5), DMA-HorNet, `ca-sppfcspc-bifpn-scconv-adapt-hornet`
    (DMA-full with C3HB HorNet stacks in place of the Swin ones), CADMM
    (DMMConv downsampling, C3CA on P2-P5) and ghostnet (C3GhostV2 with the
-   DFC bilinear gate on P2-P5), full width, nc 10, built as the flagship
-   is, `anchors: 4` placeholders replaced by autoanchor.  Each is served as
+   DFC bilinear gate on P2-P5), full width at depth 0.33, nc 10, built as
+   the flagship is, `anchors: 4` placeholders replaced by autoanchor.  Each is served as
    in 5 (K2, then K3 counted), its three serving tails identical at conf
    0.0, its raw head on the card within 1e-3 of the CPU's at 256 px, bs128
    timed and profiled (kernel groups, and the profiler ranges "attention",
    "layernorm"/"gelu"/"window shuffle", "depthwise conv", "gnconv" and
    "horblock" of the port); and evaluated as in 6 with one TTA batch of 8.
    DMA-full and DMA-HorNet are trained at the flagship's recipe
-   (train.sh:5-9) through the `Trainer` over 10 in-memory batches, as the
+   (train.sh:5-9) through the `Trainer` over 8 in-memory batches, as the
    SPD models are, each checkpoint served on "matrix"; `TrainProbe` checks
    that every BiFPN `w` moved, that the frozen parameters (the Swin bias
    tables, HorBlock's LayerScale gammas) did not and every gamma stayed
@@ -176,7 +176,8 @@ source, all at once), then:
    dropped samples, and that one generator seed gives one loss.
 11. The sweep (`sweep_model`, after 10): the other 22 yamls that came
    with DMA-HorNet (the DM/SM downsamplers, HorNet, ConvMixer, the
-   adaptive fusions, Ghost v1, yolov3-tiny), each at full width, nc 10,
+   adaptive fusions, Ghost v1, yolov3-tiny), each at full width, depth
+   0.33, nc 10,
    built on the card as in 10, BN calibrated and folded, one bs8 640 px
    bf16 batch served through `MicroBatcher`'s step on "matrix" (K3
    counted: one launch), and its f32 raw head at 256 px on the card
@@ -195,9 +196,9 @@ source, all at once), then:
    1536 px bs4 bf16 step against the plain one from one state (grads and
    BN statistics within `REMAT_TOL` or twice the plain step's own spread;
    peak GiB of both, remat's not larger; ms a step); `--batch-size -1` at
-   the recipe, probed at accumulate 1 (the probe ladder, the chosen batch,
-   and one real step at it, at the recipe's accumulate, peaking under 0.9
-   of the budget); `cli.val` at the author's eval
+   the recipe, probed at accumulate 1 against the card's memory budget
+   (the probe ladder, the chosen batch, and one real step at it, at the
+   recipe's accumulate, peaking under 0.9 of the budget); `cli.val` at the author's eval
    recipe (val.sh:4-6: 1996 px, rounded to 2016, TTA, bs8, --save-txt
    --save-conf --verbose) on the first 32 val files from the trained best.npz,
    then `--save-json` on "scan" and one run each on "pallas" and "matrix"
@@ -220,7 +221,7 @@ source, all at once), then:
    q95 round trip (PSNR at least `JPEG_PSNR_MIN`).  The data phase (9)
    writes its sets as JPEG through the same route and times PNG beside it.
 13. The inference tools (`tools_phase`, after 12, on its files): on the
-   CLI phase's trained flagship (its EMA `last.npz`) over the 96 val
+   CLI phase's trained flagship (its EMA `last.npz`) over the 64 val
    JPEGs, `cli.detect` at 1536 px bs16 (conf 0.25, max_det 1000,
    --save-txt --save-conf --save-crop): img/s of the run and after its
    first batch, K3's blocked entry counted once a batch and held against
@@ -290,6 +291,32 @@ source, all at once), then:
    two steps under `python -m torch.distributed.run --standalone
    --nproc-per-node 1`, beside the world-2 ranks.  A rank that fails
    fails the run.
+16. The spatial H-sharding (`spatial_phase`, after 15, on 9's files;
+   `parallel/spatial.py`): the full-width flagship at 1 data x 2 spatial
+   over gloo, both ranks on cuda:0 (a correctness check of full-width
+   shapes and the kernels, not a speed figure), against world 1 in this
+   process on the same inputs, every pass counted: the eval protocol on
+   two 1536 px images in bf16 on "matrix" (K3's blocked entry in each
+   rank) and "pallas" (K2's cluster kernel), each rank's peak memory
+   beside world 1's, the halo exchanges of a forward beside the yaml's
+   count of ops that read along H, the detection sets within world 1's
+   own bf16 noise (each image alone against the pair) plus
+   `SPATIAL_BF16_BAND`, and the bf16 raw head of one image beside world
+   1's own bf16 noise; in f32 (TF32 off) the same detection sets
+   (`same_sets`) on "matrix", the raw head of one image
+   (`SPATIAL_HEAD_TOL`), TTA on one image (its 0.67 scale: 1029 rows
+   padded to 1056, split unevenly from P4 down) and
+   `run_validation(spatial=True)` on 32 of 9's val files at 640 px,
+   labelled with world 1's own f32 detections (the same detection sets,
+   file by file, and P, R and mAP within `DIST_EVAL_TOL` or one label's
+   share; world 1's own metric move under a 1e-7 change of its weights
+   printed beside them); int8 eval (bf16, world 1's scales)
+   on one image: the same detection sets, K4 on world 1's routes, and
+   every int8 conv whose input rows equal world 1's gives equal output
+   rows (exact checksums); the f32 step at 640 px, two images, through
+   the H-sharded step against the plain one within `TRAIN_F32_TOL`, the
+   plain step's own move under a 1e-7 change of its weights printed
+   beside it.
 
 Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
@@ -1535,7 +1562,8 @@ class ReplayedAssignment:
 
 
 def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
-                   recipe=RECIPE, anchors=None, replay=None, mesh=None, with_buffers=False):
+                   recipe=RECIPE, anchors=None, replay=None, mesh=None, with_buffers=False,
+                   spatial=False):
     """One SGD step past warmup (lr and momentum at their base values) of
     the model of `cfg` (`anchors`: its head's, stride units, where the
     yaml's are placeholders) from `state_dict` on `batch`, with the
@@ -1548,7 +1576,8 @@ def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
     held against its formula on its own operands (`layer_grad_errs`), and
     the dtypes of the master weights and their grads are kept; else None.
     `mesh` (`parallel/mesh.py`) with a group: this rank's share of the
-    step over `batch` (its rows), through the data-parallel step.  With
+    step over `batch` (its rows), through the data-parallel step; with
+    `spatial`, also its H rows, through the H-sharded step.  With
     `with_buffers`, a fifth item: the BN running statistics after it."""
     import torch
 
@@ -1571,11 +1600,11 @@ def one_train_step(device, cfg, state_dict, batch, dtype, nc=10, layers=False,
     loss = make_loss(model, h, nc, recipe["assignment"])
     if replay is not None:
         replay.install(loss)
-    step = make_train_step(loss, sched, dtype=dtype, mesh=mesh)
+    step = make_train_step(loss, sched, dtype=dtype, mesh=mesh, spatial=spatial)
     imgs = torch.from_numpy(batch.images).to(device)
     tg = Targets(*(torch.from_numpy(t).to(device) for t in batch.targets))
     if mesh is not None and mesh.distributed:
-        imgs, tg = shard_batch(mesh, imgs), shard_batch(mesh, tg)
+        imgs, tg = shard_batch(mesh, imgs, spatial=spatial), shard_batch(mesh, tg)
     records, handles = layer_grad_hooks(model) if layers else ({}, [])
     grads, errs = {}, None
 
@@ -1975,6 +2004,24 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
 # the SPD-Conv family (P2-P5 heads): C3CASPD2 and CASPD_ODRTA
 # ---------------------------------------------------------------------------
 
+# the depth the SPD, zoo and sweep models run at (their yamls' is 1.0):
+# each path runs as before at full width, a third of the repeats (the
+# spatial phase's cut; the flagship, the main path, keeps its depth)
+EARLIER_DEPTH = 0.33
+
+
+def at_earlier_depth(name):
+    """The yaml of `name` as a dict, at `EARLIER_DEPTH`."""
+    import yaml
+
+    from dmayolo_tpu_torch.graph import model_config
+
+    with open(model_config(name)) as f:
+        cfg = yaml.safe_load(f)
+    cfg["depth_multiple"] = min(cfg["depth_multiple"], EARLIER_DEPTH)
+    return cfg
+
+
 SPD_MODELS = ("C3CASPD2", "CASPD_ODRTA")
 # the author's recipes, train.sh:10-13 (C3CASPD2 on UAVDT) and :15-19
 # (CASPD_ODRTA on VisDrone), from init_with_priors: their yolov5l.npz start
@@ -1985,7 +2032,7 @@ SPD_RECIPES = {
     "CASPD_ODRTA": dict(imgsz=1536, batch=4, adam=True, hyp="visdrone", max_targets=128,
                         assignment="tal", autoanchor=False),
 }
-SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 10, 2  # 8 timed loader batches
+SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 8, 2  # 6 timed loader batches
 SPD_TRAIN_CHECKS = {"C3CASPD2": (), "CASPD_ODRTA": ("f32",)}  # TAL's f32 step vs the CPU
 SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 8}  # TTA over TDetect's four levels
 
@@ -2479,8 +2526,8 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # ---------------------------------------------------------------------------
 
 # VisDrone's pixel scale on VisDrone-size frames: the train recipe's 1536 px;
-# 160 images, so that generation stays under 30 s on a slow host (192 took
-# 19.6-30.5 s on 8 threads).  The val passes read the 96 val files through
+# 128 images, so that generation stays under 30 s on a slow host (192 took
+# 19.6-30.5 s on 8 threads).  The val passes read the 64 val files through
 # `val_copies` symlinked copies each: 12 batches of 32, so that 8 loader
 # threads (each takes a whole batch) stay busy for a round and a half.  The
 # Trainer reads `train_copies` copies of the train files: an epoch of 64
@@ -2493,7 +2540,7 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # unprofiled over batches `train_timed` (after the fill and the first two
 # optimizer steps) and profiled over `train_profiled`, both while the
 # loader still works.
-DATA = dict(img_size=1536, n_train=64, n_val=96, val_copies=4, train_copies=4, val_imgsz=640,
+DATA = dict(img_size=1536, n_train=64, n_val=64, val_copies=6, train_copies=4, val_imgsz=640,
             val_batch=32, train_batch=4, train_accumulate=4, train_val=32,
             one_worker_batches={"val": 1, "train": 2}, train_timed=(8, 32),
             train_profiled=(32, 40), train_device_aug=(False,))  # on: cli.train --device-aug
@@ -3563,8 +3610,7 @@ def cli_phase(device, counters, smi, data_dir=DATA_DIR, cfg=None, sizes=CLI, nc=
     def logged(model, *a, **k):
         found["budget"] = autobatch_mod.device_memory_budget(next(model.parameters()).device)
         found["ladder"] = []
-        found["batch"] = real_find(model, *a, **{**k, "log": found["ladder"],
-                                                 "hbm_bytes": found["budget"]})
+        found["batch"] = real_find(model, *a, **{**k, "log": found["ladder"]})
         return found["batch"]
 
     autobatch_mod.find_train_batch_size = logged
@@ -5311,14 +5357,23 @@ DIST = dict(check_imgsz=640, check_batch=2, recipe_steps=3, recipe_warmup=1, val
 DIST_DIR = ROOT / "build" / "dist_smoke"
 DIST_EVAL_TOL = 1e-3  # P, R and mAP of world 2 against world 1
 DIST_SEED = 7
+STEP_NOISE_REL = 1e-7  # the weights' relative move that measures a step's conditioning
 
 
-def dist_step_check(device, cfg, nc, sizes, seed, mesh):
+def dist_step_check(device, cfg, nc, sizes, seed, mesh, spatial=False, reference=True):
     """The flagship's f32 step (TF32 off) at `check_batch` x `check_imgsz`
-    through `mesh`'s data-parallel step against the plain step on the
-    same card: the errors of the loss and items, every gradient, every
-    updated parameter and the BN buffers, and whether they hold
-    `TRAIN_F32_TOL` (the buffers the parameters' tolerance)."""
+    through `mesh`'s data-parallel step (with `spatial`, the H-sharded
+    one) against the plain step on the same card: the errors of the loss
+    and items, every gradient, every updated parameter and the BN
+    buffers, and whether they hold `TRAIN_F32_TOL` (the buffers the
+    parameters' tolerance).  With `spatial` also the step's own
+    conditioning, read beside the errors and not used in the check: how
+    far the plain step's grads and parameters move when its weights move
+    by `STEP_NOISE_REL` (the H-sharded step reorders every conv's and BN's
+    reductions, and the step amplifies such rounding most in the first
+    layers' grads).  Without
+    `reference`, only this rank's share of the step runs (another rank of
+    the group holds it against the plain one), and None is returned."""
     import torch
 
     from dmayolo_tpu_torch.graph import DetectionModel
@@ -5329,19 +5384,30 @@ def dist_step_check(device, cfg, nc, sizes, seed, mesh):
         torch.Generator().manual_seed(seed)).state_dict()
     small = train_batches(1, sizes["check_batch"], sizes["check_imgsz"], nc,
                           RECIPE["max_targets"], seed)[0]
+    if not reference:
+        one_train_step(device, cfg, sd, small, torch.float32, nc=nc, mesh=mesh, spatial=spatial)
+        return None
     want = one_train_step(device, cfg, sd, small, torch.float32, nc=nc, with_buffers=True)
     got = one_train_step(device, cfg, sd, small, torch.float32, nc=nc, mesh=mesh,
-                         with_buffers=True)
+                         with_buffers=True, spatial=spatial)
     errs = {"loss_rel_err": max(abs(got[0][k] - want[0][k]) / abs(want[0][k]) for k in want[0]),
             "grad_scaled_err": scaled_err(got[1], want[1]),
             "param_scaled_err": scaled_err(got[2], want[2]),
             "buffer_scaled_err": scaled_err(got[4], want[4]),
             "metrics": got[0], "metrics_plain": want[0], "rows": small.images.shape[0]
-            // mesh.world}
-    errs["ok"] = (errs["loss_rel_err"] <= TRAIN_F32_TOL["loss"]
-                  and errs["grad_scaled_err"] <= TRAIN_F32_TOL["grad"]
-                  and max(errs["param_scaled_err"], errs["buffer_scaled_err"])
-                  <= TRAIN_F32_TOL["param"])
+            // mesh.n_data}
+    tol = dict(TRAIN_F32_TOL)
+    if spatial:
+        g = torch.Generator().manual_seed(seed + 1)
+        moved = {k: v * (1 + STEP_NOISE_REL * torch.randn(v.shape, generator=g))
+                 if v.is_floating_point() else v for k, v in sd.items()}
+        ref = one_train_step(device, cfg, moved, small, torch.float32, nc=nc)
+        errs["grad_noise"] = scaled_err(ref[1], want[1])
+        errs["param_noise"] = scaled_err(ref[2], want[2])
+    errs["tol"] = tol
+    errs["ok"] = (errs["loss_rel_err"] <= tol["loss"]
+                  and errs["grad_scaled_err"] <= tol["grad"]
+                  and max(errs["param_scaled_err"], errs["buffer_scaled_err"]) <= tol["param"])
     return errs
 
 
@@ -5707,6 +5773,456 @@ def print_dist(dp, smi):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the spatial H-sharding (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+SPATIAL = dict(imgsz=1536, images=2, check_imgsz=640, check_batch=2, val_images=32,
+               val_imgsz=640, val_batch=16, workers=4)
+SPATIAL_DIR = ROOT / "build" / "spatial_smoke"
+SPATIAL_HEAD_TOL = 1e-4  # the f32 raw head at 1 x 2 against world 1, over 1 + max |head|
+# bf16 detection sets at 1 x 2 against world 1's: unmatched rows an image
+# beyond world 1's own bf16 noise (each image alone against the pair), 1%
+# of max_det (a split map's convs run at other shapes, so cuDNN may round
+# other ways, as it does for a batch of one)
+SPATIAL_BF16_BAND = 3
+SPATIAL_SEED = 11
+
+
+def h_reading_ops(model):
+    """The ops of `model` that read along H, counted from its modules (the
+    yaml's count): each conv with a kernel, stride or padding along H,
+    each max pool of SPPF and SPPFCSPC, SCConv's pool and its resize back,
+    each Upsample."""
+    from dmayolo_tpu_torch.nn.blocks import SPPF, SPPFCSPC, SCConv, Upsample
+    from dmayolo_tpu_torch.nn.primitives import Conv2d
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            n += (m.k[0], m.s[0], m.p[0]) != (1, 1, 0)
+        elif isinstance(m, (SPPF, SPPFCSPC)):
+            n += 3
+        elif isinstance(m, SCConv):
+            n += 2
+        elif isinstance(m, Upsample):
+            n += 1
+    return n
+
+
+def digests(t):
+    """Two exact checksums of a map's bytes in NHWC order, on its device:
+    the sum of its values read as integers, and that sum weighted by
+    position (int64, wrapping alike in any order)."""
+    import torch
+
+    v = t.permute(0, 2, 3, 1).contiguous()
+    v = v.view(torch.int16 if v.element_size() == 2 else torch.int32).reshape(-1).long()
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return int(v.sum()), int((v * w).sum())
+
+
+def int8_row_digests(model, split):
+    """Forward hooks on every conv that runs its int8 form: its route and
+    the digests of its input and output rows, this rank's (`split`) or
+    those of each of two spatial ranks' rows (one process)."""
+    from dmayolo_tpu_torch.nn.conv_int8 import route_of
+    from dmayolo_tpu_torch.nn.primitives import Conv2d
+    from dmayolo_tpu_torch.parallel.spatial import row_bounds
+
+    rec = {}
+
+    def hook(name):
+        def fn(m, args, y):
+            if m.int8 is None:
+                return
+            x = args[0]
+            if split:
+                rows = {"own": (digests(x), digests(y))}
+            else:
+                rows = {r: (digests(x[:, :, a:b]), digests(y[:, :, c:d])) for r, ((a, b), (c, d))
+                        in enumerate(zip(row_bounds(x.shape[2], 2), row_bounds(y.shape[2], 2)))}
+            rec[name] = {"route": route_of(m.k, m.s, m.p, m.d), "rows": rows}
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if isinstance(m, Conv2d)]
+    return rec, handles
+
+
+def det_rows(dets, valid, imgsz):
+    """Each image's valid detections as `same_sets` rows [cls, box / imgsz,
+    conf]."""
+    import numpy as np
+
+    out = []
+    for d, v in zip(dets.float().cpu().numpy(), valid.cpu().numpy()):
+        d = d[v]
+        out.append(np.concatenate([d[:, 5:6], d[:, :4] / imgsz, d[:, 4:5]], 1))
+    return out
+
+
+def unmatched_sets(got, want):
+    """`same_sets` of each image's detection rows (2e-3 of the image in
+    box, 5% in score), the largest count over the images.  Rows within 5%
+    of the lowest score of a set that `max_det` cut may be unmatched: at
+    the cut a row can trade places with the first one below it."""
+    band = SAME_SET_BAND * PROTOCOL["conf_thres"]
+    worst = 0
+    for g, w in zip(got, want):
+        cut = band if len(w) < PROTOCOL["max_det"] else max(band, 1.05 * float(w[:, -1].min()))
+        worst = max(worst, same_sets(g, w, 2e-3, 0.05, cut))
+    return worst
+
+
+def spatial_checks(device, model, images, scales, val_list, sizes, nc, txt_dir, mesh=None):
+    """The spatial phase's passes on one process (`mesh` None) or on this
+    rank of a 1 x 2 (data, spatial) mesh (`images` split by rows), each
+    with the launch counters zeroed just before and read just after:
+    the eval protocol in bf16 on "matrix" and on "pallas" (its peak
+    memory and halo exchanges) and in f32 on "matrix" (TF32 off, as
+    every f32 pass), the f32 and bf16 raw heads of image 0 (one process
+    also image 0's bf16 head in the pair), f32 TTA on image 0,
+    f32 `run_validation` over `val_list` (its txt rows to `txt_dir`, from
+    the main rank), and int8 eval (bf16, the model
+    fused, `scales`) on image 0 with each int8 conv's row digests."""
+    import gc
+
+    import torch
+
+    from dmayolo_tpu_torch.core.fixpoint_kernel import fixpoint_keep, fixpoint_keep_blocked
+    from dmayolo_tpu_torch.core.nms_kernel import nms_greedy, nms_greedy_stream
+    from dmayolo_tpu_torch.eval.validator import make_infer_fn, run_validation
+    from dmayolo_tpu_torch.nn.conv_int8 import ROUTE_COUNTS, quantize_s8
+    from dmayolo_tpu_torch.parallel import spatial as sp
+    from dmayolo_tpu_torch.parallel.mesh import shard_batch
+
+    on_card = device.type == "cuda"
+    counters = (nms_greedy, nms_greedy_stream, Counter(nms_greedy_stream, "cluster_launches",
+                                                       "nms_greedy_stream_cluster"),
+                fixpoint_keep, fixpoint_keep_blocked, *ROUTE_COUNTS.values(), quantize_s8)
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        r = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return r, {c.__name__: c.launches for c in counters}, time.perf_counter() - t0
+
+    split = mesh is not None
+    xl = (shard_batch(mesh, images, spatial=True) if split
+          else torch.from_numpy(images).to(device))
+    kw = dict(mesh=mesh, spatial=True) if split else {}
+    imgsz = images.shape[1]
+    out = {"rows": xl.shape[1]}
+    f32 = torch.float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for backend, dtype in (("matrix", torch.bfloat16), ("pallas", torch.bfloat16),
+                           ("matrix", f32)):
+        infer = make_infer_fn(model, dtype=dtype, nms_backend=backend, **PROTOCOL, **kw)
+        gc.collect()
+        base = 0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        e0, f0 = sp.EXCHANGES[0], sp.FETCHES[0]
+        (dets, valid), launches, s = counted(lambda: infer(xl))
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        out[f"eval_{backend}" + ("_f32" if dtype == f32 else "")] = {
+            "dets": det_rows(dets, valid, imgsz), "launches": launches, "s": s,
+            "peak_gib": peak / 2 ** 30, "above_model_gib": (peak - base) / 2 ** 30,
+            "exchanges": sp.EXCHANGES[0] - e0, "fetches": sp.FETCHES[0] - f0}
+    if not split:  # a control: world 1's own bf16 noise, each image in a batch of its own
+        infer = make_infer_fn(model, dtype=torch.bfloat16, nms_backend="matrix", **PROTOCOL)
+        out["eval_matrix_alone"] = {"dets": sum((det_rows(*infer(xl[i:i + 1]), imgsz)
+                                                 for i in range(len(xl))), [])}
+    with torch.inference_mode(), sp.spatial_scope(mesh):
+        for name, dtype in (("head_f32", f32), ("head_bf16", torch.bfloat16)):
+            out[name] = [r.float().cpu().numpy() for r in
+                         model.apply(xl[:1].to(dtype) / 255.0, dtype)]
+        if not split:  # world 1's own bf16 noise: image 0 in the pair
+            out["head_bf16_pair"] = [r[:1].float().cpu().numpy() for r in
+                                     model.apply(xl.to(torch.bfloat16) / 255.0, torch.bfloat16)]
+    infer = make_infer_fn(model, dtype=f32, augment=True, nms_backend="matrix", **PROTOCOL, **kw)
+    (dets, valid), launches, s = counted(lambda: infer(xl[:1]))
+    out["tta"] = {"dets": det_rows(dets, valid, imgsz), "launches": launches, "s": s}
+    res, launches, s = counted(lambda: run_validation(
+        model, str(val_list), img_size=sizes["val_imgsz"], batch_size=sizes["val_batch"], nc=nc,
+        dtype=f32, nms_backend="matrix", workers=sizes["workers"], device=device, mesh=mesh,
+        spatial=split, save_txt_dir=txt_dir, save_conf=True, **PROTOCOL))
+    out["val"] = {"launches": launches, "s": s, "nt": res.nt,
+                  **{k: getattr(res, k) for k in ("mp", "mr", "map50", "map75", "map")}}
+    model.fuse()
+    rec, handles = int8_row_digests(model, split)
+    infer = make_infer_fn(model, dtype=torch.bfloat16, fused=True, quant=scales,
+                          nms_backend="matrix", **PROTOCOL, **kw)
+    try:
+        (dets, valid), launches, s = counted(lambda: infer(xl[:1]))
+    finally:
+        for h in handles:
+            h.remove()
+    out["int8"] = {"dets": det_rows(dets, valid, imgsz), "launches": launches, "s": s,
+                   "convs": rec}
+    return out
+
+
+def spatial_rank(mesh, cfg, nc, sizes, seed, model_path, images, scales, val_list, txt_dir):
+    """One rank of 1 data x 2 spatial (gloo, both ranks on the card): the
+    passes of `spatial_checks` on its rows, then the f32 step through the
+    H-sharded step against the plain one."""
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.parallel.mesh import make_mesh
+
+    sm = make_mesh(1, 2, device=mesh.device)
+    model = DetectionModel(cfg, nc=nc, device=mesh.device)
+    model.load_state_dict(torch.load(model_path, map_location=mesh.device))
+    out = spatial_checks(mesh.device, model.eval(), images, scales, val_list, sizes, nc,
+                         txt_dir, sm)
+    del model
+    t0 = time.perf_counter()
+    # rank 0 holds the step against the plain one; rank 1 runs its share
+    out["step"] = dist_step_check(mesh.device, cfg, nc, sizes, seed, sm, spatial=True,
+                                  reference=sm.spatial_rank == 0)
+    out.update(step_s=time.perf_counter() - t0, rank=sm.rank, spatial_rank=sm.spatial_rank,
+               device=str(mesh.device))
+    return out
+
+
+def spatial_phase(device, smi, data_dir=DATA_DIR, cfg=None, sizes=SPATIAL, nc=10):
+    """The spatial H-sharding (`parallel/spatial.py`) at 1 data x 2
+    spatial over gloo, both ranks on the one card (NCCL refuses two ranks
+    on one device; a correctness check at full width, not a speed figure):
+    the full-width flagship at `imgsz` px on `images` images of
+    rectangles, against world 1 in this process on the same images: the
+    eval protocol in bf16 on "matrix" (K3's blocked entry in each rank)
+    and "pallas" (K2's cluster kernel), each rank's peak memory beside
+    world 1's, the halo exchanges of a forward beside the yaml's count,
+    the detection sets within world 1's own bf16 noise (each image alone
+    against the pair: cuDNN rounds other shapes otherwise) plus
+    `SPATIAL_BF16_BAND`, the bf16 head of one image beside that noise;
+    in f32 (TF32 off) the same detection sets (`unmatched_sets`) on
+    "matrix", the raw head of one image (`SPATIAL_HEAD_TOL`), TTA on one
+    image (its 0.67 scale: 1029 rows padded to 1056, whose P4-P5 maps and
+    SCConv windows split unevenly) and `run_validation(spatial=True)` on
+    the data phase's first `val_images` val files, labelled with world 1's
+    own f32 detections (the same detection sets file by file, from the
+    txt rows; P, R and mAP within `DIST_EVAL_TOL` or one label's share,
+    1 / nt, with world 1's own move under a `STEP_NOISE_REL` change of its
+    weights beside them); int8 eval (bf16, world 1's scales) on one image:
+    the same detection sets, K4 on world 1's routes, and every int8 conv
+    whose input rows equal world 1's giving equal output rows; the f32
+    step at `check_batch` x `check_imgsz` against the plain one within
+    `TRAIN_F32_TOL` (`dist_step_check`).  Prints its lines (`print_spatial`) before its
+    checks."""
+    import gc
+    import shutil
+
+    import torch
+
+    from dmayolo_tpu_torch.eval.validator import run_validation
+    from dmayolo_tpu_torch.graph import DetectionModel, model_config
+    from dmayolo_tpu_torch.nn.quant import calibrate_act_scales
+    from dmayolo_tpu_torch.parallel.mesh import spawn
+
+    cfg = cfg or model_config(FLAGSHIP)
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"sizes": dict(sizes)}
+    shutil.rmtree(SPATIAL_DIR, ignore_errors=True)
+    SPATIAL_DIR.mkdir(parents=True)
+    try:
+        model = build_model(device, cfg=cfg, nc=nc).eval()
+        model_path = SPATIAL_DIR / "model.pt"
+        torch.save(model.state_dict(), model_path)
+        out["h_reading_ops"] = h_reading_ops(model)
+        images, _ = rectangles(sizes["images"], sizes["imgsz"], nc, SPATIAL_SEED)
+        fused = DetectionModel(cfg, nc=nc, device=device)
+        fused.load_state_dict(model.state_dict())
+        scales = calibrate_act_scales(fused.eval().fuse(), [images[:1]])
+        del fused
+        val_list = SPATIAL_DIR / "val.txt"
+        val_list.write_text("".join(f"{f}\n" for f in sorted(
+            (data_dir / "images" / "val").iterdir())[:sizes["val_images"]]))
+        # those files' labels: world 1's own f32 detections, so that its
+        # mAP is far from 0 and the spatial run's is held to it
+        own_labels(model, str(val_list), sizes["val_imgsz"], sizes["val_batch"], torch.float32,
+                   sizes["workers"])
+        t0 = time.perf_counter()
+        # world 1's own metric noise: run_validation with its weights moved
+        # by STEP_NOISE_REL (a reading beside the split's, not a check)
+        g = torch.Generator().manual_seed(SPATIAL_SEED)
+        moved = DetectionModel(cfg, nc=nc, device=device)
+        moved.load_state_dict({k: v * (1 + STEP_NOISE_REL * torch.randn(v.shape, generator=g)
+                                       .to(v.device)) if v.is_floating_point() else v
+                               for k, v in model.state_dict().items()})
+        res = run_validation(moved.eval(), str(val_list), img_size=sizes["val_imgsz"],
+                             batch_size=sizes["val_batch"], nc=nc, dtype=torch.float32,
+                             nms_backend="matrix", workers=sizes["workers"], device=device,
+                             **PROTOCOL)
+        out["world1_moved_val"] = {k: getattr(res, k) for k in ("mp", "mr", "map50", "map")}
+        del moved
+        w1 = spatial_checks(device, model, images, scales, val_list, sizes, nc,
+                            SPATIAL_DIR / "txt_w1")
+        out["world1_s"] = time.perf_counter() - t0
+        del model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(spatial_rank, 2, args=(cfg, nc, sizes, SPATIAL_SEED, str(model_path),
+                                             images, scales, str(val_list),
+                                             str(SPATIAL_DIR / "txt_1x2")),
+                      device=device.type, backend="gloo", share_device=on_card,
+                      threads=None if on_card else torch.get_num_threads())
+        out["spawn_s"] = time.perf_counter() - t0
+        # run_validation's detection sets, file by file (the main rank's rows)
+        a, b = label_lines(SPATIAL_DIR / "txt_1x2"), label_lines(SPATIAL_DIR / "txt_w1")
+        out["val_sets"] = {"files": [len(a), len(b)],
+                           "detections": [sum(map(len, a.values())), sum(map(len, b.values()))],
+                           "unmatched": unmatched_sets([rows_of(a.get(k, [])) for k in b],
+                                                       [rows_of(b[k]) for k in b])}
+    finally:
+        shutil.rmtree(SPATIAL_DIR, ignore_errors=True)
+    def summary(res):  # what the report keeps: no detection rows, heads or digests
+        return {k: {a: b for a, b in v.items() if a not in ("dets", "convs")}
+                if isinstance(v, dict) else v for k, v in res.items()
+                if not k.startswith("head_")}
+
+    def head_err(got, want):  # max |got - want| over 1 + max |want|, over the levels
+        scale = 1.0 + max(float(abs(w).max()) for w in want)
+        return max(float(abs(g - w).max()) for g, w in zip(got, want)) / scale
+
+    out["world1"] = summary(w1)
+    out["ranks"] = [summary(r) for r in ranks]
+    out["world1_bf16_alone_unmatched"] = unmatched_sets(w1["eval_matrix_alone"]["dets"],
+                                                        w1["eval_matrix"]["dets"])
+    out["world1_bf16_pair_head_err"] = head_err(w1["head_bf16_pair"], w1["head_bf16"])
+    cmp = out["compare"] = []
+    for r in ranks:
+        c = {"rank": r["rank"]}
+        for key in ("eval_matrix", "eval_pallas", "eval_matrix_f32", "tta", "int8"):
+            c[f"{key}_unmatched"] = unmatched_sets(r[key]["dets"], w1[key]["dets"])
+            c[f"{key}_detections"] = [sum(map(len, r[key]["dets"])),
+                                      sum(map(len, w1[key]["dets"]))]
+        c["head_f32_scaled_err"] = head_err(r["head_f32"], w1["head_f32"])
+        c["head_bf16_scaled_err"] = head_err(r["head_bf16"], w1["head_bf16"])
+        c["val_metric_err"] = max(abs(r["val"][k] - w1["val"][k])
+                                  for k in ("mp", "mr", "map50", "map"))
+        c["val_metric_err_world1_moved"] = max(abs(out["world1_moved_val"][k] - w1["val"][k])
+                                               for k in ("mp", "mr", "map50", "map"))
+        routes = {k: v for k, v in r["int8"]["launches"].items() if k.startswith("conv_int8")}
+        c["int8_routes"] = routes
+        c["int8_routes_world1"] = {k: w1["int8"]["launches"][k] for k in routes}
+        same_in = [(name, conv["route"]) for name, conv in r["int8"]["convs"].items()
+                   if conv["rows"]["own"][0] == w1["int8"]["convs"][name]["rows"][
+                       r["spatial_rank"]][0]]
+        c["int8_convs"] = len(r["int8"]["convs"])
+        c["int8_equal_inputs"] = len(same_in)
+        c["int8_equal_inputs_by_route"] = {rt: sum(1 for _, q in same_in if q == rt)
+                                           for rt in sorted({q for _, q in same_in})}
+        c["int8_unequal_outputs"] = [name for name, _ in same_in
+                                     if r["int8"]["convs"][name]["rows"]["own"][1]
+                                     != w1["int8"]["convs"][name]["rows"][r["spatial_rank"]][1]]
+        cmp.append(c)
+    out["s"] = time.perf_counter() - t_phase
+    print_spatial(out, smi)
+    check(ranks[0]["step"] is not None, "no spatial rank held the f32 step")
+    vs = out["val_sets"]
+    check(vs["files"][0] == vs["files"][1] == sizes["val_images"] and vs["unmatched"] == 0,
+          f"spatial run_validation's detection sets differ from world 1's: {vs}")
+    for r, c in zip(ranks, cmp):
+        check(all(c[f"{k}_unmatched"] == 0 for k in ("eval_matrix_f32", "tta", "int8")),
+              f"spatial rank {r['rank']}'s detections differ from world 1's: {c}")
+        bf16_limit = out["world1_bf16_alone_unmatched"] + SPATIAL_BF16_BAND
+        check(all(c[f"{k}_unmatched"] <= bf16_limit for k in ("eval_matrix", "eval_pallas")),
+              f"spatial rank {r['rank']}'s bf16 detections differ from world 1's beyond its "
+              f"own bf16 noise plus {SPATIAL_BF16_BAND}: {c}")
+        check(c["head_f32_scaled_err"] <= SPATIAL_HEAD_TOL,
+              f"spatial rank {r['rank']}'s f32 raw head differs from world 1's: {c}")
+        # at f32 the split forward differs from world 1's in its last bits
+        # (the head within SPATIAL_HEAD_TOL), so one detection at a score
+        # tie or an IoU threshold may flip: one label's share of a metric
+        check(c["val_metric_err"] <= max(DIST_EVAL_TOL, 1 / w1["val"]["nt"])
+              and r["val"]["nt"] == w1["val"]["nt"] and 0 < w1["val"]["map50"],
+              f"spatial run_validation differs from world 1: {c}, {r['val']}, {w1['val']}")
+        check(r["step"] is None or r["step"]["ok"],
+              f"spatial rank {r['rank']}'s f32 step differs from the plain one: {r['step']}")
+        check(c["int8_convs"] == len(w1["int8"]["convs"]) > 0
+              and c["int8_equal_inputs"] > 0 and not c["int8_unequal_outputs"],
+              f"spatial int8 rows differ from world 1's: {c}")
+        check(c["int8_routes"] == c["int8_routes_world1"],
+              f"K4's routes at 1 x 2 are not world 1's: {c}")
+        check(r["eval_matrix"]["exchanges"] > 0, f"no halo exchange in a spatial forward: {c}")
+        if on_card:
+            check(r["eval_matrix"]["launches"]["fixpoint_keep_blocked"] > 0
+                  and r["tta"]["launches"]["fixpoint_keep_blocked"] > 0
+                  and r["val"]["launches"]["fixpoint_keep_blocked"] > 0
+                  and r["int8"]["launches"]["fixpoint_keep_blocked"] > 0,
+                  f"K3 did not launch in spatial rank {r['rank']}: {r['eval_matrix']}")
+            check(r["eval_pallas"]["launches"]["nms_greedy_stream_cluster"] > 0,
+                  f"K2's cluster kernel did not launch in spatial rank {r['rank']}")
+            check(sum(c["int8_routes"].values()) > 0,
+                  f"K4 did not launch in spatial rank {r['rank']}")
+    return out
+
+
+def print_spatial(sp, smi):
+    w1, sz = sp["world1"], sp["sizes"]
+    ev = w1["eval_matrix"]
+    for r, c in zip(sp["ranks"], sp["compare"]):
+        e = r["eval_matrix"]
+        print(f"spatial 1x2 rank {r['rank']} ({r['rows']} of {sz['imgsz']} rows, gloo on "
+              f"{r['device']}): eval bs{sz['images']} {sz['imgsz']} px bf16 peak "
+              f"{e['peak_gib']:.2f} GiB ({e['above_model_gib']:.2f} above the weights) against "
+              f"world 1's {ev['peak_gib']:.2f} ({ev['above_model_gib']:.2f}); "
+              f"{e['exchanges']} halo exchanges in a forward ({e['fetches']} ops read along "
+              f"H; the yaml's count {sp['h_reading_ops']}); unmatched detections: f32 "
+              f"matrix {c['eval_matrix_f32_unmatched']}, f32 TTA {c['tta_unmatched']}, int8 "
+              f"(bf16) {c['int8_unmatched']}; bf16 matrix {c['eval_matrix_unmatched']}, "
+              f"pallas {c['eval_pallas_unmatched']} (limit: world 1's own bf16, each image "
+              f"alone against the pair, {sp['world1_bf16_alone_unmatched']}, plus "
+              f"{SPATIAL_BF16_BAND}; detections {c['eval_matrix_detections']}, TTA "
+              f"{c['tta_detections']}); f32 head {c['head_f32_scaled_err']:.2e} (tol "
+              f"{SPATIAL_HEAD_TOL}); bf16 head {c['head_bf16_scaled_err']:.2e} (world 1's "
+              f"own, image 0 alone against the pair: {sp['world1_bf16_pair_head_err']:.2e}); "
+              f"run_validation "
+              f"P/R/mAP@.5/mAP " + "/".join(f"{r['val'][k]:.4f}" for k in ("mp", "mr", "map50",
+                                                                            "map"))
+              + " (f32; world 1 " + "/".join(f"{w1['val'][k]:.4f}" for k in ("mp", "mr",
+                                                                             "map50", "map"))
+              + f", err {c['val_metric_err']:.2e}; world 1's own under a {STEP_NOISE_REL} "
+              f"change of its weights {c['val_metric_err_world1_moved']:.2e}; detection sets "
+              f"unmatched {sp['val_sets']['unmatched']} over {sp['val_sets']['files'][1]} files, "
+              f"{sp['val_sets']['detections']} rows); int8: K4 routes {c['int8_routes']} (world 1 "
+              f"{c['int8_routes_world1']}), {c['int8_equal_inputs']} of {c['int8_convs']} convs "
+              f"with world 1's input rows {c['int8_equal_inputs_by_route']}, their outputs "
+              f"equal: {not c['int8_unequal_outputs']}; f32 step at {sz['check_batch']} x "
+              f"{sz['check_imgsz']} px: "
+              + (f"its share (rank 0 holds it)" if r["step"] is None else
+                 f"loss {r['step']['loss_rel_err']:.2e}, grads "
+                 f"{r['step']['grad_scaled_err']:.2e}, params {r['step']['param_scaled_err']:.2e}, "
+                 f"BN buffers {r['step']['buffer_scaled_err']:.2e} (tol {r['step']['tol']}; the "
+                 f"plain step itself moves its grads {r['step']['grad_noise']:.2e} and params "
+                 f"{r['step']['param_noise']:.2e} under a {STEP_NOISE_REL} change of its "
+                 f"weights)")
+              + f"; K3 blocked "
+              f"launches eval/TTA/val/int8 {e['launches']['fixpoint_keep_blocked']}/"
+              f"{r['tta']['launches']['fixpoint_keep_blocked']}/"
+              f"{r['val']['launches']['fixpoint_keep_blocked']}/"
+              f"{r['int8']['launches']['fixpoint_keep_blocked']}; on {smi}", flush=True)
+    print(f"spatial phase {sp['s']:.1f} s (world 1 {sp['world1_s']:.1f}, the 1x2 spawn "
+          f"{sp['spawn_s']:.1f}; eval s world 1 {ev['s']:.2f}, ranks "
+          f"{[round(r['eval_matrix']['s'], 2) for r in sp['ranks']]}; step s "
+          f"{[round(r['step_s'], 1) for r in sp['ranks']]})", flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -5865,7 +6381,8 @@ def main(argv=None):
     spd, spd_sites = {}, {}
     for name in SPD_MODELS:
         t1 = time.perf_counter()
-        spd[name] = spd_phase(device, name, counters, smi, spd_sites)
+        spd[name] = spd_phase(device, name, counters, smi, spd_sites,
+                              cfg=at_earlier_depth(name))
         spd[name]["s"] = time.perf_counter() - t1
     report["spd"] = spd
     report["k1_spd"] = k1s = check_conv_flagship(device, union_sites(spd_sites))
@@ -5886,7 +6403,7 @@ def main(argv=None):
     zoo = {}
     for name in ZOO_MODELS:
         t1 = time.perf_counter()
-        zoo[name] = zoo_phase(device, name, counters, smi)
+        zoo[name] = zoo_phase(device, name, counters, smi, cfg=at_earlier_depth(name))
         zoo[name]["s"] = phases[ZOO_MODELS[name]] = time.perf_counter() - t1
         print(f"{ZOO_MODELS[name]} phase: {zoo[name]['s']:.1f} s", flush=True)
     report["zoo"] = zoo
@@ -5895,7 +6412,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     sweep = report["sweep"] = {}
     for name in SWEEP_MODELS:
-        sweep[name] = r = sweep_model(device, name, counters)
+        sweep[name] = r = sweep_model(device, name, counters, cfg=at_earlier_depth(name))
         print(f"sweep {name}: {r['params'] / 1e6:.2f} M parameters, {r['levels']} levels; "
               f"bs{SWEEP_BATCH} 640px bf16 on 'matrix': {r['detections']} detections, K3 "
               f"{r['launches']['fixpoint_keep']} launch, peak {r['peak_mem_gib']:.2f} GiB; raw "
@@ -5926,6 +6443,8 @@ def main(argv=None):
         report["dist"] = dist = dist_phase(device, smi)
         phases["dist"] = dist["s"]
         print_dist(dist, smi)
+        report["spatial"] = spt = spatial_phase(device, smi)
+        phases["spatial"] = spt["s"]
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
         print("phase seconds so far: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()),
@@ -5981,6 +6500,10 @@ def main(argv=None):
     paths["dist eval world 1, matrix"] = dist["world1_eval"]["launches"]
     paths.update({f"dist eval world 2 rank {r['rank']}, matrix": r["eval"]["launches"]
                   for r in dist["world2"]})
+    for who, res in [("world 1", spt["world1"])] + [(f"rank {r['rank']}", r)
+                                                     for r in spt["ranks"]]:
+        paths.update({f"spatial {who} {key}": res[key]["launches"]
+                      for key in ("eval_matrix", "eval_pallas", "tta", "val", "int8")})
     paths.update({f"int8 serving {name}": r["launches"] for name, r in i8["serving"].items()})
     paths[f"int8 serving {INT8_GENERAL_MODEL}"] = i8["general"]["launches"]
     paths.update({f"int8 eval tiny {dt}": i8["tiny"][dt]["launches"] for dt in ("f32", "bf16")})

@@ -14,10 +14,13 @@ checkpoints (the same JAX `.npz`) on a background thread
 each rank runs its share of the global step, and rank 0 writes the run
 directory; `--batch-size -1` probes each device's memory with its share.
 Without torchrun one process trains.  `--sync-bn` changes nothing: BN
-always takes the global batch's moments, as in JAX.  Not ported yet:
-`--spatial-shard` (ROADMAP.md, Queue 1 item 13b), and `--evolve` in a
-group of more than one rank; they raise.  `main` returns the best
-fitness, or the evolved hyp.
+always takes the global batch's moments, as in JAX.  `--spatial-shard`
+runs as JAX's does: it passes `spatial=True` to a `Trainer` on the
+default mesh, whose every rank is on the data axis, so nothing is split
+along H (the line it prints says so); H-sharded training is the Python
+API's, `Trainer(mesh=make_mesh(n_data, n_spatial), spatial=True)`.  Not
+ported yet: `--evolve` in a group of more than one rank; it raises.
+`main` returns the best fitness, or the evolved hyp.
 
 The flagship recipe (train.sh:5-9):
     python -m dmayolo_tpu_torch.cli.train --imgsz 1536 --adam --batch-size 4 \\
@@ -79,8 +82,8 @@ def build_parser():
     p.add_argument("--max-targets", type=int, default=128)
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
     p.add_argument("--spatial-shard", action="store_true",
-                   help="shard image H over devices: not ported yet "
-                        "(ROADMAP.md, Queue 1 item 13b)")
+                   help="spatial=True to the Trainer, whose default mesh is data-only "
+                        "(as in JAX: nothing is split along H)")
     p.add_argument("--train-ungrouped", action="store_true",
                    help="also optimize params the reference leaves out")
     p.add_argument("--device", type=str, default=None,
@@ -135,7 +138,9 @@ def main(argv=None):
     from ..parallel import mesh as pm
 
     if opt.spatial_shard:
-        raise NotImplementedError(f"--spatial-shard: {pm.SPATIAL_REFUSAL}")
+        print("--spatial-shard: the default mesh puts every device on the data axis, so "
+              "images are not split along H (as in JAX); pass a (data, spatial) mesh to "
+              "Trainer(mesh=make_mesh(n_data, n_spatial), spatial=True) for that")
     if not pm.under_torchrun():
         return _main(opt)
     mesh = pm.join_torchrun(device=opt.device)
@@ -304,6 +309,7 @@ def _make_trainer(opt, hyp, out_dir, mesh=None):
         ckpt_async=opt.ckpt_async,
         device=opt.device if mesh is None else mesh.device,
         mesh=mesh,
+        spatial=opt.spatial_shard,
     )
 
 

@@ -12,11 +12,14 @@ on `--ncalib` dataset images and runs the eligible convs on the int8 path
 spawns N ranks (on the CPU over gloo with `--device cpu`; on CUDA over
 NCCL, one GPU a rank, which must exist); `--batch-size` is the global
 batch, the result that of one process, printed and written by rank 0.
-Not ported yet: `--spatial-shard` (ROADMAP.md, Queue 1 item 13b); it
-raises.
+`--spatial-shard` with an even `--devices` N also splits each image's
+rows over 2 ranks (`make_mesh(N // 2, 2)`, `parallel/spatial.py`), the
+large-image eval of the DMA regime, as JAX's; with an odd N it prints
+JAX's words and runs data-parallel only; with N = 1 it changes nothing.
 
     python -m dmayolo_tpu_torch.cli.val --weights best.npz --data VisDrone.yaml --imgsz 1536
     python -m dmayolo_tpu_torch.cli.val --weights best.npz --data VisDrone.yaml --devices 4
+    python -m dmayolo_tpu_torch.cli.val ... --imgsz 2048 --devices 2 --spatial-shard
 """
 from __future__ import annotations
 
@@ -69,8 +72,8 @@ def build_parser():
                    help="data-parallel eval over N devices (N GPUs, or N CPU processes "
                         "with --device cpu); batch-size must divide")
     p.add_argument("--spatial-shard", action="store_true",
-                   help="shard image H over devices: not ported yet "
-                        "(ROADMAP.md, Queue 1 item 13b)")
+                   help="with an even --devices, also shard image H over 2 of them "
+                        "(large-image eval)")
     p.add_argument("--max-nms", type=int, default=30000,
                    help="pre-NMS candidate budget")
     p.add_argument("--nms-backend", type=str, default="scan",
@@ -82,19 +85,22 @@ def main(argv=None):
     opt = build_parser().parse_args(argv)
     from ..parallel import mesh as pm
 
-    if opt.spatial_shard:
-        raise NotImplementedError(f"--spatial-shard: {pm.SPATIAL_REFUSAL}")
     if opt.devices <= 1:
         return run(opt)
-    if opt.batch_size % opt.devices:
-        raise ValueError(f"--batch-size {opt.batch_size} must be divisible by --devices "
-                         f"{opt.devices}")
+    opt.n_spatial = 2 if opt.spatial_shard and opt.devices % 2 == 0 else 1
+    if opt.spatial_shard and opt.n_spatial == 1:
+        print(f"--spatial-shard needs an even --devices count (got {opt.devices}) "
+              f"— falling back to pure data parallelism")
+    n_data = opt.devices // opt.n_spatial
+    if opt.batch_size % n_data:
+        raise ValueError(f"--batch-size {opt.batch_size} must be divisible by the "
+                         f"{n_data} devices of the data axis")
     if pm.under_torchrun():
         mesh = pm.join_torchrun(device=opt.device)
         try:
             if mesh.world != opt.devices:
                 raise ValueError(f"--devices {opt.devices} in a torchrun group of {mesh.world}")
-            return run(opt, mesh)
+            return run(opt, pm.make_mesh(n_data, opt.n_spatial, device=mesh.device))
         finally:
             pm.close_group()
     import torch
@@ -106,8 +112,11 @@ def main(argv=None):
 
 
 def _rank(mesh, opt):
-    """One rank of `--devices N`."""
-    return run(opt, mesh)
+    """One rank of `--devices N`, on the (data, spatial) mesh of the flags."""
+    from ..parallel import mesh as pm
+
+    return run(opt, pm.make_mesh(opt.devices // opt.n_spatial, opt.n_spatial,
+                                 device=mesh.device))
 
 
 def run(opt, mesh=None):
@@ -150,7 +159,7 @@ def run(opt, mesh=None):
     kw = dict(batch_size=opt.batch_size, nc=data["nc"], conf_thres=opt.conf_thres,
                   iou_thres=opt.iou_thres, max_det=opt.max_det, max_nms=opt.max_nms,
                   nms_backend=opt.nms_backend, save_hybrid=opt.save_hybrid, dtype=dtype,
-                  fused=fused, device=device, mesh=mesh)
+                  fused=fused, device=device, mesh=mesh, spatial=opt.spatial_shard)
 
     if opt.task == "study":
         # mAP and speed across image sizes

@@ -13,6 +13,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
 TTA_SCALES = (1.0, 1.0, 0.83, 0.83, 0.67, 0.67)
 TTA_FLIPS = (None, "lr", None, "lr", None, "lr")
 
@@ -57,7 +59,13 @@ def clip_augmented(ys: List[torch.Tensor], nl: int) -> List[torch.Tensor]:
 def forward_augment(model, x: torch.Tensor, dtype=torch.float32,
                     fused: bool = False) -> torch.Tensor:
     """TTA forward of (B, H, W, 3) images -> (B, N_total, 5 + nc) decoded
-    predictions."""
+    predictions.  On the spatial path (`parallel/spatial.py`) `x` is this
+    rank's rows: the flips and the resize run on the image gathered over
+    the spatial group (small beside the activations), and each pass on
+    this rank's rows of the scaled image."""
+    split = spatial.current() is not None
+    if split:
+        x = spatial.gather_h(x, dim=1)
     img_hw = (x.shape[1], x.shape[2])
     gs = int(model.stride.max())
     ys = []
@@ -68,6 +76,8 @@ def forward_augment(model, x: torch.Tensor, dtype=torch.float32,
         elif f == "ud":
             xi = xi.flip(1)
         xi = scale_img(xi, s, gs)
+        if split:
+            xi = spatial.slice_h(xi, dim=1)
         yi = model.decode(model.apply(xi, dtype=dtype, fused=fused))
         ys.append(descale_pred(yi, f, s, img_hw))
     ys = clip_augmented(ys, model.head.nl)

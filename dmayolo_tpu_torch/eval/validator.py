@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from ..core.nms import batched_nms
 from ..data.datasets import DetectionDataset
 from ..data.loader import Batch, DataLoader
-from ..parallel.mesh import SPATIAL_REFUSAL, gather_rows, with_group
+from ..parallel.mesh import gather_rows, image_rows, with_group
+from ..parallel.spatial import global_height, spatial_scope
 from ..train.loss import Targets
 from ..utils.device import resolve_device
 from .coco_json import append_coco_json, image_id_map
@@ -85,18 +86,23 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
 
     `mesh` (`parallel/mesh.py`) with a group: `images` (and the targets)
     are this rank's rows of the global batch, and `infer` returns the
-    global batch's detections and `valid` on every rank (each rank's rows
-    gathered by one SUM all-reduce of a zero-filled buffer, exact), as the
-    JAX package's multi-host path does.  `spatial` (H-sharding) raises."""
-    if spatial:
-        raise NotImplementedError(SPATIAL_REFUSAL)
-    dp = with_group(mesh)
+    global batch's detections and `valid` on every rank (each data rank's
+    rows gathered by one SUM all-reduce of a zero-filled buffer, exact),
+    as the JAX package's multi-host path does.  With `spatial` and a mesh
+    that splits rows (JAX's `P("data", "spatial")`), `images` are also
+    only this rank's H rows (`shard_batch(spatial=True)`): the forward runs
+    in the spatial scope (`parallel/spatial.py`), its raw head comes back
+    whole on every spatial rank, and decode and NMS run on it there; TTA
+    gathers the input image and re-splits each scaled one.  `spatial` on a
+    mesh that splits nothing is the data-parallel path, as in JAX."""
+    dp = with_group(mesh.data) if mesh is not None else None
+    split = spatial and mesh is not None and mesh.spatial
     if quant is not None and augment:  # the JAX package's words
         raise ValueError("--int8 with TTA (--augment) is not supported")
     device = next(model.parameters()).device
 
     def infer(x, *tgt):
-        with torch.inference_mode():
+        with torch.inference_mode(), spatial_scope(mesh if split else None):
             x = torch.as_tensor(x, device=device)
             xf = x.to(dtype) / 255.0
             if augment:
@@ -106,7 +112,8 @@ def make_infer_fn(model, conf_thres: float, iou_thres: float, max_det: int,
             dec = with_obj_column(dec, model.nc)
             if hybrid:
                 t_cls, t_box, t_mask = (torch.as_tensor(t, device=device) for t in tgt)
-                h, w = x.shape[1], x.shape[2]
+                h = global_height(x, 1) if split else x.shape[1]
+                w = x.shape[2]
                 scale = torch.tensor([w, h, w, h], dtype=dec.dtype, device=device)
                 obj = t_mask.to(dec.dtype)[..., None]
                 onehot = F.one_hot(t_cls.long(), model.nc).to(dec.dtype) * obj
@@ -287,10 +294,14 @@ def run_validation(
     global detections on every rank; the targets and dataset indices are
     gathered likewise, so every rank holds the same statistics and result
     as one process.  Only rank 0 writes the `save_txt_dir` files; every
-    rank fills `save_json`.  `spatial` raises."""
+    rank fills `save_json`.  `spatial` on a mesh that splits rows: each
+    rank of a spatial group loads its data rank's rows and keeps its H rows
+    of them (`make_infer_fn(spatial=True)`), so the batch size divides by
+    the data axis only."""
     device = resolve_device(device if device is not None or mesh is None else mesh.device)
-    dp = with_group(mesh)
-    world = mesh.world if mesh is not None else 1
+    dp = with_group(mesh.data) if mesh is not None else None
+    split = spatial and mesh is not None and mesh.spatial
+    world = mesh.n_data if mesh is not None else 1
     if batch_size % world:
         raise ValueError(f"batch_size {batch_size} must be divisible by the mesh data "
                          f"axis ({world})")
@@ -331,7 +342,8 @@ def run_validation(
                 batch = _shared_batch(dp, ds, j, batch, batch_size, max_targets, img_size, rect)
             n = batch.images.shape[0]
             tgt = batch.targets if save_hybrid else ()
-            dets, valid = infer(batch.images, *tgt)
+            dets, valid = infer(batch.images[:, image_rows(batch.images.shape[1], mesh)]
+                                if split else batch.images, *tgt)
             hw = batch.images.shape[1:3]
             if dp is not None:
                 batch = _global_batch(dp, batch, min(batch_size, len(ds) - j * batch_size))
@@ -351,7 +363,7 @@ def run_validation(
                     native = tuple(ds.shapes[idx])
                     dn = d.copy()
                     dn[:, :4] = _scale_to_native(d[:, :4], hw, native)
-                    if save_txt_dir is not None and (dp is None or dp.is_main):
+                    if save_txt_dir is not None and (mesh is None or mesh.is_main):
                         _save_txt(dn, native, save_txt_dir / f"{Path(ds.im_files[idx]).stem}.txt",
                                   save_conf)
                     if save_json is not None:

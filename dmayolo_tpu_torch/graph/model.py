@@ -27,6 +27,7 @@ from ..nn.heads import Detect, TDetect
 from ..nn.hornet import HorBlock
 from ..nn.primitives import BatchNorm2d, Conv2d, LayerNorm, Linear, Sequential, remat_layer
 from ..nn.transformer import MultiheadAttention, WindowAttention
+from ..parallel import spatial
 from ..utils.device import resolve_device
 from .registry import INSERT_N, REGISTRY, WIDTH_GAIN
 
@@ -95,6 +96,10 @@ class DetectionModel(nn.Module):
 
     Takes images (B, H, W, 3) and returns the raw head, a list of
     (B, ny, nx, na, no) for Detect, (B, ny, nx, 4 * 16 + nc) for TDetect.
+    Inside `parallel.spatial.spatial_scope(mesh)` the images are this
+    rank's rows of each image (`parallel.mesh.shard_batch(spatial=True)`),
+    every layer runs its spatial form, and the raw head comes back whole
+    on every rank of the spatial group.
     Built on `device` (None means CUDA, and raises when CUDA is missing)
     with deterministic weights from seed 0, in eval mode; call
     `init_with_priors(generator)` for seeded weights with the head priors,
@@ -256,11 +261,16 @@ class DetectionModel(nn.Module):
             if f != -1:
                 x = (y[f % mod.i] if isinstance(f, int)
                      else [x if j == -1 else y[j % mod.i] for j in f])
+            spatial.set_layer(f"{mod.i} ({spec.name})")
             x = remat_layer(mod, x, dtype) if remat else mod(x, dtype)
             if mod.i in self.save:
                 y[mod.i] = x
             if features is not None:
                 features.append((mod.i, spec.name, x))
+        if spatial.current() is not None and isinstance(self.head, (Detect, TDetect)):
+            # each raw level's rows whole on every spatial rank: decode's
+            # grid offsets, NMS and the loss read the whole map
+            x = [spatial.gather_h(level, dim=1) for level in x]
         return x
 
     def apply_with_features(self, x: torch.Tensor, dtype=torch.float32, fused: bool = False):

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..parallel import spatial
 from .primitives import BatchNorm2d, Conv2d, global_avg_pool
 
 
@@ -73,5 +74,7 @@ class MetaAconC(nn.Module):
             p.data.copy_(torch.randn(p.shape, generator=generator))
 
     def forward(self, x, dtype):
-        beta = torch.sigmoid(self.fc2(self.fc1(global_avg_pool(x), dtype), dtype))
+        pooled = global_avg_pool(x)
+        with spatial.replicated():
+            beta = torch.sigmoid(self.fc2(self.fc1(pooled, dtype), dtype))
         return _acon(x, self.p1, self.p2, beta)

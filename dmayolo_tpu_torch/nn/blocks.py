@@ -11,6 +11,9 @@ Port of the matching classes of `dmayolo_tpu/nn/blocks.py`.  Attribute
 names equal the JAX path parts ("cv1", "conv", "bn", "m", "0", ...), so a
 JAX parameter path is a `state_dict` key after the leaf rename of
 `utils/weights.py`.  Channels are dim 1 (NCHW in channels_last memory).
+On the spatial path (`parallel/spatial.py`) a map is this rank's rows:
+the blocks that read its height read the global one, and those that
+compute on a pooled vector or a gathered column do so in `replicated()`.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .primitives import (
     ACTIVATIONS,
     BatchNorm2d,
@@ -38,6 +42,7 @@ from .primitives import (
     resize_nearest,
     silu,
     space_to_depth_2x,
+    space_to_rows,
     upsample_nearest,
 )
 
@@ -208,6 +213,7 @@ class Contract(nn.Module):
         self.gain = gain
 
     def forward(self, x, dtype):
+        x = space_to_rows(x, self.gain)
         b, c, h, w = x.shape
         s = self.gain
         v = x.permute(0, 2, 3, 1).reshape(b, h // s, s, w // s, s, c)
@@ -223,11 +229,17 @@ class Expand(nn.Module):
         self.gain = gain
 
     def forward(self, x, dtype):
-        b, c, h, w = x.shape
         s = self.gain
+        crop = None
+        if spatial.current() is not None:  # this rank's output rows o read row o // s
+            gh = spatial.global_height(x)
+            x, lo, o0, o1 = spatial.source_rows(x, gh, gh * s, lambda o: (o // s, o // s + 1))
+            crop = slice(o0 - lo * s, o1 - lo * s)
+        b, c, h, w = x.shape
         v = x.permute(0, 2, 3, 1).reshape(b, h, w, s, s, c // s ** 2)
         v = v.permute(0, 1, 3, 2, 4, 5).reshape(b, h * s, w * s, c // s ** 2)
-        return v.permute(0, 3, 1, 2)
+        v = v.permute(0, 3, 1, 2)
+        return v if crop is None else v[:, :, crop]
 
 
 class Concat(nn.Module):
@@ -281,9 +293,9 @@ class ChannelAttentionModule(nn.Module):
         return self.shared_MLP["2"](torch.relu(self.shared_MLP["0"](x, dtype)), dtype)
 
     def forward(self, x, dtype):
-        avg = self._mlp(global_avg_pool(x)[:, :, 0, 0], dtype)
-        mx = self._mlp(global_max_pool(x)[:, :, 0, 0], dtype)
-        return torch.sigmoid(avg + mx)[:, :, None, None]
+        avg, mx = global_avg_pool(x)[:, :, 0, 0], global_max_pool(x)[:, :, 0, 0]
+        with spatial.replicated():
+            return torch.sigmoid(self._mlp(avg, dtype) + self._mlp(mx, dtype))[:, :, None, None]
 
 
 class SpatialAttentionModule(nn.Module):
@@ -325,14 +337,20 @@ class CoorAttention(nn.Module):
         self.conv_h = Conv2d(c_, c2, 1, bias=True)
 
     def forward(self, x, dtype):
-        h = x.shape[2]
         x_h = adaptive_avg_pool_h(x)                       # (B, C, H, 1)
         x_w = adaptive_avg_pool_w(x).permute(0, 1, 3, 2)   # (B, C, W, 1)
-        y = torch.cat([x_h, x_w], dim=2)                   # (B, C, H+W, 1)
-        y = hardswish(self.bn1(self.conv1(y, dtype), dtype))
-        y_h, y_w = y[:, :, :h], y[:, :, h:]
-        a_h = torch.sigmoid(self.conv_h(y_h, dtype))                     # (B, C2, H, 1)
-        a_w = torch.sigmoid(self.conv_w(y_w.permute(0, 1, 3, 2), dtype))  # (B, C2, 1, W)
+        split = spatial.current() is not None
+        if split:  # the small H column whole on every spatial rank
+            x_h = spatial.gather_h(x_h)
+        h = x_h.shape[2]
+        with spatial.replicated():  # BN's moments count the W part once a data rank
+            y = torch.cat([x_h, x_w], dim=2)                   # (B, C, H+W, 1)
+            y = hardswish(self.bn1(self.conv1(y, dtype), dtype))
+            y_h, y_w = y[:, :, :h], y[:, :, h:]
+            a_h = torch.sigmoid(self.conv_h(y_h, dtype))                     # (B, C2, H, 1)
+            a_w = torch.sigmoid(self.conv_w(y_w.permute(0, 1, 3, 2), dtype))  # (B, C2, 1, W)
+        if split:
+            a_h = spatial.slice_h(a_h)
         return x * a_w * a_h
 
 
@@ -446,7 +464,7 @@ class SCConv(nn.Module):
                              BatchNorm2d(c2))
 
     def forward(self, x, dtype):
-        h, w = x.shape[2], x.shape[3]
+        h, w = spatial.global_hw(x)  # `h % r` reads the global height
         r = self.pooling_r
         y = self.k2(x, dtype)
         if h % r == 0 and w % r == 0:
@@ -667,7 +685,8 @@ class Classify(nn.Module):
     def forward(self, x, dtype):
         xs = x if isinstance(x, list) else [x]
         z = torch.cat([global_avg_pool(t) for t in xs], dim=1)
-        return self.conv(z, dtype)[:, :, 0, 0]
+        with spatial.replicated():
+            return self.conv(z, dtype)[:, :, 0, 0]
 
 
 class MaxPool2d(nn.Module):
@@ -689,4 +708,10 @@ class ZeroPad2d(nn.Module):
         self.p = tuple(padding) if isinstance(padding, (list, tuple)) else (padding,) * 4
 
     def forward(self, x, dtype):
-        return F.pad(x, self.p)
+        left, right, top, bottom = self.p
+        if spatial.current() is None:
+            return F.pad(x, self.p)
+        # the top rows belong to the first rank, the bottom ones to the last
+        h = spatial.global_height(x)
+        x = spatial.source_rows(x, h, h + top + bottom, lambda o: (o - top, o - top + 1))[0]
+        return F.pad(x, (left, right, 0, 0))

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel import spatial
 from .blocks import C3, ConvBN, DWConv
 from .primitives import (
     BatchNorm2d,
@@ -125,8 +126,11 @@ class SE(nn.Module):
         self.conv_expand = Conv2d(mid, c, 1, bias=True)
 
     def forward(self, x, dtype):
-        s = torch.relu(self.conv_reduce(global_avg_pool(x), dtype))
-        return x * hard_sigmoid(self.conv_expand(s, dtype))
+        pooled = global_avg_pool(x)
+        with spatial.replicated():
+            s = torch.relu(self.conv_reduce(pooled, dtype))
+            gate = hard_sigmoid(self.conv_expand(s, dtype))
+        return x * gate
 
 
 class GhostModule(nn.Module):
@@ -162,7 +166,7 @@ class GhostModuleMul(GhostModule):
     def forward(self, x, dtype):
         res = torch.sigmoid(self.short_conv(avg_pool(x, 2, 2), dtype))
         out = super().forward(x, dtype)
-        return out * bilinear_resize_align_corners(res, (out.shape[2], out.shape[3]))
+        return out * bilinear_resize_align_corners(res, spatial.global_hw(out))
 
 
 class Ghostblockv2(nn.Module):

@@ -5,6 +5,13 @@ Port of `dmayolo_tpu/nn/primitives.py`.  Feature maps are NCHW tensors in
 `channels_last` memory (the JAX package's NHWC, seen through a permute);
 conv weights are OIHW.  Every module's forward takes `(x, dtype)`, where
 `dtype` is the compute dtype of conv inputs (the JAX `ApplyCtx.dtype`).
+
+Inside `parallel.spatial.spatial_scope` a map is this rank's rows of the
+global one, and every op here that reads along H takes its spatial form
+(`parallel/spatial.py`): a conv or pool runs on its fetched input
+interval, a resize reads its source rows by the global index rule at the
+global size, an H reduction sums over the spatial group, BN's train
+moments run over every rank.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import spatial
 from ..parallel.mesh import with_group
 from .conv_int8 import Int8Conv
 
@@ -32,6 +40,21 @@ def autopad(k: KernelSize, p=None):
     if p is None:
         p = k // 2 if isinstance(k, int) else tuple(x // 2 for x in k)
     return p
+
+
+def _no_rows(x, c: int, w: int, dtype, *inputs):
+    """The (B, c, 0, w) output of an op whose rows on this spatial rank
+    are none, joined to the graph through `inputs` with a zero gradient:
+    every rank then runs the same backward, collectives included."""
+    y = x.new_zeros((x.shape[0], c, 0, w), dtype=dtype)
+    for t in inputs:
+        if t is not None:
+            y = y + (t.sum() * 0).to(dtype)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _out_size(n: int, k: int, s: int, p: int, d: int = 1) -> int:
+    return (n + 2 * p - d * (k - 1) - 1) // s + 1
 
 
 # ---------------------------------------------------------------------------
@@ -119,11 +142,27 @@ class Conv2d(nn.Module):
         return form
 
     def forward(self, x, dtype):
+        sp = spatial.current()
+        pad_h = self.p
+        if sp is not None and (self.k[0], self.s[0], self.p[0]) != (1, 1, 0):
+            # this rank's output rows from their fetched input interval: the
+            # float conv with no H padding, the int8 form (whose kernel route
+            # the geometry picks) with its own padding and the extra rows
+            # dropped
+            x, start, n = spatial.window_rows(x, self.k[0], self.s[0], self.p[0], self.d[0],
+                                              keep_pad=self.int8 is not None)
+            pad_h = (0, self.p[1])
+            if self.int8 is not None and n:
+                with record_function("int8 conv"):
+                    return self.int8(x, dtype)[:, :, start:start + n]
+        if sp is not None and x.shape[2] == 0:
+            wo = _out_size(x.shape[3], self.k[1], self.s[1], self.p[1], self.d[1])
+            return _no_rows(x, self.c2, wo, dtype, x, self.weight, self.bias)
         if self.int8 is not None:
             with record_function("int8 conv"):
                 return self.int8(x, dtype)
         with record_function("depthwise conv") if self.depthwise else contextlib.nullcontext():
-            y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.s, self.p,
+            y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.s, pad_h,
                          self.d, self.g)
             if self.bias is not None:
                 y = y + self.bias.to(y.dtype)[None, :, None, None]
@@ -201,7 +240,10 @@ class BatchNorm2d(nn.Module):
     sets `recomputing`), whose forward has updated them already.  While
     `lend_mesh` lends it a data-parallel group (`mesh`), the batch is the
     global one: moments and n over every rank's rows, as under a JAX
-    mesh, where BN is always cross-replica."""
+    mesh, where BN is always cross-replica.  Inside a spatial scope the
+    group is the spatial context's (`SpatialContext.bn_mesh`): every rank
+    for a row-split map, the data subgroup for a replicated one.  Halo rows
+    never reach BN: each rank normalises its own rows."""
 
     def __init__(self, c, eps: float = 1e-3, momentum: float = 0.03):
         super().__init__()
@@ -223,8 +265,9 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x, dtype):
         if self.training:
-            y, mean, unbiased = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
-                                                      self.mesh)
+            sp = spatial.active()
+            mesh = self.mesh if sp is None else sp.bn_mesh()
+            y, mean, unbiased = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, mesh)
             if self.recomputing:
                 return y
             m = self.momentum
@@ -301,8 +344,11 @@ class _Stochastic(nn.Module):
     """A layer that draws a mask in train mode at a rate above 0, from the
     generator that `lend_generator` gives it for the step, never from the
     global RNG.  While `lend_mesh` lends it a data-parallel group, it draws
-    the global batch's numbers (dim 0 times the world size) and takes this
-    rank's rows, so a row's mask is the one a single process would draw."""
+    the global batch's numbers (dim 0 times the data axis's size) and takes
+    this rank's rows, so a row's mask is the one a single process would
+    draw; inside a spatial scope the group is the spatial context's, and
+    on a row-split map it also draws the global map's rows and takes its
+    own (the ranks of a spatial group draw the same numbers)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -313,18 +359,26 @@ class _Stochastic(nn.Module):
     def draws(self) -> bool:
         return self.training and self.rate > 0.0
 
-    def uniform(self, shape, x):
+    def uniform(self, shape, x, rows: bool = True):
+        """Uniform numbers of `shape` for `x`: with a mesh, the global
+        tensor's numbers and this rank's batch rows, and where `rows` (a
+        mask with x's rows along H) and x is row-split, also its H rows."""
         if self.generator is None:
             raise RuntimeError(f"{type(self).__name__}({self.rate}) in train mode draws its "
                                "mask from the step's generator: call it inside "
                                "lend_generator(model, generator)")
-        mesh = self.mesh
+        sp = spatial.current()
+        mesh = self.mesh if spatial.active() is None else spatial.active().mesh
         if mesh is None:
             return torch.rand(shape, dtype=x.dtype, device=x.device, generator=self.generator)
-        n = shape[0]
-        u = torch.rand((n * mesh.world,) + tuple(shape[1:]), dtype=x.dtype, device=x.device,
+        n, shape = shape[0], list(shape)
+        h = spatial.global_height(x) if sp is not None and rows and len(shape) == 4 else None
+        if h is not None:  # a row-split map: the global map's numbers, this rank's rows
+            shape[2] = h
+        u = torch.rand([n * mesh.n_data] + shape[1:], dtype=x.dtype, device=x.device,
                        generator=self.generator)
-        return u[mesh.rank * n:(mesh.rank + 1) * n]
+        u = u[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+        return u if h is None else spatial.rows_of(u, h)
 
 
 class Dropout(_Stochastic):
@@ -346,7 +400,8 @@ class DropPath(_Stochastic):
         if not self.draws():
             return x
         keep = 1.0 - self.rate
-        mask = torch.floor(keep + self.uniform((x.shape[0],) + (1,) * (x.dim() - 1), x))
+        mask = torch.floor(keep + self.uniform((x.shape[0],) + (1,) * (x.dim() - 1), x,
+                                                 rows=False))
         return x / keep * mask
 
 
@@ -389,13 +444,24 @@ def max_pool(x, k: int, s: int = 1, p: Optional[int] = None):
     """MaxPool2d(k, s, p); the padding never wins (-inf)."""
     if p is None:
         p = k // 2 if s == 1 else 0
+    if spatial.current() is not None:
+        slab, _, n = spatial.window_rows(x, k, s, p, pad=float("-inf"))
+        if n == 0:
+            return _no_rows(x, x.shape[1], _out_size(x.shape[3], k, s, p), x.dtype, slab)
+        return F.max_pool2d(slab, k, s, (0, p))
     return F.max_pool2d(x, k, s, p)
 
 
 def avg_pool(x, k: int, s: Optional[int] = None, p: int = 0):
     """AvgPool2d(k, s, p), the padding counted in the mean
     (count_include_pad)."""
-    return F.avg_pool2d(x, k, k if s is None else s, p, count_include_pad=True)
+    s = k if s is None else s
+    if spatial.current() is not None:  # the fetched zero rows are the H padding
+        slab, _, n = spatial.window_rows(x, k, s, p)
+        if n == 0:
+            return _no_rows(x, x.shape[1], _out_size(x.shape[3], k, s, p), x.dtype, slab)
+        return F.avg_pool2d(slab, k, s, (0, p), count_include_pad=True)
+    return F.avg_pool2d(x, k, s, p, count_include_pad=True)
 
 
 def adaptive_avg_pool_h(x):
@@ -404,34 +470,59 @@ def adaptive_avg_pool_h(x):
 
 
 def adaptive_avg_pool_w(x):
-    """AdaptiveAvgPool2d((1, None)): mean over H -> (B, C, 1, W)."""
+    """AdaptiveAvgPool2d((1, None)): mean over H -> (B, C, 1, W); on
+    row-split maps an f32 sum over the spatial group, then the mean."""
+    if spatial.current() is not None:
+        h = spatial.global_height(x)
+        return (spatial.sum_h(x.float().sum(dim=2, keepdim=True)) / h).to(x.dtype)
     return x.mean(dim=2, keepdim=True)
 
 
 def global_avg_pool(x):
-    """AdaptiveAvgPool2d(1) -> (B, C, 1, 1)."""
+    """AdaptiveAvgPool2d(1) -> (B, C, 1, 1), the same on every spatial
+    rank of a row-split map."""
+    if spatial.current() is not None:
+        hw = spatial.global_height(x) * x.shape[3]
+        return (spatial.sum_h(x.float().sum(dim=(2, 3), keepdim=True)) / hw).to(x.dtype)
     return x.mean(dim=(2, 3), keepdim=True)
 
 
 def global_max_pool(x):
-    """AdaptiveMaxPool2d(1) -> (B, C, 1, 1)."""
+    """AdaptiveMaxPool2d(1) -> (B, C, 1, 1), the same on every spatial
+    rank of a row-split map."""
+    if spatial.current() is not None:
+        return spatial.max_h(x)
     return x.amax(dim=(2, 3), keepdim=True)
 
 
 def upsample_nearest(x, scale: int):
     """Integer nearest upsample."""
+    if spatial.current() is not None:
+        h = spatial.global_height(x)
+        slab, lo, o0, o1 = spatial.source_rows(x, h, h * scale,
+                                               lambda o: (o // scale, o // scale + 1))
+        if o1 == o0:
+            return _no_rows(x, x.shape[1], x.shape[3] * scale, x.dtype, slab)
+        y = F.interpolate(slab, scale_factor=scale, mode="nearest")
+        return y[:, :, o0 - lo * scale:o1 - lo * scale]
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
 def resize_nearest(x, size: Tuple[int, int]):
     """Nearest resize to (H, W) with the JAX package's index rule
-    src = dst * in // out, in integers."""
-    h, w = x.shape[2], x.shape[3]
+    src = dst * in // out, in integers (`size` global on row-split maps)."""
+    sp = spatial.current()
+    h = spatial.global_height(x) if sp is not None else x.shape[2]
+    w = x.shape[3]
     th, tw = size
     if th % h == 0 and tw % w == 0 and th // h == tw // w:
         return upsample_nearest(x, th // h)
     rows = torch.arange(th, device=x.device) * h // th
     cols = torch.arange(tw, device=x.device) * w // tw
+    if sp is not None:
+        x, lo, o0, o1 = spatial.source_rows(x, h, th,
+                                            lambda o: (o * h // th, o * h // th + 1))
+        rows = rows[o0:o1] - lo
     return x[:, :, rows][:, :, :, cols]
 
 
@@ -440,16 +531,29 @@ def bilinear_resize_align_corners(x, size: Tuple[int, int]):
     package's arithmetic: f32 source coordinates and weights, so a bf16
     map comes back f32, as JAX's promotion gives; a 1 x 1 map is
     broadcast and keeps its dtype.  Works on the NHWC view, so a
-    `channels_last` map gives a `channels_last` one."""
-    b, c, h, w = x.shape
+    `channels_last` map gives a `channels_last` one.  On row-split maps
+    `size` is global and each rank computes its output rows."""
+    b, c, _, w = x.shape
+    sp = spatial.current()
+    h = spatial.global_height(x) if sp is not None else x.shape[2]
     th, tw = size
-    if h == 1 and w == 1:
-        return x.expand(b, c, th, tw)
+    o0, o1 = 0, th
     ys = torch.linspace(0.0, h - 1.0, th, device=x.device)
+    y0 = ys.floor().long()
+    y1 = (y0 + 1).clamp(max=h - 1)
+    if sp is not None:
+        span = (lambda o: (0, 1)) if h == 1 else (lambda o: (int(y0[o]), int(y1[o]) + 1))
+        x, lo, o0, o1 = spatial.source_rows(x, h, th, span)
+        if o1 == o0:
+            return _no_rows(x, c, tw, x.dtype if h == 1 and w == 1 else torch.promote_types(
+                x.dtype, torch.float32), x)
+        ys, y0, y1 = ys[o0:o1], y0[o0:o1] - lo, y1[o0:o1] - lo
+    if h == 1 and w == 1:
+        return x.expand(b, c, o1 - o0, tw)
     xs = torch.linspace(0.0, w - 1.0, tw, device=x.device)
-    y0, x0 = ys.floor().long(), xs.floor().long()
-    y1, x1 = (y0 + 1).clamp(max=h - 1), (x0 + 1).clamp(max=w - 1)
-    wy = (ys - y0)[None, :, None, None]
+    x0 = xs.floor().long()
+    x1 = (x0 + 1).clamp(max=w - 1)
+    wy = (ys - ys.floor())[None, :, None, None]
     wx = (xs - x0)[None, None, :, None]
     v = x.permute(0, 2, 3, 1)  # (B, H, W, C)
     r0, r1 = v[:, y0], v[:, y1]
@@ -458,11 +562,25 @@ def bilinear_resize_align_corners(x, size: Tuple[int, int]):
     return (top * (1 - wy) + bot * wy).permute(0, 3, 1, 2)
 
 
+def space_to_rows(x, s: int):
+    """This rank's source rows of an s-to-1 row fold (space-to-depth or
+    `Contract`) of a row-split map: output row o reads rows [s o, s o + s)
+    (None off the spatial path: the map itself)."""
+    if spatial.current() is None:
+        return x
+    h = spatial.global_height(x)
+    if h % s:
+        raise ValueError(f"{spatial.current().where()}: a space-to-depth of {s} needs a "
+                         f"height that divides, got {h}")
+    return spatial.source_rows(x, h, h // s, lambda o: (s * o, s * o + s))[0]
+
+
 def space_to_depth_2x(x):
     """SPD-Conv slice-cat: (B, C, H, W) -> (B, 4C, H/2, W/2), the channel
     blocks in the reference's order: top-left, bottom-left, top-right,
     bottom-right.  A `channels_last` input gives a `channels_last` output,
     so the conv after it reads it as it is."""
+    x = space_to_rows(x, 2)
     return torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
                       x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]], dim=1)
 

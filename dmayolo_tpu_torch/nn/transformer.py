@@ -17,6 +17,10 @@ device, and a buffer filled in `__init__` would not survive `to_empty`.
 Profiler ranges mark the attention core ("attention": logits, bias, mask,
 softmax, the product with v) and the Swin layer's other work
 ("layernorm", "gelu", "window shuffle": pad, roll, partition and back).
+
+On the spatial path (`parallel/spatial.py`) both blocks run on the whole
+map (`whole_map`): attention reads every token, and Swin's padding,
+cyclic shift and mask read every row.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..parallel import spatial
 from .blocks import C3, ConvBN
 from .primitives import Dropout, DropPath, LayerNorm, Linear, Sequential, gelu
 
@@ -84,6 +89,19 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out, dtype)
 
 
+def whole_map(fn, x, dtype):
+    """`fn(x, dtype)` on the whole map: on the spatial path the map is
+    gathered over the spatial group, `fn` runs replicated, and each rank
+    keeps its rows (attention and Swin's windows and shifts read every
+    row)."""
+    if spatial.current() is None:
+        return fn(x, dtype)
+    full = spatial.gather_h(x)
+    with spatial.replicated():
+        y = fn(full, dtype)
+    return spatial.slice_h(y)
+
+
 class TransformerLayer(nn.Module):
     """Pre-LN encoder layer with the reference's extra bias-free q, k, v
     Linears, a ReLU MLP (`fc1`, `fc2`) and Dropout(0.1)."""
@@ -122,6 +140,9 @@ class TransformerBlock(nn.Module):
     def forward(self, x, dtype):
         if self.conv is not None:
             x = self.conv(x, dtype)
+        return whole_map(self._tokens, x, dtype)
+
+    def _tokens(self, x, dtype):
         b, c, h, w = x.shape
         p = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
         y = self.tr(p + self.linear(p, dtype), dtype)
@@ -320,7 +341,8 @@ class SwinTransformerBlock(nn.Module):
     def forward(self, x, dtype):
         if self.conv is not None:
             x = self.conv(x, dtype)
-        return self.tr(x.permute(0, 2, 3, 1), dtype).permute(0, 3, 1, 2)
+        return whole_map(lambda v, dt: self.tr(v.permute(0, 2, 3, 1), dt).permute(0, 3, 1, 2),
+                         x, dtype)
 
 
 class C3STR(C3):

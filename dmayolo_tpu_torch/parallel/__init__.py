@@ -1,1 +1,2 @@
-"""Data parallelism over `torch.distributed` (`parallel/mesh.py`)."""
+"""Parallelism over `torch.distributed`: the data axis (`parallel/mesh.py`)
+and the spatial H-sharding (`parallel/spatial.py`)."""

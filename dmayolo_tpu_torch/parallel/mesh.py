@@ -23,6 +23,14 @@ The train step lends the group to the model's BNs, Dropouts and DropPaths
 so one code path serves NCCL and gloo.  A `Mesh` without a group (world
 1, `make_mesh()` outside a launch) runs none of it: the plain path.
 
+The JAX mesh's second axis, `spatial`, splits each image's rows (H) over
+`n_spatial` ranks: `make_mesh(n_data, n_spatial)` on a group of
+n_data x n_spatial ranks, the spatial rank varying fastest (rank = d x
+n_spatial + s, the order of JAX's `reshape(n_data, n_spatial)`).  The
+ranks of one spatial group hold the same images; `data` is the mesh of
+the data axis (its rows, its loader stripe, its loss normalisers), and
+`parallel/spatial.py` holds the row partition and its collectives.
+
 Two launches:
 
   * `torchrun` (`python -m torch.distributed.run --nproc-per-node N`, the
@@ -35,9 +43,7 @@ Two launches:
 
 Every collective has a timeout (`COLLECTIVE_TIMEOUT_S`): a rank that dies
 or hangs fails the run, the counterpart of the rendezvous timeouts that
-`dmayolo_tpu/cpu_mesh_flags.py` sets for XLA.  The spatial H-sharding of
-the JAX mesh (`n_spatial > 1`) is not ported yet (ROADMAP.md, Queue 1 item
-13b).
+`dmayolo_tpu/cpu_mesh_flags.py` sets for XLA.
 """
 from __future__ import annotations
 
@@ -56,27 +62,35 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .spatial import row_bounds
+
 COLLECTIVE_TIMEOUT_S = 120.0
 GRAD_BUCKET_BYTES = 128 << 20  # the gradient all-reduce's flat buckets
-SPATIAL_REFUSAL = ("the spatial H-sharding is not ported yet "
-                   "(ROADMAP.md, Queue 1 item 13b)")
 
 # the device `init_group` gave this process, beside torch.distributed's own
 # process-wide group
 _GROUP_DEVICE: Optional[torch.device] = None
+# the (data, spatial) subgroups of the group, by (n_data, n_spatial): made
+# once, on every rank in one order, as `dist.new_group` requires
+_SUBGROUPS: dict = {}
 
 
 @dataclass
 class Mesh:
-    """This rank's view of a data-parallel group: rank, world size,
-    device, and the process group (None: no group, world 1, and no
-    collective is ever issued)."""
+    """This rank's view of a group: rank, world size, device, and the
+    process group (None: no group, world 1, and no collective is ever
+    issued).  With `n_spatial` > 1 the group is n_data x n_spatial ranks:
+    `spatial_group` holds the ranks that split one image's rows,
+    `data_group` those of the same spatial rank."""
 
     rank: int = 0
     world: int = 1
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     group: Any = None
     backend: Optional[str] = None
+    n_spatial: int = 1
+    spatial_group: Any = None
+    data_group: Any = None
 
     @property
     def distributed(self) -> bool:
@@ -86,6 +100,38 @@ class Mesh:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.n_spatial
+
+    @property
+    def spatial(self) -> bool:
+        """True where the images' rows are split over ranks."""
+        return self.n_spatial > 1 and self.spatial_group is not None
+
+    @property
+    def data(self) -> "Mesh":
+        """The data axis: this rank's data rank among n_data, over the
+        data subgroup (no group where n_data is 1); the mesh itself when
+        nothing is split."""
+        if self.n_spatial == 1:
+            return self
+        return Mesh(self.data_rank, self.n_data, self.device,
+                    self.data_group if self.n_data > 1 else None, self.backend)
+
+    def wire_device(self) -> torch.device:
+        """Where a small host-side collective's tensor lives: the device
+        under NCCL, the CPU under gloo."""
+        return self.device if self.backend == "nccl" else torch.device("cpu")
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """SUM over the group, in place; `t` itself."""
         if self.group is not None:
@@ -93,7 +139,10 @@ class Mesh:
         return t
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank `src` (of this mesh) to every rank, in place."""
         if self.group is not None:
+            if self.group is not dist.group.WORLD:
+                src = dist.get_global_rank(self.group, src)
             dist.broadcast(t, src, group=self.group)
         return t
 
@@ -106,7 +155,7 @@ class Mesh:
         broadcasts (its length, then its bytes)."""
         if self.group is None:
             return obj
-        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        dev = self.wire_device()
         data = pickle.dumps(obj) if self.rank == src else b""
         n = self.broadcast(torch.tensor([len(data)], dtype=torch.int64, device=dev), src)
         buf = torch.zeros(int(n.item()), dtype=torch.uint8, device=dev)
@@ -128,20 +177,44 @@ def _default_device(device=None) -> torch.device:
 
 def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1, device=None) -> Mesh:
     """This rank's view of the group that exists: world 1 (no group) when
-    there is none.  `n_data`, when given, must be the group's size;
+    there is none.  n_data x n_spatial must be the group's size (`n_data`
+    None: the group's size over `n_spatial`); with `n_spatial` > 1 the
+    spatial and data subgroups are made (once a layout, on every rank).
     `device`, when given, wins over the one the launch chose (None and no
     group: CUDA)."""
-    if n_spatial != 1:
-        raise NotImplementedError(f"n_spatial={n_spatial}: {SPATIAL_REFUSAL}")
+    if n_spatial < 1:
+        raise ValueError(f"n_spatial={n_spatial}")
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         group, backend = dist.group.WORLD, dist.get_backend()
     else:
         world, rank, group, backend = 1, 0, None, None
-    if n_data is not None and n_data != world:
-        raise ValueError(f"n_data={n_data} but the group has {world} rank(s): launch "
-                         "with torchrun or parallel.mesh.spawn")
-    return Mesh(rank, world, _default_device(device), group, backend)
+    want = None if n_data is None and n_spatial == 1 else (
+        (world // n_spatial if n_data is None else n_data) * n_spatial)
+    if want is not None and (want != world or world % n_spatial):
+        raise ValueError(f"n_data={n_data} x n_spatial={n_spatial} but the group has {world} "
+                         "rank(s): launch that many with torchrun or parallel.mesh.spawn")
+    mesh = Mesh(rank, world, _default_device(device), group, backend)
+    if n_spatial > 1:
+        mesh.n_spatial = n_spatial
+        mesh.spatial_group, mesh.data_group = _subgroups(world // n_spatial, n_spatial, rank)
+    return mesh
+
+
+def _subgroups(n_data: int, n_spatial: int, rank: int):
+    """This rank's spatial and data subgroups of the (n_data, n_spatial)
+    layout, made on first use: every rank creates every subgroup, in the
+    same order, each with the collective timeout."""
+    key = (n_data, n_spatial)
+    if key not in _SUBGROUPS:
+        timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+        spatial = [dist.new_group([d * n_spatial + s for s in range(n_spatial)], timeout=timeout)
+                   for d in range(n_data)]
+        data = [dist.new_group([d * n_spatial + s for d in range(n_data)], timeout=timeout)
+                for s in range(n_spatial)]
+        _SUBGROUPS[key] = (spatial, data)
+    spatial, data = _SUBGROUPS[key]
+    return spatial[rank // n_spatial], data[rank % n_spatial]
 
 
 def init_group(rank: int, world: int, backend: Optional[str] = None, device=None,
@@ -177,6 +250,7 @@ def close_group():
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _GROUP_DEVICE = None
+    _SUBGROUPS.clear()
 
 
 def under_torchrun() -> bool:
@@ -210,14 +284,25 @@ def with_group(mesh: Optional[Mesh]) -> Optional[Mesh]:
 # ---------------------------------------------------------------------------
 
 def local_rows(n: int, mesh: Mesh, accumulate: int = 1) -> np.ndarray:
-    """The rows of a global batch of `n` that `mesh`'s rank holds: of each
-    of the `accumulate` microbatches, its contiguous block."""
-    if n % (accumulate * mesh.world):
+    """The rows of a global batch of `n` that `mesh`'s data rank holds: of
+    each of the `accumulate` microbatches, its contiguous block (the ranks
+    of one spatial group hold the same rows)."""
+    world, rank = mesh.n_data, mesh.data_rank
+    if n % (accumulate * world):
         raise ValueError(f"batch {n} does not split into {accumulate} microbatches over "
-                         f"{mesh.world} ranks")
+                         f"{world} ranks")
     mb = n // accumulate
-    per = mb // mesh.world
-    return (np.arange(accumulate)[:, None] * mb + mesh.rank * per + np.arange(per)).ravel()
+    per = mb // world
+    return (np.arange(accumulate)[:, None] * mb + rank * per + np.arange(per)).ravel()
+
+
+def image_rows(h: int, mesh: Mesh) -> slice:
+    """This rank's rows of an image of height `h` (`parallel/spatial.py`'s
+    partition; all of them where nothing is split)."""
+    if not mesh.spatial:
+        return slice(0, h)
+    a, b = row_bounds(h, mesh.n_spatial)[mesh.spatial_rank]
+    return slice(a, b)
 
 
 def _tree_map(fn, tree):
@@ -230,27 +315,36 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _image_part(x: torch.Tensor, mesh: Mesh, spatial: bool) -> torch.Tensor:
+    """This rank's H rows (dim 1) of an image batch (B, H, W, C) where
+    `spatial` and the mesh splits rows; any other array as it is."""
+    if spatial and mesh.spatial and x.dim() == 4:
+        return x[:, image_rows(x.shape[1], mesh)]
+    return x
+
+
 def shard_batch(mesh: Mesh, batch, accumulate: int = 1, spatial: bool = False):
     """This rank's rows (`local_rows`) of a global batch, or of each array
-    of a tuple, namedtuple or dict of them, as tensors on `mesh.device`."""
-    if spatial:
-        raise NotImplementedError(SPATIAL_REFUSAL)
+    of a tuple, namedtuple or dict of them, as tensors on `mesh.device`.
+    With `spatial` (JAX's `P("data", "spatial")`), an image batch (a 4-D
+    array, (B, H, W, C)) also keeps only this rank's H rows; targets keep
+    their images' rows whole."""
 
     def take(x):
         x = torch.as_tensor(np.asarray(x)) if isinstance(x, np.ndarray) else torch.as_tensor(x)
         idx = torch.from_numpy(local_rows(x.shape[0], mesh, accumulate))
-        return x[idx].to(mesh.device)
+        return _image_part(x[idx], mesh, spatial).to(mesh.device)
 
     return _tree_map(take, batch)
 
 
 def globalize_batch(mesh: Mesh, local_batch, spatial: bool = False):
-    """The global batch from this rank's rows: in torch the global batch is
-    the ranks' blocks together and no rank materialises it, so the local
-    rows are kept as they are, on `mesh.device`."""
-    if spatial:
-        raise NotImplementedError(SPATIAL_REFUSAL)
-    return torch.as_tensor(np.asarray(local_batch)).to(mesh.device)
+    """The global batch from this process's rows: in torch the global
+    batch is the ranks' blocks together and no rank materialises it, so
+    the local rows are kept, on `mesh.device`; with `spatial`, of an image
+    batch (B, H, W, C) only this rank's H rows."""
+    x = torch.as_tensor(np.asarray(local_batch))
+    return _image_part(x, mesh, spatial).to(mesh.device)
 
 
 def globalize_targets(mesh: Mesh, local_tree):
@@ -259,9 +353,11 @@ def globalize_targets(mesh: Mesh, local_tree):
 
 
 def gather_rows(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
-    """The global tensor on every rank from each rank's equal block of
-    rows: a SUM all-reduce of a zero-filled buffer in which each rank
-    writes its own rows (exact: every other term is 0)."""
+    """The global tensor on every rank from each data rank's equal block
+    of rows: a SUM all-reduce of a zero-filled buffer in which each rank
+    writes its own rows (exact: every other term is 0), over the data
+    subgroup (the ranks of one spatial group hold the same rows)."""
+    mesh = mesh.data
     if not mesh.distributed:
         return local
     dtype = local.dtype
@@ -325,13 +421,16 @@ def all_reduce_flat(mesh: Mesh, tensors: Sequence[torch.Tensor],
 
 
 def process_shard_indices(n: int, process_index: Optional[int] = None,
-                          process_count: Optional[int] = None) -> np.ndarray:
+                          process_count: Optional[int] = None,
+                          mesh: Optional[Mesh] = None) -> np.ndarray:
     """This rank's sample indices: the rank::world stripe over the dataset
-    (the reference's DistributedSampler convention)."""
+    (the reference's DistributedSampler convention), by data rank: the
+    ranks of one spatial group of `mesh` (default `make_mesh()`) take the
+    same stripe."""
     if process_index is None or process_count is None:
-        m = make_mesh(device="cpu")
-        process_index = m.rank if process_index is None else process_index
-        process_count = m.world if process_count is None else process_count
+        m = mesh if mesh is not None else make_mesh(device="cpu")
+        process_index = m.data_rank if process_index is None else process_index
+        process_count = m.n_data if process_count is None else process_count
     return np.arange(process_index, n, process_count)
 
 

@@ -19,6 +19,7 @@ from torch.profiler import record_function
 from ..data.device_aug import augment_batch, flip_targets_lr
 from ..nn.primitives import lend_generator, lend_mesh
 from ..parallel.mesh import Mesh, all_reduce_flat, with_group
+from ..parallel.spatial import spatial_scope
 from ..utils.weights import jax_from_state_dict, jax_paths, state_dict_from_jax, to_jax_layout
 from .loss import Targets
 from .optim import Schedule, ema_decay, ema_update, make_optimizer, set_schedule
@@ -55,7 +56,7 @@ def _frozen(name: str, freeze: int) -> bool:
 
 def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
                     accumulate: int = 1, freeze: int = 0, device_aug: Optional[Dict] = None,
-                    mesh: Optional[Mesh] = None):
+                    mesh: Optional[Mesh] = None, spatial: bool = False):
     """Build the step `(state, images, targets, generator=None, ni=None) ->
     metrics`.
 
@@ -87,8 +88,22 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
     all-reduced in flat buckets after the last microbatch (before `freeze`
     and the optimizer), and so are the metrics.  Every rank then applies
     the same update.
+
+    With `spatial` and a mesh that splits rows (JAX's `jit_train_step(
+    spatial=True)`), `images` are also only this rank's H rows
+    (`shard_batch(spatial=True)`): the forward and backward run in the
+    spatial scope (`parallel/spatial.py`), BN reduces over every rank, and
+    each rank computes its data rank's loss share on the gathered head,
+    divided by n_spatial, whose gradient `gather_h`'s adjoint sums back
+    over the spatial group.  The loss's normalisers and the batch's draws
+    are the data axis's; the gradient and metric sums run over every rank.
+    On a (data, spatial) mesh without `spatial` the ranks of a spatial
+    group compute the same rows, each a 1 / n_spatial share.
     """
     dp = with_group(mesh)
+    data = with_group(mesh.data) if mesh is not None else None
+    split = spatial and mesh is not None and mesh.spatial
+    share = mesh.n_spatial if mesh is not None else 1
 
     def step(state: TrainState, imgs: torch.Tensor, targets: Targets,
              generator: Optional[torch.Generator] = None, ni=None) -> Dict:
@@ -96,9 +111,9 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         mb = imgs.shape[0] // accumulate
-        rows = None if dp is None else (dp.rank * mb, mb * dp.world)
+        rows = None if data is None else (data.rank * mb, mb * data.world)
         total, items = 0.0, {}
-        with lend_mesh(model, dp):
+        with lend_mesh(model, mesh if split else data), spatial_scope(mesh if split else None):
             for k in range(accumulate):
                 sl = slice(k * mb, (k + 1) * mb)
                 x = imgs[sl]
@@ -114,7 +129,10 @@ def make_train_step(loss_fn: Callable, sched: Schedule, dtype=torch.bfloat16,
                 with lend_generator(model, generator):
                     raw = model(x, dtype)
                 with record_function("loss"):
-                    tot, its = loss_fn(raw, tgt) if dp is None else loss_fn(raw, tgt, mesh=dp)
+                    tot, its = (loss_fn(raw, tgt) if data is None
+                                else loss_fn(raw, tgt, mesh=data))
+                    if share > 1:
+                        tot, its = tot / share, {n: v / share for n, v in its.items()}
                 tot.backward()
                 total = total + tot.detach()
                 items = {n: items.get(n, 0.0) + torch.as_tensor(v).detach()

@@ -37,6 +37,13 @@ step (`make_train_step(mesh=...)`), so every rank holds the same state
 as one process on the whole batch.  Validation is data-parallel too, and
 rank 0's fitness decides `best` and early stopping on every rank; only
 rank 0 writes checkpoints, `results.csv`, TensorBoard and the plots.
+`spatial` (JAX's `Trainer(spatial=)`) on a (data, spatial) mesh
+(`make_mesh(n_data, n_spatial)`) splits each image's rows over the
+spatial group as well: `batch_size` divides by the data axis, the ranks
+of a spatial group load the same images (the data rank's stripe), the
+multi-scale resize acts on whole images, and each rank then keeps its H
+rows for the step (`make_train_step(spatial=True)`) and the validation;
+on a mesh that splits nothing it is the data-parallel run, as in JAX.
 `remat` recomputes each graph layer's activations in the backward
 (`DetectionModel.remat`); `freeze` keeps model.0 .. model.{freeze - 1}
 as they are; `train_ungrouped` optimizes the parameters the reference
@@ -62,7 +69,7 @@ from ..eval.metrics import fitness
 from ..eval.validator import run_validation
 from ..graph import DetectionModel
 from ..nn.heads import Detect, TDetect
-from ..parallel.mesh import local_rows, make_mesh, replicate_tree
+from ..parallel.mesh import image_rows, local_rows, make_mesh, replicate_tree
 from ..utils.async_ckpt import AsyncTrainCheckpointer
 from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_checkpoint
@@ -179,6 +186,7 @@ class Trainer:
         remat: bool = False,
         ckpt_async: bool = False,
         mesh=None,
+        spatial: bool = False,
     ):
         if (loader is None) == (data is None):
             raise ValueError("pass exactly one source of batches: loader= or data=")
@@ -188,11 +196,12 @@ class Trainer:
             raise ValueError("image_weights, rect, quad, cache_images and single_cls "
                              "need the dataset: pass data=")
         self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.spatial = spatial
         self.device = resolve_device(device if device is not None else self.mesh.device)
         self.is_main = self.mesh.is_main
-        if batch_size % self.mesh.world:
+        if batch_size % self.mesh.n_data:
             raise ValueError(f"batch_size {batch_size} must be divisible by the number of "
-                             f"devices ({self.mesh.world})")
+                             f"devices ({self.mesh.n_data} on the data axis)")
         self.epochs = epochs
         self.bs = batch_size
         self.dtype = dtype
@@ -240,7 +249,8 @@ class Trainer:
                 rect=rect)  # rectangular training: no mosaic
             loader = DataLoader(self.train_ds, batch_size, max_targets=max_targets,
                                 shuffle=not rect, workers=workers, seed=seed, quad=quad,
-                                process_index=self.mesh.rank, process_count=self.mesh.world)
+                                process_index=self.mesh.data_rank,
+                                process_count=self.mesh.n_data)
         self.loader = loader
         self._global_batches = self.data is None  # an in-memory loader's: each rank takes its rows
 
@@ -352,7 +362,8 @@ class Trainer:
         if acc not in self._steps:
             self._steps[acc] = make_train_step(self.loss, self.sched, dtype=self.dtype,
                                                accumulate=acc, freeze=self.freeze,
-                                               device_aug=self.device_aug, mesh=self.mesh)
+                                               device_aug=self.device_aug, mesh=self.mesh,
+                                               spatial=self.spatial)
         return self._steps[acc]
 
     def validate(self, use_ema: bool = True):
@@ -363,7 +374,7 @@ class Trainer:
             self.state.ema if use_ema else self.state.model, self.data["val"],
             img_size=self.img_size, batch_size=self.bs, nc=self.nc, dtype=self.dtype,
             max_targets=self.max_targets, single_cls=self.single_cls, workers=self.workers,
-            device=self.device, mesh=self.mesh)
+            device=self.device, mesh=self.mesh, spatial=self.spatial)
 
     def _save(self, name: str, epoch: int):
         if not self.is_main:
@@ -441,6 +452,8 @@ class Trainer:
                         sz = int(round(self.img_size * ms_rng.choice(MULTI_SCALES) / gs) * gs)
                         if sz != images.shape[1]:
                             images = resize_batch(images, sz)
+                    if self.spatial:  # whole images up to here; this rank's rows from here
+                        images = images[:, image_rows(images.shape[1], self.mesh)]
                     if self.accum_ramp:
                         metrics = self.get_step(len(group))(self.state, images, targets, gen,
                                                             ni=float(ni))

@@ -600,18 +600,50 @@ def test_val_cli_save_json(val_ckpt):
     # --devices is ported (tests/test_torch_dist.py): what it refuses is a
     # batch that does not divide over the devices
     pytest.param(("--devices", "3"), "divisible", id="flags1-item 13"),
-    pytest.param(("--spatial-shard",), "item 13b", id="flags2-item 13")])
-def test_val_cli_refusals(val_ckpt, flags, item):
-    err = {"--int8": SystemExit, "--devices": ValueError}.get(flags[0], NotImplementedError)
+    # --spatial-shard is ported (tests/test_torch_spatial.py): on an odd
+    # --devices it prints JAX's words and falls back to the data axis, over
+    # which the batch of 4 does not divide
+    pytest.param(("--spatial-shard", "--devices", "3"), "divisible", id="flags2-item 13")])
+def test_val_cli_refusals(val_ckpt, flags, item, capsys):
+    err = {"--int8": SystemExit}.get(flags[0], ValueError)
     with pytest.raises(err, match=item):
         pval.main(val_argv(val_ckpt, "refused", *flags, "--device", "cpu"))
+    if "--spatial-shard" in flags:
+        assert "falling back to pure data parallelism" in capsys.readouterr().out
+
+
+def test_val_cli_spatial_shard(val_ckpt):
+    """`--spatial-shard --devices 2` splits each image's rows over two CPU
+    ranks (1 data x 2 spatial): the result of one process; on one device
+    the flag changes nothing, as in JAX."""
+    want = pval.main(val_argv(val_ckpt, "sp_plain", "--device", "cpu"))
+    one = pval.main(val_argv(val_ckpt, "sp_one", "--spatial-shard", "--device", "cpu"))
+    two = pval.main(val_argv(val_ckpt, "sp_two", "--spatial-shard", "--devices", "2",
+                             "--device", "cpu"))
+    assert want.nt > 0
+    for res in (one, two):
+        assert res.nt == want.nt
+        for name in ("mp", "mr", "map50", "map75", "map"):
+            assert abs(getattr(res, name) - getattr(want, name)) <= 1e-6, name
 
 
 @pytest.mark.parametrize("flags,item", [  # --ckpt-async is ported (test_torch_train_extras.py)
     pytest.param(("--spatial-shard",), "item 13b", id="flags1-item 13")])
-def test_train_cli_refusals(shapes, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ptrain.main(train_argv(shapes, "refused") + [*flags, "--device", "cpu"])
+def test_train_cli_refusals(shapes, flags, item, capsys):
+    """`--spatial-shard` refuses nothing now: as JAX's, it passes
+    `spatial=True` to a `Trainer` on the default mesh, which is data-only,
+    says so, and trains as without it."""
+    plain = ptrain.main(train_argv(shapes, "sp_plain") + ["--epochs", "1", "--device", "cpu"])
+    capsys.readouterr()
+    got = ptrain.main(train_argv(shapes, "sp_flag") + [*flags, "--epochs", "1", "--device", "cpu"])
+    assert "not split along H" in capsys.readouterr().out
+    assert got == plain
+    root = shapes[0] / "runs"
+    want, _ = jax_load_checkpoint(root / "sp_plain" / "last.npz")
+    have, _ = jax_load_checkpoint(root / "sp_flag" / "last.npz")
+    for tree in ("params", "stats"):
+        for k, v in want[tree].items():
+            np.testing.assert_array_equal(np.asarray(have[tree][k]), np.asarray(v), str(k))
 
 
 def test_cli_device_is_cuda_unless_asked(val_ckpt, shapes):

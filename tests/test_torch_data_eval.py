@@ -138,7 +138,7 @@ def test_run_validation_device_and_refusals(models, val_set):
             run_validation(pm, val_set, img_size=SIZE)
     # data-parallel eval is ported (tests/test_torch_dist.py at world 2): in
     # a group of one, every row goes through the gather and the result is
-    # the plain one; the H-sharding raises
+    # the plain one
     want = run_validation(pm, val_set, img_size=SIZE, batch_size=4, device="cpu",
                           dtype=torch.float32, workers=1)
     mesh = one_rank_group()
@@ -149,7 +149,16 @@ def test_run_validation_device_and_refusals(models, val_set):
         close_group()
     assert got.summary() == want.summary() and want.nt > 0
     np.testing.assert_array_equal(got.maps, want.maps)
-    for kw, err, what in ((dict(mesh=mesh, spatial=True), NotImplementedError, "item 13b"),
-                          (dict(quant={}, augment=True), ValueError, "with TTA")):
-        with pytest.raises(err, match=what):
-            run_validation(pm, val_set, img_size=SIZE, device="cpu", **kw)
+    # `spatial` on a mesh that splits no rows is the data-parallel run, as
+    # in JAX (the split itself: tests/test_torch_spatial.py); int8 with TTA
+    # keeps JAX's refusal
+    mesh = one_rank_group()
+    try:
+        got = run_validation(pm, val_set, img_size=SIZE, batch_size=4, device="cpu",
+                             dtype=torch.float32, workers=1, mesh=mesh, spatial=True)
+    finally:
+        close_group()
+    assert got.summary() == want.summary()
+    np.testing.assert_array_equal(got.maps, want.maps)
+    with pytest.raises(ValueError, match="with TTA"):
+        run_validation(pm, val_set, img_size=SIZE, device="cpu", quant={}, augment=True)

@@ -264,15 +264,24 @@ def test_mesh_without_a_group():
     assert torch.equal(pmesh.globalize_batch(m, x.numpy()), x)
     tg = pmesh.globalize_targets(m, Targets(x.numpy(), x.numpy(), x.numpy() > 3))
     assert isinstance(tg, Targets) and torch.equal(tg.mask, x > 3)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        pmesh.shard_batch(m, x, spatial=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    # no group: nothing to split rows over (the split: tests/test_torch_spatial.py)
+    assert torch.equal(pmesh.shard_batch(m, x[:, None, :, None], spatial=True),
+                       x[:, None, :, None])
+    assert (m.n_data, m.data_rank, m.spatial_rank, m.spatial, m.data) == (1, 0, 0, False, m)
+    with pytest.raises(ValueError, match="n_spatial=2"):
         pmesh.make_mesh(n_spatial=2, device="cpu")
     with pytest.raises(ValueError, match="torchrun"):
         pmesh.make_mesh(n_data=2, device="cpu")
     # rank 1 of 2 takes its block of 2 rows of each of 2 microbatches of 4
     m2 = pmesh.Mesh(rank=1, world=2)
     np.testing.assert_array_equal(pmesh.local_rows(8, m2, accumulate=2), [2, 3, 6, 7])
+    # rank 3 of a 2 x 2 layout: data rank 1, spatial rank 1, so the same rows
+    # as rank 1 of 2, and the bottom rows of an image
+    m4 = pmesh.Mesh(rank=3, world=4, n_spatial=2, spatial_group=object())
+    assert (m4.n_data, m4.data_rank, m4.spatial_rank) == (2, 1, 1)
+    np.testing.assert_array_equal(pmesh.local_rows(8, m4, accumulate=2), [2, 3, 6, 7])
+    assert pmesh.image_rows(13, m4) == slice(7, 13)
+    np.testing.assert_array_equal(pmesh.process_shard_indices(7, mesh=m4), [1, 3, 5])
     with pytest.raises(ValueError, match="split"):
         pmesh.local_rows(6, m2, accumulate=2)
 

@@ -90,7 +90,7 @@ def test_make_infer_fn_matches_jax(models, augment, hybrid, backend):
 def test_make_infer_fn_refuses_what_is_not_ported(models):
     pm = models[3]
     # data-parallel eval is ported (tests/test_torch_dist.py at world 2):
-    # a group of one gives the plain detections; the H-sharding raises
+    # a group of one gives the plain detections
     x = np.random.default_rng(4).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     want = make_infer_fn(pm, **PROTOCOL)(x)
     mesh = one_rank_group()
@@ -101,8 +101,15 @@ def test_make_infer_fn_refuses_what_is_not_ported(models):
     assert mesh.distributed and mesh.world == 1
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     assert torch.equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        make_infer_fn(pm, mesh=mesh, spatial=True, **PROTOCOL)
+    # `spatial` on a mesh that splits no rows is the data-parallel path, as
+    # in JAX (the split itself: tests/test_torch_spatial.py)
+    mesh = one_rank_group()
+    try:
+        sp = make_infer_fn(pm, mesh=mesh, spatial=True, **PROTOCOL)(x)
+    finally:
+        close_group()
+    torch.testing.assert_close(sp[0], want[0], rtol=0, atol=0)
+    assert torch.equal(sp[1], want[1])
     with pytest.raises(ValueError, match="with TTA"):  # int8 is ported; TTA takes none
         make_infer_fn(pm, quant={}, augment=True, **PROTOCOL)
 
