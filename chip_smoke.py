@@ -122,7 +122,7 @@ source, all at once), then:
    VisDrone-analog set at 1536 px (64 train and 64 val images, JPEG at
    quality 85 through the machine's JPEG route: nvJPEG on the card) under
    build/data_smoke/ (removed at the end); the val passes read each val
-   file through 6 symlinked copies (384 images, 12 batches of 32), so
+   file through 5 symlinked copies (320 images, 10 batches of 32), so
    that 8 loader threads, each taking a whole batch, stay busy.  The
    loader alone: decode ms, img/s at 1 worker (to the last batch's
    arrival) and at min(8, cpu_count) workers (the whole pass, and after
@@ -137,7 +137,16 @@ source, all at once), then:
    strictly between 0 and 1, the metrics identical across the three,
    K3's blocked entry once a batch on "matrix", K2's cluster kernel once
    a batch on "pallas", img/s of the whole run beside the device step
-   alone of 6.  Then the recipe's `Trainer` built from a data yaml (1536
+   alone of 6.  The train loader at 1 thread over 2 batches with the
+   VisDrone hyp and with `clahe: 1.0` added (CLAHE's cost an image).
+   8 val files written as BMP, LZW TIFF (by the port) and their JPEG
+   under EXIF orientations 3, 6 and 8 (labels turned into the rotated
+   frame), beside the same decoded arrays as PNG: `run_validation` on
+   "matrix" over both (K3's blocked entry once; the same txt rows and
+   metrics), and `cli.detect` at 1536 px over the copies against
+   `serve_detections` of the same arrays (the same label lines; K3
+   counted; its images written under their own names and formats).
+   Then the recipe's `Trainer` built from a data yaml (1536
    px, bs4, Adam, hyp VisDrone, one epoch of 64 batches over the train
    files read 4x at accumulate 4, validated on 32 val images), with device_aug off
    (on is the CLI phase's `--device-aug` run), from the eval weights as
@@ -218,8 +227,12 @@ source, all at once), then:
    max and mean |difference| and the share over 2 levels, within
    `JPEG_BOUNDS` (the two libraries upsample 4:2:0 chroma differently);
    the frame's decode time beside PNG's of the same pixels; the encoder's
-   q95 round trip (PSNR at least `JPEG_PSNR_MIN`).  The data phase (9)
-   writes its sets as JPEG through the same route and times PNG beside it.
+   q95 round trip (PSNR at least `JPEG_PSNR_MIN`).  The fixtures of
+   tests/torch_data/formats (BMP, TIFF, PNG with eXIf: cv2's pixels
+   exactly; JPEG under EXIF orientations 1-8 and an MPO: through this
+   route within the 4:2:0 bounds, at the rotated shape; `image_shape`
+   of each).  The data phase (9) writes its sets as JPEG through the
+   same route and times PNG beside it.
 13. The inference tools (`tools_phase`, after 12, on its files): on the
    CLI phase's trained flagship (its EMA `last.npz`) over the 64 val
    JPEGs, `cli.detect` at 1536 px bs16 (conf 0.25, max_det 1000,
@@ -228,19 +241,19 @@ source, all at once), then:
    its plain version on the run's own first (16, 30,000) candidates at
    max_det 1000 (timed, with its bound), the labels equal to
    `serve_detections` of the same batches; the frame decoded by nvJPEG
-   and by libjpeg served to the same detections; `--augment` on 8
+   and by libjpeg served to the same detections; `--augment` on 4
    files; `cli.export --include torch_export npz torch` at bs8, detect on
-   the `.pt2` on 16 files (equal to its model's decode through `batched_nms`; the
+   the `.pt2` on 8 files (equal to its model's decode through `batched_nms`; the
    exported program equal to the model), the `.pt` loaded back to the
    same weights and the fused `.npz` to the same head; `hub.load`,
-   `AutoShape` on 8 files, `Detections.crop`, `save`, `tolist`; the REST
+   `AutoShape` on 4 files, `Detections.crop`, `save`, `tolist`; the REST
    server on 127.0.0.1 (`--batch-serve 16`, 640 px): 32 concurrent JPEG
    uploads through `example_request.detect` against the batcher called
    directly (p50, p99, the batch histogram), a few per request against
-   `AutoShape`, an undecodable upload a 400; `cli.gradcam` on 2 images at
+   `AutoShape`, an undecodable upload a 400; `cli.gradcam` on 1 image at
    640 px for `model_17_cv3_act`, both methods, in f32 with TF32 off,
    the first CAM against the host CPU's (`CAM_TOL`); `cli.wbf` over the
-   detect run's labels and a second run's at 1280 px, on 8 files.
+   detect run's labels and a second run's at 1280 px, on 4 files.
 
 14. int8 PTQ (`int8_phase`, after 7): K4 (csrc/conv_int8.cu: routes (a)
    1x1, (b) 3x3 stride 1 and (c) 3x3 stride 2 on wgmma s8 with TMA loads
@@ -284,13 +297,17 @@ source, all at once), then:
    recipe's step (1536 px, bs4, Adam, bf16) through the `Trainer` on the
    world-1 group beside the plain `Trainer`, ms a step in turns, one step
    of each profiled (NCCL kernels, all-reduce calls, host syncs), and a
-   BN-width all-reduce's host cost; `run_validation` on 64 of the data
+   BN-width all-reduce's host cost; `run_validation` on 48 of the data
    phase's val files on "matrix" at world 2 (each rank counting K3) and
    at world 1 with the same 16 images a forward: the same detection sets
    (`same_sets`) and P, R and mAP within `DIST_EVAL_TOL`; `cli.train` for
    two steps under `python -m torch.distributed.run --standalone
-   --nproc-per-node 1`, beside the world-2 ranks.  A rank that fails
-   fails the run.
+   --nproc-per-node 1`, beside the world-2 ranks; `evolve` for 2
+   generations (the tiny model, f32, 640 px, one epoch of 8 train files
+   from a checkpoint whose own detections label 8 val files) in the
+   world-2 ranks and at world 1: the same hyps on every rank as world 1,
+   the fitness within `DIST_EVAL_TOL` and above 0, `evolve.csv` written
+   once.  A rank that fails fails the run.
 16. The spatial H-sharding (`spatial_phase`, after 15, on 9's files;
    `parallel/spatial.py`): the full-width flagship at 1 data x 2 spatial
    over gloo, both ranks on cuda:0 (a correctness check of full-width
@@ -2528,8 +2545,8 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # VisDrone's pixel scale on VisDrone-size frames: the train recipe's 1536 px;
 # 128 images, so that generation stays under 30 s on a slow host (192 took
 # 19.6-30.5 s on 8 threads).  The val passes read the 64 val files through
-# `val_copies` symlinked copies each: 12 batches of 32, so that 8 loader
-# threads (each takes a whole batch) stay busy for a round and a half.  The
+# `val_copies` symlinked copies each: 10 batches of 32, so that 8 loader
+# threads (each takes a whole batch) stay busy past a round.  The
 # Trainer reads `train_copies` copies of the train files: an epoch of 64
 # batches, at accumulate 4, so that the optimizer steps 16 times as a
 # 16-batch epoch at accumulate 1 would (the warmup's bias lr of 0.1 pulls
@@ -2540,10 +2557,11 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # unprofiled over batches `train_timed` (after the fill and the first two
 # optimizer steps) and profiled over `train_profiled`, both while the
 # loader still works.
-DATA = dict(img_size=1536, n_train=64, n_val=64, val_copies=6, train_copies=4, val_imgsz=640,
+DATA = dict(img_size=1536, n_train=64, n_val=64, val_copies=5, train_copies=4, val_imgsz=640,
             val_batch=32, train_batch=4, train_accumulate=4, train_val=32,
             one_worker_batches={"val": 1, "train": 2}, train_timed=(8, 32),
-            train_profiled=(32, 40), train_device_aug=(False,))  # on: cli.train --device-aug
+            train_profiled=(32, 40), train_device_aug=(False,),  # on: cli.train --device-aug
+            clahe_batches=2, mixed_detect_imgsz=1536)
 DATA_DIR = ROOT / "build" / "data_smoke"
 DEVICE_AUG_TOL = 1e-5  # device_aug on the card against its CPU version, same gains and flips
 TARGET_TOL_PX = 1e-3  # the loader's targets mapped back to native pixels, against the labels
@@ -2934,6 +2952,183 @@ def machine_probe():
     }
 
 
+def clahe_cost(train_dir, sizes, stride, nc):
+    """The train loader at 1 thread over the same first batches with the
+    VisDrone hyp and with `clahe: 1.0` added (CLAHE on every image, on
+    LAB's L at a clip limit drawn in [1, 4)): img/s of each, one after the
+    other."""
+    import numpy as np
+
+    from dmayolo_tpu_torch.data.datasets import DetectionDataset
+    from dmayolo_tpu_torch.train.trainer import load_hyp
+
+    out = {"batches": sizes["clahe_batches"], "batch": sizes["train_batch"]}
+    for name, extra in (("plain", {}), ("clahe", {"clahe": 1.0})):
+        ds = DetectionDataset(train_dir, img_size=sizes["img_size"], augment=True,
+                              hyp={**load_hyp("visdrone"), **extra}, stride=stride, nc=nc)
+        got, at = loader_pass(ds, sizes["train_batch"], 1, sizes["clahe_batches"], True)
+        n = sum(len(b.indices) for b in got)
+        check(len(got) == sizes["clahe_batches"]
+              and all(np.asarray(b.images).shape[1:3] == (sizes["img_size"],) * 2 for b in got),
+              f"the train loader with {name}: {len(got)} batches")
+        out[f"img_per_s_{name}"] = n / at[-1]
+        out[f"ms_an_image_{name}"] = at[-1] / n * 1e3
+    out["clahe_ms_an_image"] = out["ms_an_image_clahe"] - out["ms_an_image_plain"]
+    return out
+
+
+# the data phase's val copies in other formats: BMP and TIFF as the port
+# writes them, and the JPEG itself under an EXIF orientation (its labels
+# turned into the frame that orientation gives)
+MIXED_KINDS = ("bmp", "bmp", "tif", "tif", "tif", "o3", "o6", "o8")
+
+
+def exif_app1(jpeg: bytes, orientation: int) -> bytes:
+    """`jpeg` with an APP1 Exif segment whose IFD0 holds the orientation
+    (big-endian TIFF), right after its SOI."""
+    import struct
+
+    tiff = (b"MM\0*" + struct.pack(">IH", 8, 1) + struct.pack(">HHIH", 0x0112, 3, 1, orientation)
+            + b"\0\0" + b"\0" * 4)
+    body = b"Exif\0\0" + tiff
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + jpeg[2:]
+
+
+def turned_labels(rows, orientation):
+    """YOLO rows (cls, x, y, w, h) in the frame an EXIF orientation (3, 6
+    or 8) turns the image to."""
+    import numpy as np
+
+    c, x, y, w, h = rows.T
+    if orientation == 3:
+        x, y = 1 - x, 1 - y
+    elif orientation == 6:  # 90 degrees clockwise
+        x, y, w, h = 1 - y, x, h, w
+    elif orientation == 8:  # 90 degrees counter-clockwise
+        x, y, w, h = y, 1 - x, h, w
+    return np.stack([c, x, y, w, h], 1)
+
+
+def mixed_formats(device, counters, model, weights, cfg, files, sizes, nc, workers):
+    """Copies of `files` (val JPEGs and their labels) written as
+    `MIXED_KINDS`, and the same decoded arrays as PNG beside them:
+    `run_validation` on "matrix" over both (K3 counted; the same txt rows
+    and metrics), then `cli.detect` of `weights` (`model`'s checkpoint)
+    over the copies at the recipe's size against `serve_detections` of the
+    same decoded arrays (the same label lines; K3 counted), its images
+    written under their own names and formats."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.cli import common as cli_common
+    from dmayolo_tpu_torch.cli import detect as cli_detect
+    from dmayolo_tpu_torch.data import imageio
+    from dmayolo_tpu_torch.data.letterbox import letterbox_host
+    from dmayolo_tpu_torch.eval.validator import run_validation
+
+    on_card = device.type == "cuda"
+    root = DATA_DIR / "mixed"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"files": len(files), "kinds": list(MIXED_KINDS[:len(files)])}
+    arrays = {}
+    t0 = time.perf_counter()
+    for tree in ("mixed", "png"):
+        for kind in ("images", "labels"):
+            (root / tree / kind / "val").mkdir(parents=True)
+    for f, kind in zip(files, MIXED_KINDS):
+        lb = DATA_DIR / "labels" / "val" / f"{f.stem}.txt"
+        rows = np.array([ln.split() for ln in lb.read_text().splitlines() if ln.strip()],
+                        np.float64).reshape(-1, 5)
+        if kind in ("bmp", "tif"):
+            dst = root / "mixed" / "images" / "val" / f"{f.stem}.{kind}"
+            imageio.imwrite(dst, imageio.imread(f))
+        else:
+            dst = root / "mixed" / "images" / "val" / f"{f.stem}.jpg"
+            dst.write_bytes(exif_app1(f.read_bytes(), int(kind[1])))
+            rows = turned_labels(rows, int(kind[1]))
+        arrays[f.stem] = imageio.imread(dst)
+        imageio.imwrite(root / "png" / "images" / "val" / f"{f.stem}.png", arrays[f.stem])
+        for tree in ("mixed", "png"):
+            np.savetxt(root / tree / "labels" / "val" / f"{f.stem}.txt", rows,
+                       fmt=["%d"] + ["%.6f"] * 4)
+        if kind[0] == "o" and kind != "o3":
+            check(arrays[f.stem].shape[:2] == imageio.imread(f).shape[1::-1],
+                  f"{dst.name}: EXIF orientation {kind[1]} not applied")
+    out["write_s"] = time.perf_counter() - t0
+    dtype = torch.bfloat16 if on_card else torch.float32
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    res = {}
+    for tree in ("mixed", "png"):
+        zero()
+        r = run_validation(model, str(root / tree / "images" / "val"),
+                           img_size=sizes["val_imgsz"], batch_size=len(files), nc=nc, dtype=dtype,
+                           nms_backend="matrix", save_txt_dir=root / tree / "txt", save_conf=True,
+                           workers=workers, device=device)
+        res[tree] = {"launches": {c.__name__: c.launches for c in counters},
+                     **{k: getattr(r, k) for k in ("mp", "mr", "map50", "map", "nt")}}
+    a, b = label_lines(root / "mixed" / "txt"), label_lines(root / "png" / "txt")
+    out["run_validation"] = res
+    out["run_validation_same_rows"] = a == b and len(a) == len(files)
+    check(out["run_validation_same_rows"] and res["mixed"] == res["png"]
+          and 0 < res["mixed"]["map50"] < 1,
+          f"run_validation on the mixed formats differs from the same arrays as PNG: {res}")
+    if on_card:
+        check(res["mixed"]["launches"]["fixpoint_keep_blocked"] == 1,
+              f"run_validation on the mixed formats: K3's blocked entry once? {res['mixed']}")
+
+    # cli.detect over the copies, against the same decoded arrays served
+    cfg_arg = root / "model.yaml"
+    if isinstance(cfg, dict):
+        cfg_arg.write_text(json.dumps(cfg))  # JSON is YAML
+    else:
+        cfg_arg = Path(cfg)
+    imgsz = sizes["mixed_detect_imgsz"]
+    zero()
+    t0 = time.perf_counter()
+    run = cli_detect.main(["--weights", str(weights), "--cfg", str(cfg_arg), "--source",
+                           str(root / "mixed" / "images" / "val"), "--imgsz", str(imgsz),
+                           "--batch-size", str(len(files)), "--save-txt", "--save-conf",
+                           "--project", str(root / "detect"), "--name", "mixed", "--exist-ok",
+                           *(() if on_card else ("--fp32", "--device", "cpu"))])
+    out["detect_s"] = time.perf_counter() - t0
+    out["detect_launches"] = {c.__name__: c.launches for c in counters}
+    labels = label_lines(run / "labels")
+    served = cli_common.load_model_from_checkpoint(weights, str(cfg_arg), device=device).fuse()
+    names = sorted(arrays)
+    x = np.stack([letterbox_host(arrays[k], imgsz, auto=False, stride=int(served.stride.max()))[0]
+                  [:, :, ::-1] for k in names])
+    with torch.inference_mode():
+        xt = torch.as_tensor(x, device=device).to(dtype) / 255.0
+        dets, valid = served.serve_detections(served.apply(xt, dtype=dtype, fused=True),
+                                              conf_thres=0.25, iou_thres=0.45, max_det=1000,
+                                              max_nms=30000)
+    dets, valid = dets.float().cpu().numpy(), valid.cpu().numpy()
+    mismatched = [k for i, k in enumerate(names)
+                  if det_lines(dets[i][valid[i]], x.shape[1:3], arrays[k].shape[:2])
+                  != labels.get(k)]
+    out["detect_mismatched"] = mismatched
+    out["detections"] = sum(len(v) for v in labels.values())
+    written = sorted(p.name for p in run.iterdir() if p.is_file())
+    out["detect_written"] = written
+    check(not mismatched and out["detections"] > 0,
+          f"cli.detect on the mixed formats differs from serving the same arrays: {mismatched}")
+    check(written == sorted(p.name for p in (root / "mixed" / "images" / "val").iterdir())
+          and all(imageio.imread(run / n).shape == arrays[Path(n).stem].shape for n in written),
+          f"cli.detect wrote {written}")
+    if on_card:
+        k3 = out["detect_launches"]
+        check(k3["fixpoint_keep_blocked"] + k3["fixpoint_keep"] == 1,
+              f"cli.detect on the mixed formats: K3 once? {k3}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=None):
     """The data path on disk: generate, time the loader alone, run
     `run_validation` on the three backends (counted), check known answers
@@ -3062,6 +3257,24 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
 
         print("data run_validation: " + json.dumps(out["run_validation"]), flush=True)
 
+        # ---- 4b. CLAHE's cost in the train loader, at 1 thread
+        out["clahe"] = clahe_cost(train_dir, sizes, stride, nc)
+        # ---- 4c. 8 val files as BMP, TIFF and EXIF-rotated JPEG: run_validation
+        # and cli.detect against the same decoded arrays
+        # (files whose own labels are not empty: a model's boxes that fall in
+        # the letterbox's padding are dropped, and some files keep none)
+        labelled = [f for f in sorted((DATA_DIR / "images" / "val").iterdir())
+                    if (DATA_DIR / "labels" / "val" / f"{f.stem}.txt").read_text().strip()]
+        check(len(labelled) >= 8, f"only {len(labelled)} val files have labels")
+        start = DATA_DIR / "start.npz"  # the eval weights, also the Trainer's below
+        save_checkpoint(start, meta={"nc": nc}, **dict(zip(("params", "stats"),
+                                                          jax_from_state_dict(model))))
+        out["mixed"] = mixed_formats(device, counters, model, start,
+                                     cfg or model_config(FLAGSHIP), labelled[:8], sizes, nc,
+                                     workers)
+        print("data clahe: " + json.dumps(out["clahe"]) + " mixed formats: "
+              + json.dumps(out["mixed"]), flush=True)
+
         # ---- 5. the Trainer from the data yaml, device_aug off (and on, if asked), each
         # from the eval weights above as its pretrained checkpoint: a fresh
         # init's head priors keep every score under the protocol's conf
@@ -3074,9 +3287,6 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
         train_yaml = DATA_DIR / "train.yaml"
         train_yaml.write_text(f"path: {DATA_DIR}\ntrain: {train_many}\nval: {val_list}\n"
                               f"nc: {nc}\n")
-        start = DATA_DIR / "start.npz"
-        save_checkpoint(start, meta={"nc": nc}, **dict(zip(("params", "stats"),
-                                                          jax_from_state_dict(model))))
         out["train"] = []
         for aug in sizes["train_device_aug"]:  # repeat the pair to see the spread
             out["train"].append(data_train(device, train_yaml, cfg, sizes, counters, aug,
@@ -3146,6 +3356,19 @@ def print_data(dp, ev, tr_mem, smi):
     da = dp["device_aug"]
     print(f"device_aug on the card vs its CPU version: max abs err {da['max_abs_err']:.2e} "
           f"(tol {da['tol']})", flush=True)
+    c, m = dp["clahe"], dp["mixed"]
+    print(f"data train loader at 1 worker, {s['img_size']} px hyp VisDrone, "
+          f"{c['batches']} batches of {c['batch']}: {c['img_per_s_plain']:.2f} img/s, with "
+          f"clahe 1.0 {c['img_per_s_clahe']:.2f} img/s ({c['clahe_ms_an_image']:.1f} ms an "
+          f"image more) on {smi}", flush=True)
+    rv = m["run_validation"]["mixed"]
+    print(f"data mixed formats ({m['files']} val files as {', '.join(m['kinds'])}; written in "
+          f"{m['write_s']:.1f} s): run_validation 'matrix' mAP@.5 {rv['map50']:.4g}, the same "
+          f"rows and metrics as the same arrays in PNG, K3 blocked "
+          f"{rv['launches'].get('fixpoint_keep_blocked')}; cli.detect at "
+          f"{s['mixed_detect_imgsz']} px {m['detect_s']:.1f} s, {m['detections']} detections "
+          f"equal to serving the decoded arrays, images written as {m['detect_written']} "
+          f"on {smi}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3830,6 +4053,7 @@ def print_cli(cp, smi):
 # JPEG on the card: nvJPEG against libjpeg's pixels
 # ---------------------------------------------------------------------------
 JPEG_FIXTURES = ROOT / "tests" / "torch_data" / "jpeg"
+FORMAT_FIXTURES = ROOT / "tests" / "torch_data" / "formats"
 JPEG_FRAME = "visdrone_1536x864"
 # nvJPEG's pixels against libjpeg's, bounds set from the first run on an
 # H100.  Against libjpeg's default decode (pixels.npz; 4:2:0 chroma
@@ -3856,6 +4080,8 @@ def jpeg_kind(name):
 def jpeg_phase():
     """Every JPEG fixture decoded by this machine's route (`jpeg_codec()`:
     nvJPEG on the card) against libjpeg's pixels, within `JPEG_BOUNDS`;
+    the BMP, TIFF, PNG, EXIF and MPO fixtures against cv2's (exact but
+    the JPEG-coded ones, within the 4:2:0 bounds at the rotated shape);
     the 1536 px frame's decode time beside PNG's of the same pixels; the
     encoder's q95 round trip.  Returns (results, the frame's libjpeg
     pixels)."""
@@ -3890,6 +4116,22 @@ def jpeg_phase():
             check(np.array_equal(got, ref), f"JPEG fixture {name}: libjpeg's pixels moved")
         elif name in box:  # nvJPEG against libjpeg with its chroma upsampling
             out["fixtures"][name]["box_upsampled"] = held(name, got, box[name], "box upsampled")
+    # BMP, TIFF, PNG with eXIf, EXIF-rotated JPEG and MPO: cv2's pixels,
+    # exact where no JPEG is decoded; the JPEG ones by this route within
+    # the 4:2:0 bounds, at the rotated shape
+    with np.load(FORMAT_FIXTURES / "pixels.npz") as d:
+        fmt_want = {k: d[k] for k in d.files}
+    fmt = out["formats"] = {"exact": 0, "jpeg": {}}
+    for name, ref in fmt_want.items():
+        (path,) = [p for p in FORMAT_FIXTURES.iterdir() if p.stem == name]
+        got = imageio.imread(path)
+        check(imageio.image_shape(path) == ref.shape[:2],
+              f"format fixture {name}: image_shape {imageio.image_shape(path)} != {ref.shape[:2]}")
+        if path.suffix in (".jpg", ".mpo"):
+            fmt["jpeg"][name] = held(name, got, ref, "4:2:0")
+        else:
+            check(np.array_equal(got, ref), f"format fixture {name}: not cv2's pixels")
+            fmt["exact"] += 1
     buf = (JPEG_FIXTURES / f"{JPEG_FRAME}.jpg").read_bytes()
     tmp = ROOT / "build" / "jpeg_phase"
     tmp.mkdir(parents=True, exist_ok=True)
@@ -3923,10 +4165,10 @@ def jpeg_phase():
 # ---------------------------------------------------------------------------
 # The inference tools: detect, export, hub, REST, Grad-CAM, WBF
 # ---------------------------------------------------------------------------
-TOOLS = dict(imgsz=1536, batch=16, live=4000, crop_files=4, augment_files=8, export_batch=8,
-             pt2_files=16, hub_files=8, rest_imgsz=640, rest_batch=16, rest_requests=32,
-             rest_single=4, gradcam_files=2, gradcam_imgsz=640, gradcam_max_dets=4,
-             gradcam_layer="model_17_cv3_act", frame_top=100, wbf_imgsz=1280, wbf_files=8)
+TOOLS = dict(imgsz=1536, batch=16, live=4000, crop_files=4, augment_files=4, export_batch=8,
+             pt2_files=8, hub_files=4, rest_imgsz=640, rest_batch=16, rest_requests=32,
+             rest_single=4, gradcam_files=1, gradcam_imgsz=640, gradcam_max_dets=4,
+             gradcam_layer="model_17_cv3_act", frame_top=100, wbf_imgsz=1280, wbf_files=4)
 TOOLS_DIR = DATA_DIR / "tools"
 # the CAM on the card (f32, TF32 off) against the host CPU's of the same
 # weights, image and detection: the normalised map's max |difference|
@@ -5351,9 +5593,10 @@ def int8_compare(other, order=("other", "change", "change", "other")):
 # data parallelism (parallel/mesh.py)
 # ---------------------------------------------------------------------------
 
-DIST = dict(check_imgsz=640, check_batch=2, recipe_steps=3, recipe_warmup=1, val_images=64,
+DIST = dict(check_imgsz=640, check_batch=2, recipe_steps=2, recipe_warmup=1, val_images=48,
             val_imgsz=640, val_batch=16, torchrun_imgsz=256, torchrun_batch=2,
-            torchrun_train=4, torchrun_val=2, workers=4)
+            torchrun_train=4, torchrun_val=2, workers=4, evolve_generations=2,
+            evolve_imgsz=640, evolve_batch=4, evolve_images=8)
 DIST_DIR = ROOT / "build" / "dist_smoke"
 DIST_EVAL_TOL = 1e-3  # P, R and mAP of world 2 against world 1
 DIST_SEED = 7
@@ -5434,10 +5677,94 @@ def dist_eval(device, model, val_list, sizes, nc, out_dir, mesh=None):
             **{k: getattr(res, k) for k in ("mp", "mr", "map50", "map75", "map")}}
 
 
-def dist_rank(mesh, cfg, nc, sizes, seed, model_path, val_list, out_dir):
+def evolve_data(data_dir, device, sizes, nc):
+    """DIST_DIR/evolve for `evolve_run`: the first `evolve_images` train
+    files with their labels, as many val files labelled with the tiny
+    model's own top-20 detections (so that a generation's fitness is not
+    0), that model's weights as `start.npz` and a data yaml."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from dmayolo_tpu_torch.data.imageio import imread
+    from dmayolo_tpu_torch.data.letterbox import letterbox_host
+    from dmayolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from dmayolo_tpu_torch.utils.weights import jax_from_state_dict
+
+    root = DIST_DIR / "evolve"
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for f in sorted((data_dir / "images" / split).iterdir())[:sizes["evolve_images"]]:
+            (root / "images" / split / f.name).symlink_to(f)
+            lb = root / "labels" / split / f"{f.stem}.txt"
+            if split == "train":
+                shutil.copy(data_dir / "labels" / split / lb.name, lb)
+            else:
+                lb.write_text("")
+    tiny = build_model(device, imgsz=sizes["evolve_imgsz"], cfg=TINY_CFG, nc=nc)
+    # BN calibrated on the train images: a step's batch statistics then
+    # move the running ones little, and the labels below stay its own
+    train = sorted((root / "images" / "train").iterdir())
+    calibrate_bn(tiny, torch.as_tensor(np.stack([
+        letterbox_host(imread(f), sizes["evolve_imgsz"], auto=False)[0][:, :, ::-1]
+        for f in train]).astype(np.float32) / 255.0, device=device))
+    own_labels(tiny, str(root / "images" / "val"), sizes["evolve_imgsz"],
+               sizes["evolve_images"], torch.float32, 2)
+    save_checkpoint(root / "start.npz", meta={"nc": nc},
+                    **dict(zip(("params", "stats"), jax_from_state_dict(tiny))))
+    (root / "data.yaml").write_text(yaml.safe_dump(
+        {"path": str(root), "train": str(root / "images" / "train"),
+         "val": str(root / "images" / "val"), "nc": nc, "names": [f"c{i}" for i in range(nc)]}))
+    return root
+
+
+def evolve_run(mesh, root, sizes, nc, seed):
+    """`evolve` (train/evolve.py) on `mesh` for `evolve_generations`
+    generations, each an f32 `Trainer` of the tiny model from `start.npz`
+    over root's data (one epoch, `evolve_batch` images a step, validated
+    on root's val files).  The global `random`, which the GA's parent
+    choice draws from, is seeded by rank: only rank 0's may count.
+    Returns this rank's trained hyps, their fitness and the best hyp."""
+    import random
+
+    import torch
+
+    from dmayolo_tpu_torch.train.evolve import evolve
+    from dmayolo_tpu_torch.train.trainer import Trainer, load_hyp
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    random.seed(seed + 1000 * mesh.rank)
+    out = {"hyps": [], "fitness": []}
+    name = f"w{mesh.world}"
+    t0 = time.perf_counter()
+
+    def train_fn(h):
+        out["hyps"].append(dict(h))
+        tr = Trainer(TINY_CFG, data=str(root / "data.yaml"), hyp=h, nc=nc, epochs=1,
+                     batch_size=sizes["evolve_batch"], img_size=sizes["evolve_imgsz"],
+                     out_dir=str(root / name / "run"), dtype=torch.float32, seed=seed,
+                     device=mesh.device, mesh=mesh, pretrained=str(root / "start.npz"),
+                     autoanchor=False, nosave=True, workers=2)
+        out["fitness"].append(tr.train())
+        return out["fitness"][-1]
+
+    # lr0 at META's floor and no warmup bias lr: each generation stays near
+    # start.npz, so the val split's own labels give a fitness above 0
+    base = {**load_hyp("scratch"), "lr0": 1e-5, "warmup_bias_lr": 0.0}
+    out["best"] = evolve(train_fn, base, generations=sizes["evolve_generations"],
+                         out_dir=str(root / name), seed=0, autoanchor=False, mesh=mesh)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_rank(mesh, cfg, nc, sizes, seed, model_path, val_list, out_dir, evolve_root):
     """One rank of world 2 (gloo, both ranks on cuda:0): the f32 step
     against the plain one, the recipe's step timed on the card (its
-    global batch of 4, two images a rank), then the data-parallel eval."""
+    global batch of 4, two images a rank), the data-parallel eval, then
+    `evolve` in the group."""
     import torch
 
     from dmayolo_tpu_torch.graph import DetectionModel
@@ -5462,6 +5789,8 @@ def dist_rank(mesh, cfg, nc, sizes, seed, model_path, val_list, out_dir):
     model = DetectionModel(cfg, nc=nc, device=mesh.device)
     model.load_state_dict(torch.load(model_path, map_location=mesh.device))
     out["eval"] = dist_eval(mesh.device, model.eval(), val_list, sizes, nc, out_dir, mesh)
+    del model
+    out["evolve"] = evolve_run(mesh, Path(evolve_root), sizes, nc, seed)
     return out
 
 
@@ -5678,8 +6007,10 @@ def dist_phase(device, smi, data_dir=DATA_DIR, cfg=None, sizes=DIST, nc=10):
             val_list = DIST_DIR / "val.txt"
             val_list.write_text("".join(f"{f}\n" for f in sorted(
                 (data_dir / "images" / "val").iterdir())[:sizes["val_images"]]))
+            evolve_root = evolve_data(data_dir, device, sizes, nc)
             ranks = spawn(dist_rank, 2, args=(cfg, nc, sizes, DIST_SEED, str(model_path),
-                                              str(val_list), str(DIST_DIR / "w2")),
+                                              str(val_list), str(DIST_DIR / "w2"),
+                                              str(evolve_root)),
                           device=device.type, backend="gloo", share_device=on_card,
                           threads=None if on_card else torch.get_num_threads())
             out["world2_spawn_s"] = time.perf_counter() - t0
@@ -5709,6 +6040,24 @@ def dist_phase(device, smi, data_dir=DATA_DIR, cfg=None, sizes=DIST, nc=10):
             if on_card:
                 check(all(r["eval"]["launches"]["fixpoint_keep_blocked"] > 0 for r in ranks),
                       f"K3 did not launch in a world-2 rank: {[r['eval'] for r in ranks]}")
+            # ---- evolve: world 1 in this process against the two ranks' GA
+            out["evolve_world1"] = e1 = evolve_run(mesh, evolve_root, sizes, nc, DIST_SEED)
+            e2 = [r["evolve"] for r in ranks]
+            rows = (evolve_root / "w2" / "evolve.csv").read_text().splitlines()
+            out["evolve"] = {
+                "generations": sizes["evolve_generations"], "world1_s": e1["s"],
+                "rank_s": [e["s"] for e in e2], "fitness_world1": e1["fitness"],
+                "fitness_world2": e2[0]["fitness"], "csv_rows": len(rows) - 1,
+                "fitness_err": max(abs(a - b) for a, b in zip(e2[0]["fitness"], e1["fitness"]))}
+            check(all(e["hyps"] == e1["hyps"] and e["best"] == e2[0]["best"]
+                      and e["fitness"] == e2[0]["fitness"] for e in e2)
+                  and len(e1["hyps"]) == sizes["evolve_generations"]
+                  and len(rows) == 1 + sizes["evolve_generations"]
+                  and (evolve_root / "w2" / "hyp_evolve.yaml").exists()
+                  and out["evolve"]["fitness_err"] <= DIST_EVAL_TOL
+                  and min(e1["fitness"]) > 0,
+                  f"evolve in the group differs from world 1: {out['evolve']}, hyps "
+                  f"{[e['hyps'] for e in e2]} vs {e1['hyps']}")
             out["torchrun"] = torchrun_done()
 
             # ---- the recipe's step at world 1, timed with the card to itself
@@ -5766,6 +6115,13 @@ def print_dist(dp, smi):
         print(f"dist recipe at world 2 over gloo, both ranks on the one card, 2 images a rank: "
               f"{[round(r['recipe_ms'], 2) for r in dp['world2']]} ms a step by rank (host-"
               f"staged: no target) on {smi}", flush=True)
+    e = dp["evolve"]
+    print(f"dist evolve ({e['generations']} generations of the tiny model at "
+          f"{sz['evolve_imgsz']} px, f32): world 2 over gloo trained world 1's hyps, fitness "
+          f"{[round(f, 6) for f in e['fitness_world2']]} vs "
+          f"{[round(f, 6) for f in e['fitness_world1']]} (max err {e['fitness_err']:.2e}, tol "
+          f"{DIST_EVAL_TOL}), evolve.csv {e['csv_rows']} rows; {e['world1_s']:.1f} s at world "
+          f"1, {[round(t, 1) for t in e['rank_s']]} s a rank on {smi}", flush=True)
     tr = dp["torchrun"]
     print(f"dist cli.train under torchrun: {tr['step']} steps, {tr['s']:.1f} s; phase "
           f"{dp['s']:.1f} s (world-1 step {dp['world1_s']:.1f}, world-2 spawn "
@@ -6280,6 +6636,11 @@ def main(argv=None):
     report["jpeg"], frame = jpeg_phase()
     phases["jpeg"] = time.perf_counter() - t0
     print("jpeg: " + json.dumps(report["jpeg"]), flush=True)
+    fj = report["jpeg"]["formats"]
+    print(f"image formats: {fj['exact']} BMP/TIFF/PNG fixtures equal to cv2's pixels; "
+          f"{len(fj['jpeg'])} EXIF JPEG and MPO fixtures through {report['jpeg']['codec']} at "
+          f"their rotated shapes, max |diff| {max(r['max_abs'] for r in fj['jpeg'].values())} "
+          f"(4:2:0 bound {JPEG_BOUNDS['4:2:0']['max_abs']})", flush=True)
     t0 = time.perf_counter()
     report["k2"] = k2 = check_nms(device)
     print("K2 nms_greedy: " + json.dumps(k2), flush=True)
@@ -6486,6 +6847,9 @@ def main(argv=None):
                 res["train"]["checkpoint_serve"]["launches"]
     paths.update({f"sweep {name} serving matrix": r["launches"] for name, r in sweep.items()})
     paths.update({f"run_validation {b}": r["launches"] for b, r in dp["run_validation"].items()})
+    paths["run_validation matrix, BMP/TIFF/EXIF copies"] = \
+        dp["mixed"]["run_validation"]["mixed"]["launches"]
+    paths["cli.detect, BMP/TIFF/EXIF copies"] = dp["mixed"]["detect_launches"]
     for t in dp["train"]:
         paths[f"data-trained best.npz served, matrix, device_aug {int(t['device_aug'])}"] = \
             t["best_serve"]["launches"]

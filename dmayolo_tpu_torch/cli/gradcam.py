@@ -8,8 +8,8 @@ with every kept detection's CAM blended in, and one CAM image a
 detection.  The model runs unfolded in float32; images are read and
 written with the port's `imageio` (a CAM image is written as three equal
 channels: the port's writer takes colour images only).  Boxes are drawn
-8-connected (the JAX CLI draws them anti-aliased) and labels in the port's
-bitmap font.
+anti-aliased, as the JAX CLI draws them (`cvops.rectangle(...,
+line_type=LINE_AA)`), and labels in the port's bitmap font.
 
     python -m dmayolo_tpu_torch.cli.gradcam --model-path best.npz --img-path images/ --target-layer model_17_cv3_act
 """
@@ -140,7 +140,7 @@ def main(argv=None):
             for j in range(min(n, opt.max_dets)):
                 x1, y1, x2, y2, conf, cls = dets[0, j]
                 c1, c2 = (int(x1), int(y1)), (int(x2), int(y2))
-                cvops.rectangle(res, c1, c2, (0, 0, 255), 2)
+                cvops.rectangle(res, c1, c2, (0, 0, 255), 2, line_type=cvops.LINE_AA)
                 cvops.put_text(res, f"{names[int(cls)]} {conf:.2f}",
                                (c1[0], max(c1[1] - 3, 10)), 0.5, (255, 255, 255), 1)
         out_path = out_dir / f"{path.stem}_res.jpg"

@@ -18,9 +18,10 @@ always takes the global batch's moments, as in JAX.  `--spatial-shard`
 runs as JAX's does: it passes `spatial=True` to a `Trainer` on the
 default mesh, whose every rank is on the data axis, so nothing is split
 along H (the line it prints says so); H-sharded training is the Python
-API's, `Trainer(mesh=make_mesh(n_data, n_spatial), spatial=True)`.  Not
-ported yet: `--evolve` in a group of more than one rank; it raises.
-`main` returns the best fitness, or the evolved hyp.
+API's, `Trainer(mesh=make_mesh(n_data, n_spatial), spatial=True)`.
+`--evolve` under torchrun: rank 0 mutates and writes `evolve.csv`, every
+rank trains each generation on the group (`train/evolve.py`).  `main`
+returns the best fitness, or the evolved hyp.
 
 The flagship recipe (train.sh:5-9):
     python -m dmayolo_tpu_torch.cli.train --imgsz 1536 --adam --batch-size 4 \\
@@ -156,9 +157,6 @@ def _main(opt, mesh=None):
     main_rank = mesh is None or mesh.is_main
     if mesh is None:
         setup_device(opt.device)
-    elif opt.evolve and mesh.world > 1:
-        raise NotImplementedError("--evolve runs in one process, not in a group of "
-                                  f"{mesh.world} ranks")
 
     # resolved before the opt.yaml dump below, so the run's config records
     # the remat actually used (resume re-derives from the saved opt)
@@ -210,10 +208,13 @@ def _main(opt, mesh=None):
         from ..train.evolve import evolve
 
         def train_once(h):
-            return _make_trainer(opt, h, str(out / "evolve_run")).train()
+            return _make_trainer(opt, h, str(out / "evolve_run"), mesh).train()
 
+        # in a group rank 0 alone mutates and writes; every rank trains
         best = evolve(train_once, hyp, generations=opt.evolve, out_dir=str(out),
-                      autoanchor=not opt.noautoanchor)
+                      autoanchor=not opt.noautoanchor, mesh=mesh)
+        if not main_rank:
+            return best
         print("evolved hyp:", best)
         try:
             from ..utils.plots import plot_evolve

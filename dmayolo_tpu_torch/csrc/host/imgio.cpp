@@ -362,6 +362,228 @@ void io_swap_rb(const uint8_t* src, uint8_t* dst, long n) {
   }
 }
 
+// ---------------------------------------------------------------- orientation
+// dst = src (h, w, cn) under EXIF orientation o (1-8), as cv2 applies it:
+// 2 mirror, 3 rotate 180, 4 flip, 5 transpose, 6 rotate 90 clockwise,
+// 7 transverse, 8 rotate 90 counter-clockwise.  dst is (w, h, cn) for
+// o >= 5, else (h, w, cn).
+void io_orient(const uint8_t* src, int h, int w, int cn, int o, uint8_t* dst) {
+  const bool swap = o >= 5;
+  const int dw = swap ? h : w, dh = swap ? w : h;
+  for (int y = 0; y < dh; ++y)
+    for (int x = 0; x < dw; ++x) {
+      int sx, sy;  // the source pixel of (x, y)
+      switch (o) {
+        case 2: sx = w - 1 - x; sy = y; break;
+        case 3: sx = w - 1 - x; sy = h - 1 - y; break;
+        case 4: sx = x; sy = h - 1 - y; break;
+        case 5: sx = y; sy = x; break;
+        case 6: sx = y; sy = h - 1 - x; break;
+        case 7: sx = w - 1 - y; sy = h - 1 - x; break;
+        case 8: sx = w - 1 - y; sy = x; break;
+        default: sx = x; sy = y; break;
+      }
+      std::memcpy(dst + (static_cast<size_t>(y) * dw + x) * cn,
+                  src + (static_cast<size_t>(sy) * w + sx) * cn, cn);
+    }
+}
+
+// ---------------------------------------------------------------- BMP
+// The pixel rows of a BMP -> BGR (h, w, 3), as cv2 reads them.  rows: the
+// file's pixel array, `stride` bytes a row, bottom-up unless top_down.
+// bpp 1/4/8 index `palette` (256 BGR triples, zero past the file's);
+// 16: mode 0 is 5-5-5, 1 is 5-6-5, each field shifted up to 8 bits
+// without filling the low bits (cv2's icvCvt_BGR5x52BGR); 24 and 32 copy
+// B, G, R (32's fourth byte dropped).
+void io_bmp_unpack(const uint8_t* rows, int h, int w, int bpp, long stride, int top_down,
+                   const uint8_t* palette, int mode, uint8_t* out) {
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* r = rows + static_cast<size_t>(top_down ? y : h - 1 - y) * stride;
+    uint8_t* o = out + static_cast<size_t>(y) * w * 3;
+    for (int x = 0; x < w; ++x, o += 3) {
+      if (bpp <= 8) {
+        const int per = 8 / bpp, shift = 8 - bpp * (1 + x % per);
+        const int idx = (r[x / per] >> shift) & ((1 << bpp) - 1);
+        std::memcpy(o, palette + 3 * idx, 3);
+      } else if (bpp == 16) {
+        const int t = r[2 * x] | (r[2 * x + 1] << 8);
+        o[0] = static_cast<uint8_t>((t << 3) & 0xf8);
+        o[1] = static_cast<uint8_t>(mode ? (t >> 3) & 0xfc : (t >> 2) & 0xf8);
+        o[2] = static_cast<uint8_t>(mode ? (t >> 8) & 0xf8 : (t >> 7) & 0xf8);
+      } else {
+        std::memcpy(o, r + static_cast<size_t>(x) * (bpp / 8), 3);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- TIFF
+// LZW as TIFF codes it (compression 5): MSB-first codes of 9 to 12 bits,
+// 256 clear, 257 end of information, the width growing one code early
+// (at 511, 1023, 2047 entries).  Decodes into dst, at most cap bytes;
+// returns the bytes written, or -1 on a corrupt stream.
+long io_lzw_decode(const uint8_t* src, long n, uint8_t* dst, long cap) {
+  constexpr int kClear = 256, kEoi = 257, kMax = 4096;
+  std::vector<int> prefix(kMax), length(kMax);
+  std::vector<uint8_t> first(kMax), last(kMax);
+  for (int i = 0; i < 256; ++i) {
+    prefix[i] = -1;
+    length[i] = 1;
+    first[i] = last[i] = static_cast<uint8_t>(i);
+  }
+  long bitpos = 0, out = 0;
+  const long nbits = n * 8;
+  int width = 9, next = 258, old = -1;
+  auto emit = [&](int code) {  // the string of `code`, written back to front
+    const int len = length[code];
+    long end = out + len;
+    for (int c = code, k = len - 1; c >= 0; c = prefix[c], --k)
+      if (out + k < cap) dst[out + k] = last[c];
+    out = std::min(end, cap);
+  };
+  while (bitpos + width <= nbits && out < cap) {
+    int code = 0;
+    for (int b = 0; b < width; ++b, ++bitpos)
+      code = (code << 1) | ((src[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
+    if (code == kEoi) break;
+    if (code == kClear) {
+      width = 9;
+      next = 258;
+      old = -1;
+      continue;
+    }
+    if (old < 0) {
+      if (code > 255) return -1;
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (code > next) return -1;
+    if (next < kMax) {
+      const int base = code < next ? code : old;
+      prefix[next] = old;
+      length[next] = length[old] + 1;
+      first[next] = first[old];
+      last[next] = first[base];
+    }
+    emit(code);
+    old = code;
+    if (next < kMax) ++next;
+    if (next + 1 >= (1 << width) && width < 12) ++width;
+  }
+  return out;
+}
+
+// LZW-encode n bytes as libtiff does (a clear code first, a clear when the
+// table fills, the final code, end of information); returns the bytes
+// written, or -(bytes needed) when cap is too small.
+long io_lzw_encode(const uint8_t* src, long n, uint8_t* dst, long cap) {
+  constexpr int kClear = 256, kEoi = 257, kMax = 4096, kHash = 1 << 14;
+  std::vector<int> keys(kHash, -1), vals(kHash);  // (code << 8 | byte) -> code
+  long out = 0, bits = 0;
+  uint32_t acc = 0;
+  int width = 9, next = 258;
+  auto put = [&](int code) {
+    acc = (acc << width) | static_cast<uint32_t>(code);
+    bits += width;
+    while (bits >= 8) {
+      bits -= 8;
+      if (out < cap) dst[out] = static_cast<uint8_t>(acc >> bits);
+      ++out;
+    }
+    acc &= (1u << bits) - 1;
+  };
+  auto slot = [&](int key) {
+    int h = (key * 2654435761u) >> 18;
+    while (keys[h] >= 0 && keys[h] != key) h = (h + 1) & (kHash - 1);
+    return h;
+  };
+  auto added = [&]() {  // after an entry: a clear when the table is full, else maybe wider
+    if (next == kMax - 2) {
+      put(kClear);
+      std::fill(keys.begin(), keys.end(), -1);
+      next = 258;
+      width = 9;
+    } else if (next > (1 << width) - 1) {
+      ++width;
+    }
+  };
+  put(kClear);
+  int ent = -1;
+  for (long i = 0; i < n; ++i) {
+    const int c = src[i];
+    if (ent < 0) {
+      ent = c;
+      continue;
+    }
+    const int key = (ent << 8) | c;
+    const int h = slot(key);
+    if (keys[h] == key) {
+      ent = vals[h];
+      continue;
+    }
+    put(ent);
+    keys[h] = key;
+    vals[h] = next++;
+    ent = c;
+    added();
+  }
+  if (ent >= 0) {
+    put(ent);
+    ++next;
+    added();
+  }
+  put(kEoi);
+  if (bits > 0) {
+    if (out < cap) dst[out] = static_cast<uint8_t>(acc << (8 - bits));
+    ++out;
+  }
+  return out <= cap ? out : -out;
+}
+
+// PackBits (compression 32773) into dst, at most cap bytes; returns the
+// bytes written.
+long io_packbits_decode(const uint8_t* src, long n, uint8_t* dst, long cap) {
+  long i = 0, out = 0;
+  while (i < n && out < cap) {
+    const int c = static_cast<int8_t>(src[i++]);
+    if (c >= 0) {
+      const long k = std::min<long>({c + 1L, n - i, cap - out});
+      std::memcpy(dst + out, src + i, k);
+      i += c + 1;
+      out += k;
+    } else if (c != -128) {
+      if (i >= n) break;
+      const long k = std::min<long>(1L - c, cap - out);
+      std::memset(dst + out, src[i++], k);
+      out += k;
+    }
+  }
+  return out;
+}
+
+// TIFF predictor 2 (horizontal differencing) on `rows` rows of w pixels of
+// spp samples, 1- or 2-byte samples (2: native-order uint16), in place:
+// undone (sums) when encode is 0, applied (differences) otherwise.
+void io_tiff_predictor(uint8_t* data, long rows, long w, int spp, int bytes, int encode) {
+  const long n = w * spp;
+  for (long y = 0; y < rows; ++y) {
+    if (bytes == 2) {
+      uint16_t* r = reinterpret_cast<uint16_t*>(data) + y * n;
+      if (encode)
+        for (long i = n - 1; i >= spp; --i) r[i] = static_cast<uint16_t>(r[i] - r[i - spp]);
+      else
+        for (long i = spp; i < n; ++i) r[i] = static_cast<uint16_t>(r[i] + r[i - spp]);
+    } else {
+      uint8_t* r = data + y * n;
+      if (encode)
+        for (long i = n - 1; i >= spp; --i) r[i] = static_cast<uint8_t>(r[i] - r[i - spp]);
+      else
+        for (long i = spp; i < n; ++i) r[i] = static_cast<uint8_t>(r[i] + r[i - spp]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- resize
 // cv2 INTER_LINEAR on uint8: half-pixel centres, float positions, 11-bit
 // coefficients; the horizontal pass in int, the vertical one as cv2's
@@ -623,6 +845,222 @@ void io_hsv_lut(uint8_t* img, long n, const uint8_t* lut_h, const uint8_t* lut_s
   }
 }
 
+// ---------------------------------------------------------------- LAB
+// 8-bit sRGB BGR <-> CIE L*a*b* (D65), cv2's integer route (color_lab.cpp:
+// RGB2Lab_b, Lab2RGBinteger), bit-exact over all 2^24 inputs each way.  Its tables are built in IEEE
+// single precision with correct rounding (cv2's softfloat), which plain
+// float arithmetic reproduces with contraction off; the gamma curves in
+// double.  L in [0, 255] is L* 255 / 100; a, b are offset by 128.
+namespace {
+constexpr int kLabShift = 12, kGammaShift = 3, kLabShift2 = kLabShift + kGammaShift;
+constexpr int kCbrtTab = 256 * 3 / 2 * (1 << kGammaShift);
+constexpr int kInvGammaShift = 12, kInvGammaTab = 1 << kInvGammaShift;
+constexpr int kBase = 1 << 14, kMinAB = -8145, kABTab = kBase * 9 / 4;
+
+inline int descale(long v, int n) { return static_cast<int>((v + (1L << (n - 1))) >> n); }
+
+// round half to even of a float, as cvRound(softfloat)
+inline int rne(float v) { return static_cast<int>(std::nearbyintf(v)); }
+
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+struct LabTables {
+  uint16_t gamma[256];            // sRGB -> linear, 255 << 3 scale
+  uint16_t cbrt[kCbrtTab];        // f(t) of CIE, 1 << 15 scale
+  uint16_t inv_gamma[kInvGammaTab];
+  int ab_to_xz[kABTab];
+  uint16_t l_to_yf[256 * 2];
+  int fwd[9], inv[9];             // rows X, Y, Z by (b, g, r); rows r, g, b by (x, y, z)
+  LabTables() {
+    const double g_thresh = 809.0 / 20000, g_inv_thresh = 7827.0 / 2500000;
+    const double g_low = 323.0 / 25, g_power = 12.0 / 5, g_shift = 11.0 / 200;
+    const float f255 = 255.f;
+    for (int i = 0; i < 256; ++i) {
+      const double x = static_cast<float>(i) / f255;
+      const float lin = static_cast<float>(
+          x <= g_thresh ? x / g_low : std::pow((x + g_shift) / (1.0 + g_shift), g_power));
+      gamma[i] = static_cast<uint16_t>(rne(static_cast<float>(255 * (1 << kGammaShift)) * lin));
+    }
+    const float cb_scale = 1.f / static_cast<float>(255 * (1 << kGammaShift));
+    const float lthresh = 216.f / 24389.f, lscale = 841.f / 108.f, lbias = 16.f / 116.f;
+    for (int i = 0; i < kCbrtTab; ++i) {
+      const float x = cb_scale * static_cast<float>(i);
+      // cv2's softfloat cube root lands on the float at or below the true
+      // root (which decides entry 324); the double root, truncated, does
+      const double root = std::cbrt(static_cast<double>(x));
+      float fr = static_cast<float>(root);
+      if (fr > root) fr = std::nextafterf(fr, 0.f);
+      const float f = x < lthresh ? std::fmaf(x, lscale, lbias) : fr;
+      cbrt[i] = static_cast<uint16_t>(rne(static_cast<float>(1 << kLabShift2) * f));
+    }
+    const float inv_scale = 1.f / static_cast<float>(kInvGammaTab);
+    for (int i = 0; i < kInvGammaTab; ++i) {
+      const double x = inv_scale * static_cast<float>(i);
+      const float s = static_cast<float>(
+          x <= g_inv_thresh ? x * g_low : std::pow(x, 1.0 / g_power) * (1.0 + g_shift) - g_shift);
+      inv_gamma[i] = static_cast<uint16_t>(rne(f255 * s));
+    }
+    for (int i = kMinAB; i < kABTab + kMinAB; ++i)
+      ab_to_xz[i - kMinAB] = i <= 3390 ? i * 108 / 841 - kBase * 16 / 116 * 108 / 841
+                                       : i * i / kBase * i / kBase;
+    for (int i = 0; i < 256; ++i) {
+      int y, ify;
+      if (i <= 20) {
+        y = rne(static_cast<float>(i * kBase * 20 * 9) / static_cast<float>(17 * 29 * 29 * 29));
+        ify = rne(static_cast<float>(kBase) *
+                  (16.f / 116.f + static_cast<float>(i * 5) / static_cast<float>(3 * 17 * 29)));
+      } else {
+        const float fy = static_cast<float>(i * 100 * kBase) / static_cast<float>(255 * 116) +
+                         static_cast<float>(16 * kBase) / 116.f;
+        ify = rne(fy);
+        y = rne(fy * fy / static_cast<float>(kBase) * fy / static_cast<float>(kBase));
+      }
+      l_to_yf[2 * i] = static_cast<uint16_t>(y);
+      l_to_yf[2 * i + 1] = static_cast<uint16_t>(ify);
+    }
+    static const double rgb2xyz[9] = {0.412453, 0.357580, 0.180423, 0.212671, 0.715160,
+                                      0.072169, 0.019334, 0.119193, 0.950227};
+    static const double xyz2rgb[9] = {3.240479, -1.53715, -0.498535, -0.969256, 1.875991,
+                                      0.041556, 0.055648, -0.204043, 1.057311};
+    static const double white[3] = {0.950456, 1.0, 1.088754};
+    const double ls = 1 << kLabShift;
+    for (int i = 0; i < 3; ++i) {      // X, Y, Z from b, g, r
+      fwd[i * 3 + 0] = static_cast<int>(std::nearbyint(ls * rgb2xyz[i * 3 + 2] / white[i]));
+      fwd[i * 3 + 1] = static_cast<int>(std::nearbyint(ls * rgb2xyz[i * 3 + 1] / white[i]));
+      fwd[i * 3 + 2] = static_cast<int>(std::nearbyint(ls * rgb2xyz[i * 3 + 0] / white[i]));
+    }
+    for (int r = 0; r < 3; ++r)        // r, g, b from x, y, z
+      for (int j = 0; j < 3; ++j)
+        inv[r * 3 + j] = static_cast<int>(std::nearbyint(ls * xyz2rgb[r * 3 + j] * white[j]));
+  }
+};
+#pragma GCC pop_options
+
+const LabTables& lab_tables() {
+  static const LabTables t;
+  return t;
+}
+}  // namespace
+
+void io_bgr2lab(const uint8_t* src, uint8_t* dst, long n) {
+  const LabTables& t = lab_tables();
+  const int lscale = (116 * 255 + 50) / 100, lshift = -((16 * 255 * (1 << kLabShift2) + 50) / 100);
+  for (long i = 0; i < n; ++i) {
+    const int b = t.gamma[src[3 * i]], g = t.gamma[src[3 * i + 1]], r = t.gamma[src[3 * i + 2]];
+    const int fx = t.cbrt[descale(b * t.fwd[0] + g * t.fwd[1] + r * t.fwd[2], kLabShift)];
+    const int fy = t.cbrt[descale(b * t.fwd[3] + g * t.fwd[4] + r * t.fwd[5], kLabShift)];
+    const int fz = t.cbrt[descale(b * t.fwd[6] + g * t.fwd[7] + r * t.fwd[8], kLabShift)];
+    const int l = descale(lscale * fy + lshift, kLabShift2);
+    const int a = descale(500 * (fx - fy) + 128 * (1 << kLabShift2), kLabShift2);
+    const int bb = descale(200 * (fy - fz) + 128 * (1 << kLabShift2), kLabShift2);
+    dst[3 * i] = static_cast<uint8_t>(std::min(std::max(l, 0), 255));
+    dst[3 * i + 1] = static_cast<uint8_t>(std::min(std::max(a, 0), 255));
+    dst[3 * i + 2] = static_cast<uint8_t>(std::min(std::max(bb, 0), 255));
+  }
+}
+
+void io_lab2bgr(const uint8_t* src, uint8_t* dst, long n) {
+  const LabTables& t = lab_tables();
+  const int shift = kLabShift + (14 - kInvGammaShift);
+  for (long i = 0; i < n; ++i) {
+    const int ll = src[3 * i], aa = src[3 * i + 1], bb = src[3 * i + 2];
+    const int y = t.l_to_yf[2 * ll], ify = t.l_to_yf[2 * ll + 1];
+    const int adiv = ((5 * aa * 53687 + (1 << 7)) >> 13) - 128 * kBase / 500;
+    const int bdiv = ((bb * 41943 + (1 << 4)) >> 9) - 128 * kBase / 200 + 1;
+    const int x = t.ab_to_xz[ify + adiv - kMinAB], z = t.ab_to_xz[ify - bdiv - kMinAB];
+    int c[3];
+    for (int k = 0; k < 3; ++k) {
+      const int v = descale(static_cast<long>(t.inv[k * 3]) * x + static_cast<long>(t.inv[k * 3 + 1]) * y +
+                            static_cast<long>(t.inv[k * 3 + 2]) * z, shift);
+      c[k] = t.inv_gamma[std::min(std::max(v, 0), kInvGammaTab - 1)];
+    }
+    dst[3 * i] = static_cast<uint8_t>(c[2]);
+    dst[3 * i + 1] = static_cast<uint8_t>(c[1]);
+    dst[3 * i + 2] = static_cast<uint8_t>(c[0]);
+  }
+}
+
+// Contrast-limited adaptive histogram equalisation of one uint8 channel
+// (h, w), as cv2.createCLAHE(clip_limit, (tiles, tiles)).apply: where the
+// grid does not divide the image, the histograms are taken on the image
+// padded by reflect-101 at the bottom and right to the next multiple (a
+// whole extra tile on a side that divides); clip = max(1, clip_limit *
+// tile area / 256); the excess is spread evenly, then the residual one a
+// step; the LUT is the running sum * 255 / area; each pixel interpolates
+// bilinearly, in float, between the LUTs of its four nearest tiles.
+void io_clahe(const uint8_t* src, int h, int w, double clip_limit, int tiles, uint8_t* dst) {
+  const bool fits = w % tiles == 0 && h % tiles == 0;
+  const int tw = fits ? w / tiles : (w + tiles - w % tiles) / tiles;
+  const int th = fits ? h / tiles : (h + tiles - h % tiles) / tiles;
+  auto reflect = [](int p, int len) {
+    if (len == 1) return 0;
+    while (p < 0 || p >= len) p = p < 0 ? -p : 2 * len - p - 2;
+    return p;
+  };
+  const int area = tw * th;
+  const float lut_scale = 255.f / static_cast<float>(area);
+  int clip = 0;
+  if (clip_limit > 0.0) clip = std::max(static_cast<int>(clip_limit * area / 256), 1);
+  std::vector<uint8_t> lut(static_cast<size_t>(tiles) * tiles * 256);
+  std::vector<int> xs(tw);
+  for (int ty = 0; ty < tiles; ++ty)
+    for (int tx = 0; tx < tiles; ++tx) {
+      int hist[256] = {0};
+      for (int i = 0; i < tw; ++i) xs[i] = reflect(tx * tw + i, w);
+      for (int j = 0; j < th; ++j) {
+        const uint8_t* row = src + static_cast<size_t>(reflect(ty * th + j, h)) * w;
+        for (int i = 0; i < tw; ++i) ++hist[row[xs[i]]];
+      }
+      if (clip > 0) {
+        int clipped = 0;
+        for (int i = 0; i < 256; ++i)
+          if (hist[i] > clip) {
+            clipped += hist[i] - clip;
+            hist[i] = clip;
+          }
+        const int batch = clipped / 256;
+        int residual = clipped - batch * 256;
+        for (int i = 0; i < 256; ++i) hist[i] += batch;
+        if (residual != 0) {
+          const int step = std::max(256 / residual, 1);
+          for (int i = 0; i < 256 && residual > 0; i += step, --residual) ++hist[i];
+        }
+      }
+      uint8_t* l = lut.data() + (static_cast<size_t>(ty) * tiles + tx) * 256;
+      int sum = 0;
+      for (int i = 0; i < 256; ++i) {
+        sum += hist[i];
+        l[i] = sat_u8(static_cast<float>(sum) * lut_scale);
+      }
+    }
+  std::vector<int> ix1(w), ix2(w);
+  std::vector<float> xa(w), xa1(w);
+  const float inv_tw = 1.f / static_cast<float>(tw), inv_th = 1.f / static_cast<float>(th);
+  for (int x = 0; x < w; ++x) {
+    const float txf = static_cast<float>(x) * inv_tw - 0.5f;
+    const int t1 = static_cast<int>(std::floor(txf));
+    xa[x] = txf - static_cast<float>(t1);
+    xa1[x] = 1.f - xa[x];
+    ix1[x] = std::max(t1, 0) * 256;
+    ix2[x] = std::min(t1 + 1, tiles - 1) * 256;
+  }
+  for (int y = 0; y < h; ++y) {
+    const float tyf = static_cast<float>(y) * inv_th - 0.5f;
+    const int t1 = static_cast<int>(std::floor(tyf));
+    const float ya = tyf - static_cast<float>(t1), ya1 = 1.f - ya;
+    const uint8_t* p1 = lut.data() + static_cast<size_t>(std::max(t1, 0)) * tiles * 256;
+    const uint8_t* p2 = lut.data() + static_cast<size_t>(std::min(t1 + 1, tiles - 1)) * tiles * 256;
+    const uint8_t* row = src + static_cast<size_t>(y) * w;
+    uint8_t* out = dst + static_cast<size_t>(y) * w;
+    for (int x = 0; x < w; ++x) {
+      const int v = row[x];
+      const float top = static_cast<float>(p1[ix1[x] + v]) * xa1[x] + static_cast<float>(p1[ix2[x] + v]) * xa[x];
+      const float bot = static_cast<float>(p2[ix1[x] + v]) * xa1[x] + static_cast<float>(p2[ix2[x] + v]) * xa[x];
+      out[x] = sat_u8(top * ya1 + bot * ya);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- filters
 // Median over a k x k window (k odd), edges replicated (cv2.medianBlur).
 void io_median(const uint8_t* src, int h, int w, int cn, int k, uint8_t* dst) {
@@ -772,6 +1210,70 @@ void io_rectangle(uint8_t* img, int h, int w, int cn, int x1, int y1, int x2, in
     for (int yy = ya; yy <= yb; ++yy) span(img, h, w, cn, yy, x - r, x + r, color);
   const int corners[4][2] = {{x1, y1}, {x2, y1}, {x2, y2}, {x1, y2}};
   for (const auto& c : corners) io_fill_circle(img, h, w, cn, c[0], c[1], r, color);
+}
+
+// Anti-aliased polyline of n integer vertices (x, y interleaved), closed
+// when `closed`, as cv2's LINE_AA draws it: with thickness t > 1 every
+// pixel within t / 2 of a segment is solid (the filled band with its
+// round caps); the pixels outside it, and all of a one-pixel line, blend
+// the colour in by an 8-bit alpha of their distance e beyond the band,
+// 256 * 0.91 * exp(-e^2 / 0.7): 232 on a thin line, 55 a pixel off, the
+// profile of cv2's LineAA across a line, to 1.75 pixels.  The segments form one shape,
+// so a pixel near two of them blends once.
+void io_polyline_aa(uint8_t* img, int h, int w, int cn, const int* pts, int n, int closed,
+                    int thickness, const uint8_t* color) {
+  static const std::vector<int> ramp = [] {
+    std::vector<int> t(28);  // to 1.75 pixels beyond the band; cv2 draws nothing at 2
+    for (int i = 0; i < 28; ++i) {
+      const double e = i / 16.0;
+      t[i] = static_cast<int>(std::lround(256 * 0.91 * std::exp(-e * e / 0.7)));
+    }
+    return t;
+  }();
+  if (n <= 0) return;
+  const double r = thickness > 1 ? thickness / 2.0 : 0.0;
+  const int pad = static_cast<int>(std::ceil(r)) + 4;
+  const int nseg = n == 1 ? 1 : (closed ? n : n - 1);
+  std::vector<int> box(4 * nseg);  // x0, y0, x1, y1 of each segment's reach
+  for (int s = 0; s < nseg; ++s) {
+    const int a = s, b = (s + 1) % n;
+    box[4 * s] = std::max(std::min(pts[2 * a], pts[2 * b]) - pad, 0);
+    box[4 * s + 1] = std::max(std::min(pts[2 * a + 1], pts[2 * b + 1]) - pad, 0);
+    box[4 * s + 2] = std::min(std::max(pts[2 * a], pts[2 * b]) + pad, w - 1);
+    box[4 * s + 3] = std::min(std::max(pts[2 * a + 1], pts[2 * b + 1]) + pad, h - 1);
+  }
+  auto dist = [&](double px, double py) {
+    double best = 1e300;
+    for (int s = 0; s < nseg; ++s) {
+      const int a = s, b = (s + 1) % n;
+      const double ax = pts[2 * a], ay = pts[2 * a + 1];
+      const double dx = pts[2 * b] - ax, dy = pts[2 * b + 1] - ay;
+      const double len2 = dx * dx + dy * dy;
+      double t = len2 > 0 ? ((px - ax) * dx + (py - ay) * dy) / len2 : 0.0;
+      t = std::min(std::max(t, 0.0), 1.0);
+      const double ex = px - ax - t * dx, ey = py - ay - t * dy;
+      best = std::min(best, ex * ex + ey * ey);
+    }
+    return std::sqrt(best);
+  };
+  for (int s = 0; s < nseg; ++s)
+    for (int y = box[4 * s + 1]; y <= box[4 * s + 3]; ++y)
+      for (int x = box[4 * s]; x <= box[4 * s + 2]; ++x) {
+        bool seen = false;  // in an earlier segment's reach: drawn there
+        for (int j = 0; j < s && !seen; ++j)
+          seen = x >= box[4 * j] && x <= box[4 * j + 2] && y >= box[4 * j + 1] && y <= box[4 * j + 3];
+        if (seen) continue;
+        const double d = dist(x, y);
+        uint8_t* p = img + (static_cast<size_t>(y) * w + x) * cn;
+        if (thickness > 1 && d <= r) {
+          std::memcpy(p, color, cn);
+          continue;
+        }
+        const int i = static_cast<int>(std::lround((d - r) * 16));
+        if (i >= static_cast<int>(ramp.size())) continue;
+        const int a = ramp[i];
+        for (int c = 0; c < cn; ++c) p[c] = static_cast<uint8_t>(p[c] + (((color[c] - p[c]) * a + 127) >> 8));
+      }
 }
 
 // Text with its baseline's left end at (x, y), as cv2.putText places it;

@@ -189,9 +189,11 @@ def to_gray(im):
 
 
 def clahe(im, clip_limit: float = 2.0, tile: int = 8):
-    raise NotImplementedError(
-        "clahe (hyp key 'clahe') is not ported yet: ROADMAP.md, Queue 1, "
-        "item 10's follow-up 'clahe'")
+    """Contrast-limited adaptive histogram equalisation of the LAB
+    lightness channel (BGR in and out), on a tile x tile grid."""
+    lab = cvops.bgr_to_lab(im)
+    lab[..., 0] = cvops.clahe(lab[..., 0], clip_limit, tile)
+    return cvops.lab_to_bgr(lab)
 
 
 def brightness_contrast(im, alpha: float = 1.0, beta: float = 0.0):

@@ -11,15 +11,16 @@ How close each op comes to cv2 (the tests hold these):
     average, within 1 level of cv2's INTER_AREA;
   * `warp_affine` / `warp_perspective`: bilinear on float coordinates,
     within 1 level of cv2 on a small share of pixels;
-  * `bgr_to_hsv`, `blur`, `median_blur`, `add_saturate`,
-    `copy_make_border`: bit-exact;
+  * `bgr_to_hsv`, `bgr_to_lab`, `lab_to_bgr`, `clahe`, `to_gray`, `blur`,
+    `median_blur`, `add_saturate`, `copy_make_border`: bit-exact;
   * `hsv_to_bgr` (and so `hsv_lut`): bit-exact with cv2's scalar route,
     within 1 level of its vector route;
-  * `to_gray`, `gaussian_blur`: within 1 level;
+  * `gaussian_blur`: within 1 level;
   * the raster (`fill_rect`, `fill_circle`, `fill_poly`, `fill_ellipse`,
     `line`): the same shapes as cv2's LINE_8 drawing, which may differ at
     the boundary pixels; `rectangle` (outline, any thickness): pixel-equal
-    to cv2's LINE_8 rectangle;
+    to cv2's LINE_8 rectangle; its LINE_AA form within the bound
+    tests/test_torch_image_formats.py states;
   * `put_text`: text of cv2's size and placement in a fixed bitmap font,
     not cv2's Hershey strokes (no test compares its pixels).
 """
@@ -35,6 +36,7 @@ from .imageio import _ptr, lib
 
 INTER_LINEAR = "linear"
 INTER_AREA = "area"
+LINE_8, LINE_AA = 8, 16  # cv2's line types
 
 
 def _contig(im: np.ndarray) -> np.ndarray:
@@ -144,6 +146,34 @@ def hsv_lut(im: np.ndarray, lut_h, lut_s, lut_v) -> None:
     lib().io_hsv_lut(_ptr(im), im.size // 3, *(_ptr(t) for t in luts))
 
 
+def bgr_to_lab(im) -> np.ndarray:
+    """cv2.COLOR_BGR2LAB on uint8 (L scaled to [0, 255], a and b offset by
+    128): cv2's integer tables, bit-exact."""
+    im = _contig(im)
+    out = np.empty_like(im)
+    lib().io_bgr2lab(_ptr(im), _ptr(out), im.size // 3)
+    return out
+
+
+def lab_to_bgr(im) -> np.ndarray:
+    """cv2.COLOR_LAB2BGR on uint8, bit-exact."""
+    im = _contig(im)
+    out = np.empty_like(im)
+    lib().io_lab2bgr(_ptr(im), _ptr(out), im.size // 3)
+    return out
+
+
+def clahe(im, clip_limit: float, tiles: int = 8) -> np.ndarray:
+    """cv2.createCLAHE(clip_limit, (tiles, tiles)).apply on one uint8
+    channel (H, W), bit-exact."""
+    im = _contig(im)
+    if im.ndim != 2:
+        raise ValueError(f"clahe takes one channel (H, W), got {im.shape}")
+    out = np.empty_like(im)
+    lib().io_clahe(_ptr(im), im.shape[0], im.shape[1], float(clip_limit), int(tiles), _ptr(out))
+    return out
+
+
 def bgr_to_rgb(im) -> np.ndarray:
     """Channels 0 and 2 swapped (BGR <-> RGB), a new contiguous array."""
     im = _contig(im)
@@ -153,9 +183,9 @@ def bgr_to_rgb(im) -> np.ndarray:
 
 
 def to_gray(im) -> np.ndarray:
-    """cv2.COLOR_BGR2GRAY on uint8: its 14-bit fixed-point weights."""
+    """cv2.COLOR_BGR2GRAY on uint8: its 15-bit fixed-point weights, bit-exact."""
     x = im.astype(np.int32)
-    return ((x[..., 0] * 1868 + x[..., 1] * 9617 + x[..., 2] * 4899 + (1 << 13)) >> 14).astype(np.uint8)
+    return ((x[..., 0] * 3735 + x[..., 1] * 19235 + x[..., 2] * 9798 + (1 << 14)) >> 15).astype(np.uint8)
 
 
 def add_saturate(im, delta) -> np.ndarray:
@@ -289,15 +319,24 @@ def line(im, p0, p1, color, thickness: int = 1) -> None:
         fill_circle(im, (int(x), int(y)), int(thickness // 2), col)
 
 
-def rectangle(im, p1, p2, color, thickness: int = 1) -> None:
-    """cv2.rectangle(im, p1, p2, color, thickness), 8-connected: the
-    outline of the corners' rectangle, pixel-equal to cv2's; a thickness
-    t > 1 draws each side as a band t // 2 + t % 2 pixels either side of
-    it, rounded at the corners as cv2's thick lines are; t < 0 fills."""
+def rectangle(im, p1, p2, color, thickness: int = 1, line_type: int = LINE_8) -> None:
+    """cv2.rectangle(im, p1, p2, color, thickness, line_type).  LINE_8:
+    the outline of the corners' rectangle, pixel-equal to cv2's; a
+    thickness t > 1 draws each side as a band t // 2 + t % 2 pixels either
+    side of it, rounded at the corners as cv2's thick lines are; t < 0
+    fills.  LINE_AA: the outline anti-aliased (`io_polyline_aa`), a band
+    of t / 2 either side with round corners and a soft edge; the tests
+    state how near cv2's it comes."""
     if thickness < 0:
         fill_rect(im, p1, p2, color)
         return
     h, w, c = _check_draw(im)
+    if line_type == LINE_AA:
+        (x1, y1), (x2, y2) = p1, p2
+        pts = np.array([x1, y1, x2, y1, x2, y2, x1, y2], np.int32)
+        lib().io_polyline_aa(_ptr(im), h, w, c, pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                             4, 1, int(thickness), _ptr(_color(im, color)))
+        return
     lib().io_rectangle(_ptr(im), h, w, c, int(p1[0]), int(p1[1]), int(p2[0]), int(p2[1]),
                        int(thickness), _ptr(_color(im, color)))
 

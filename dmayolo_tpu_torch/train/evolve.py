@@ -94,12 +94,21 @@ def log_generation(evolve_csv: Path, fitness: float, hyp: Dict):
 
 
 def evolve(train_fn: Callable[[Dict], float], base_hyp: Dict, generations: int = 300,
-           out_dir="runs/evolve", seed: int = 0, autoanchor: bool = True) -> Dict:
-    """Run the GA: train_fn(hyp) -> fitness.  Returns the best hyp found."""
+           out_dir="runs/evolve", seed: int = 0, autoanchor: bool = True, mesh=None) -> Dict:
+    """Run the GA: train_fn(hyp) -> fitness.  Returns the best hyp found.
+
+    In a group (`mesh` of more than one rank) rank 0 alone mutates (its
+    draws, the global `random`'s among them, are the one process's),
+    logs `evolve.csv` and writes `hyp_evolve.yaml`; each generation's hyp
+    reaches every rank by `mesh.broadcast_object` before `train_fn`, which
+    every rank runs on the same global step and whose fitness is one value
+    on every rank.  Every rank returns the same best hyp."""
+    main = mesh is None or mesh.is_main
     out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
     evolve_csv = out / "evolve.csv"
     rng = random.Random(seed)
+    if main:
+        out.mkdir(parents=True, exist_ok=True)
     base_hyp = dict(base_hyp)
     if autoanchor:
         base_hyp.setdefault("anchors", 3)  # ref train.py:750-751
@@ -107,14 +116,18 @@ def evolve(train_fn: Callable[[Dict], float], base_hyp: Dict, generations: int =
         base_hyp.pop("anchors", None)  # ref train.py:748-749
     best_f, best_h = -1.0, dict(base_hyp)
     for gen in range(generations):
-        hyp = mutate(dict(base_hyp), evolve_csv, rng)
+        hyp = mutate(dict(base_hyp), evolve_csv, rng) if main else None
+        if mesh is not None:
+            hyp = mesh.broadcast_object(hyp)
         f = train_fn(hyp)
-        log_generation(evolve_csv, f, hyp)
         if f > best_f:
             best_f, best_h = f, hyp
-        print(f"evolve gen {gen + 1}/{generations}: fitness {f:.5f} (best {best_f:.5f})")
-    import yaml
+        if main:
+            log_generation(evolve_csv, f, hyp)
+            print(f"evolve gen {gen + 1}/{generations}: fitness {f:.5f} (best {best_f:.5f})")
+    if main:
+        import yaml
 
-    with open(out / "hyp_evolve.yaml", "w") as fo:
-        yaml.safe_dump(best_h, fo)
+        with open(out / "hyp_evolve.yaml", "w") as fo:
+            yaml.safe_dump(best_h, fo)
     return best_h
