@@ -81,10 +81,10 @@ source, all at once), then:
    a control with the BN backward computed in bf16 must fail that check.
    Then the author's recipe (train.sh:5-9: 1536
    px, batch 4, Adam, hyp VisDrone, 128 target rows, bf16 over f32 master
-   weights, no remat) through the port's `Trainer` over one epoch of 24
+   weights, no remat) through the port's `Trainer` over one epoch of 16
    in-memory batches of filled rectangles: every loss finite, optimizer
    steps and EMA updates equal to the reference's cadence.  Train img/s
-   from CUDA events over the 22 batches after 2 warm-up, peak memory, ms
+   from CUDA events over the 14 batches after 2 warm-up, peak memory, ms
    per optimizer step at accumulate 1 and 16, one step profiled by group.
    Last, the EMA checkpoint the Trainer wrote (`last.npz`) is read back
    with `load_jax_checkpoint`: every tensor must be the EMA's rounded to
@@ -103,7 +103,7 @@ source, all at once), then:
    serving tails identical at conf 0.0, its raw head on the card within
    1e-3 of the CPU's, bs128 timed and profiled; evaluated as in 6 (one TTA
    batch of 8 for TDetect); and trained at the author's recipe through the
-   `Trainer` over 8 in-memory batches (img/s over the last 6, ms per
+   `Trainer` over 6 in-memory batches (img/s over the last 4, ms per
    optimizer step at accumulate 1, peak memory, one step profiled):
    C3CASPD2 at train.sh:10-13 (1024 px, batch 8, Adam, hyp scratch,
    autoanchor), CASPD_ODRTA at train.sh:15-19 (1536 px, batch 4, Adam, hyp
@@ -137,15 +137,17 @@ source, all at once), then:
    strictly between 0 and 1, the metrics identical across the three,
    K3's blocked entry once a batch on "matrix", K2's cluster kernel once
    a batch on "pallas", img/s of the whole run beside the device step
-   alone of 6.  The train loader at 1 thread over 2 batches with the
+   alone of 6.  The train loader at 1 thread over 1 batch with the
    VisDrone hyp and with `clahe: 1.0` added (CLAHE's cost an image).
-   8 val files written as BMP, LZW TIFF (by the port) and their JPEG
+   12 val files written as BMP, LZW TIFF (by the port), their JPEG
    under EXIF orientations 3, 6 and 8 (labels turned into the rotated
-   frame), beside the same decoded arrays as PNG: `run_validation` on
-   "matrix" over both (K3's blocked entry once; the same txt rows and
-   metrics), and `cli.detect` at 1536 px over the copies against
-   `serve_detections` of the same arrays (the same label lines; K3
-   counted; its images written under their own names and formats).
+   frame), lossless webp (two) and q80 webp (one, through cv2's libwebp)
+   and a DNG whose IFD0 is the RGB image, beside the same decoded arrays
+   as PNG: `run_validation` on "matrix" over both (K3's blocked entry
+   once; the same txt rows and metrics), and `cli.detect` at 1536 px over
+   the copies but the DNG (detect takes no `.dng` from a folder, as JAX's)
+   against `serve_detections` of the same arrays (the same label lines;
+   K3 counted; its images written under their own names and formats).
    Then the recipe's `Trainer` built from a data yaml (1536
    px, bs4, Adam, hyp VisDrone, one epoch of 64 batches over the train
    files read 4x at accumulate 4, validated on 32 val images), with device_aug off
@@ -176,7 +178,7 @@ source, all at once), then:
    "layernorm"/"gelu"/"window shuffle", "depthwise conv", "gnconv" and
    "horblock" of the port); and evaluated as in 6 with one TTA batch of 8.
    DMA-full and DMA-HorNet are trained at the flagship's recipe
-   (train.sh:5-9) through the `Trainer` over 8 in-memory batches, as the
+   (train.sh:5-9) through the `Trainer` over 6 in-memory batches, as the
    SPD models are, each checkpoint served on "matrix"; `TrainProbe` checks
    that every BiFPN `w` moved, that the frozen parameters (the Swin bias
    tables, HorBlock's LayerScale gammas) did not and every gamma stayed
@@ -234,26 +236,37 @@ source, all at once), then:
    of each).  The data phase (9) writes its sets as JPEG through the
    same route and times PNG beside it.
 13. The inference tools (`tools_phase`, after 12, on its files): on the
-   CLI phase's trained flagship (its EMA `last.npz`) over the 64 val
-   JPEGs, `cli.detect` at 1536 px bs16 (conf 0.25, max_det 1000,
+   CLI phase's trained flagship (its EMA `last.npz`) over 32 of the 64
+   val JPEGs, `cli.detect` at 1536 px bs16 (conf 0.25, max_det 1000,
    --save-txt --save-conf --save-crop): img/s of the run and after its
    first batch, K3's blocked entry counted once a batch and held against
    its plain version on the run's own first (16, 30,000) candidates at
    max_det 1000 (timed, with its bound), the labels equal to
    `serve_detections` of the same batches; the frame decoded by nvJPEG
-   and by libjpeg served to the same detections; `--augment` on 4
-   files; `cli.export --include torch_export npz torch` at bs8, detect on
-   the `.pt2` on 8 files (equal to its model's decode through `batched_nms`; the
+   and by libjpeg served to the same detections; `--augment` on 2
+   files; `cli.export --include torch_export npz torch` at bs2, detect on
+   the `.pt2` on 4 files (equal to its model's decode through `batched_nms`; the
    exported program equal to the model), the `.pt` loaded back to the
-   same weights and the fused `.npz` to the same head; `hub.load`,
-   `AutoShape` on 4 files, `Detections.crop`, `save`, `tolist`; the REST
-   server on 127.0.0.1 (`--batch-serve 16`, 640 px): 32 concurrent JPEG
+   same weights and the fused `.npz` to the same head; video
+   (`video_checks`): 12 val files letterboxed to 1920x1080 into an `mp4v`
+   clip (OpenCV's codec, as the JAX CLI's), `cli.detect --source
+   clip0.mp4` (each model input the letterbox of the decoded frame, each
+   frame's detections the same sets as `serve_detections` of it at batch
+   1, K3 once a frame and held against its plain version on frame 0's
+   (1, 30,000) candidates, `clip0_det.mp4` read back with 12 frames; FPS
+   and ms a frame by part after the first frame), then three such clips
+   as a `.streams` list, the reads paced against the steps so that both
+   runs serve exactly 8 steps of 3 frames, on the native model (K3 once
+   a step) and through the `.pt2`, whose batch 2 the CLI chunks and pads
+   to (aggregate FPS after the first step); `hub.load`, `AutoShape` on 2
+   files, `Detections.crop`, `save`, `tolist`; the REST
+   server on 127.0.0.1 (`--batch-serve 16`, 640 px): 16 concurrent JPEG
    uploads through `example_request.detect` against the batcher called
    directly (p50, p99, the batch histogram), a few per request against
    `AutoShape`, an undecodable upload a 400; `cli.gradcam` on 1 image at
    640 px for `model_17_cv3_act`, both methods, in f32 with TF32 off,
    the first CAM against the host CPU's (`CAM_TOL`); `cli.wbf` over the
-   detect run's labels and a second run's at 1280 px, on 4 files.
+   detect run's labels and a second run's at 1280 px, on 2 files.
 
 14. int8 PTQ (`int8_phase`, after 7): K4 (csrc/conv_int8.cu: routes (a)
    1x1, (b) 3x3 stride 1 and (c) 3x3 stride 2 on wgmma s8 with TMA loads
@@ -1413,7 +1426,7 @@ def evaluate(device, model, imgsz=640, batch=32, tta_batch=8, nc=10, counters=()
 # the author's recipe (train.sh:5-9): 1536 px, batch 4, Adam, hyp VisDrone
 RECIPE = dict(imgsz=1536, batch=4, adam=True, hyp="visdrone", max_targets=128,
               assignment="anchor", autoanchor=False)
-TRAIN_BATCHES = 24  # one epoch of the in-memory loader
+TRAIN_BATCHES = 16  # one epoch of the in-memory loader (the accumulate-16 step's batches)
 TRAIN_WARMUP_BATCHES = 2  # before the timed window
 TRAIN_ACCS = (1, 16)  # the ramp's start, and the recipe's accumulate after warmup
 # card (f32, TF32 off) against the host CPU, one step at batch 2, 640 px:
@@ -2049,7 +2062,7 @@ SPD_RECIPES = {
     "CASPD_ODRTA": dict(imgsz=1536, batch=4, adam=True, hyp="visdrone", max_targets=128,
                         assignment="tal", autoanchor=False),
 }
-SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 8, 2  # 6 timed loader batches
+SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 6, 2  # 4 timed loader batches
 SPD_TRAIN_CHECKS = {"C3CASPD2": (), "CASPD_ODRTA": ("f32",)}  # TAL's f32 step vs the CPU
 SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 8}  # TTA over TDetect's four levels
 
@@ -2559,9 +2572,9 @@ def sweep_model(device, name, counters, cfg=None, imgsz=640, batch=SWEEP_BATCH,
 # loader still works.
 DATA = dict(img_size=1536, n_train=64, n_val=64, val_copies=5, train_copies=4, val_imgsz=640,
             val_batch=32, train_batch=4, train_accumulate=4, train_val=32,
-            one_worker_batches={"val": 1, "train": 2}, train_timed=(8, 32),
+            one_worker_batches={"val": 1, "train": 1}, train_timed=(8, 32),
             train_profiled=(32, 40), train_device_aug=(False,),  # on: cli.train --device-aug
-            clahe_batches=2, mixed_detect_imgsz=1536)
+            clahe_batches=1, mixed_detect_imgsz=1536)
 DATA_DIR = ROOT / "build" / "data_smoke"
 DEVICE_AUG_TOL = 1e-5  # device_aug on the card against its CPU version, same gains and flips
 TARGET_TOL_PX = 1e-3  # the loader's targets mapped back to native pixels, against the labels
@@ -2917,11 +2930,54 @@ def device_aug_check(device, images):
             "tol": DEVICE_AUG_TOL}
 
 
+def video_probe(libs):
+    """OpenCV as the port reaches it (`imageio._cv2()`, the one place it is
+    imported): its version, the "Video I/O" lines of its build
+    information, whether an `mp4v` write -> read round trip and a webp
+    encode -> decode round trip work (each reported, not raised: the
+    video and format checks fail on their own), and whether `ldconfig`
+    lists NVDEC's `libnvcuvid` (a fact for a later decode route)."""
+    import numpy as np
+
+    from dmayolo_tpu_torch.data import imageio, video
+
+    cv2 = imageio._cv2()
+    info = cv2.getBuildInformation().splitlines()
+    at = next(i for i, ln in enumerate(info) if ln.strip() == "Video I/O:")
+    indent = len(info[at]) - len(info[at].lstrip())
+    vio = [info[at].strip()]
+    for ln in info[at + 1:]:
+        if not ln.strip() or len(ln) - len(ln.lstrip()) <= indent:
+            break
+        vio.append(" ".join(ln.split()))
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (8, 120, 160, 3), dtype=np.uint8)
+    path = ROOT / "build" / "video_probe.mp4"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        w = video.Writer(path, 10, (160, 120))
+        for f in frames:
+            w.write(f)
+        w.release()
+        mp4v = {"frames_written": len(frames), "frames_read": video.count_frames(path)}
+    except OSError as err:  # reported here; the tools' video part fails on it
+        mp4v = {"error": str(err)}
+    finally:
+        path.unlink(missing_ok=True)
+    img = frames[0]
+    webp = imageio.imdecode(imageio._webp_encode(img, "probe"))
+    return {"cv2": cv2.__version__, "video_io": vio,
+            "mp4v_round_trip": mp4v.get("frames_read") == len(frames), "mp4v": mp4v,
+            "webp_lossless_round_trip": bool(np.array_equal(webp, img)),
+            "libnvcuvid": sorted({ln.split()[0] for ln in libs.splitlines() if "nvcuvid" in ln})}
+
+
 def machine_probe():
     """What the host offers the data path: which image modules are
-    installed (found, not imported: the port uses none of them), the CPU
-    count, the JPEG and PNG headers and libraries, nvJPEG, g++, and
-    whether the port's host library was built with JPEG."""
+    installed (found, not imported, but cv2 through `video_probe`), the CPU
+    count, the JPEG and PNG headers and libraries, nvJPEG, g++, whether
+    the port's host library was built with JPEG, and OpenCV's video and
+    webp codecs."""
     import importlib.util
     import os
     import shutil
@@ -2949,6 +3005,7 @@ def machine_probe():
         "nvjpeg_libs": sorted(p.name for p in (cuda / "lib64").glob("libnvjpeg*")),
         "gxx": gxx.stdout.splitlines()[0],
         "jpeg": jpeg_available() and jpeg_codec(),
+        "video": video_probe(libs),
     }
 
 
@@ -2978,9 +3035,31 @@ def clahe_cost(train_dir, sizes, stride, nc):
 
 
 # the data phase's val copies in other formats: BMP and TIFF as the port
-# writes them, and the JPEG itself under an EXIF orientation (its labels
-# turned into the frame that orientation gives)
-MIXED_KINDS = ("bmp", "bmp", "tif", "tif", "tif", "o3", "o6", "o8")
+# writes them, the JPEG itself under an EXIF orientation (its labels
+# turned into the frame that orientation gives), lossless webp (cv2's
+# default) and a lossy one at q80 (through cv2's libwebp), and a DNG
+# whose IFD0 is the RGB image (an LZW TIFF with DNGVersion; `cli.detect`
+# takes no `.dng` from a folder, as JAX's)
+MIXED_KINDS = ("bmp", "bmp", "tif", "tif", "tif", "o3", "o6", "o8", "webp", "webp", "dng",
+               "webpq80")
+MIXED_WEBP_QUALITY = 80
+
+
+def with_dng_version(tiff: bytes) -> bytes:
+    """A little-endian TIFF with DNGVersion (50706) added to its IFD0 (the
+    IFD rewritten at the end, its entries kept in tag order)."""
+    import struct
+
+    buf = bytearray(tiff)
+    ifd = struct.unpack("<I", buf[4:8])[0]
+    n = struct.unpack("<H", buf[ifd:ifd + 2])[0]
+    entries = [bytes(buf[ifd + 2 + 12 * k:ifd + 14 + 12 * k]) for k in range(n)]
+    entries.append(struct.pack("<HHI", 50706, 1, 4) + bytes([1, 4, 0, 0]))
+    entries.sort(key=lambda e: struct.unpack("<H", e[:2])[0])
+    new_ifd = len(buf) + (len(buf) & 1)
+    buf += b"\0" * (len(buf) & 1) + struct.pack("<H", n + 1) + b"".join(entries) + b"\0" * 4
+    buf[4:8] = struct.pack("<I", new_ifd)
+    return bytes(buf)
 
 
 def exif_app1(jpeg: bytes, orientation: int) -> bytes:
@@ -3016,7 +3095,8 @@ def mixed_formats(device, counters, model, weights, cfg, files, sizes, nc, worke
     and metrics), then `cli.detect` of `weights` (`model`'s checkpoint)
     over the copies at the recipe's size against `serve_detections` of the
     same decoded arrays (the same label lines; K3 counted), its images
-    written under their own names and formats."""
+    written under their own names and formats (the DNG not among them:
+    detect takes no `.dng` from a folder, as JAX's)."""
     import shutil
 
     import numpy as np
@@ -3041,14 +3121,27 @@ def mixed_formats(device, counters, model, weights, cfg, files, sizes, nc, worke
         lb = DATA_DIR / "labels" / "val" / f"{f.stem}.txt"
         rows = np.array([ln.split() for ln in lb.read_text().splitlines() if ln.strip()],
                         np.float64).reshape(-1, 5)
-        if kind in ("bmp", "tif"):
+        if kind in ("bmp", "tif", "webp"):
             dst = root / "mixed" / "images" / "val" / f"{f.stem}.{kind}"
             imageio.imwrite(dst, imageio.imread(f))
+        elif kind == "webpq80":
+            dst = root / "mixed" / "images" / "val" / f"{f.stem}.webp"
+            cv2 = imageio._cv2()
+            ok, buf = cv2.imencode(".webp", imageio.imread(f),
+                                   [cv2.IMWRITE_WEBP_QUALITY, MIXED_WEBP_QUALITY])
+            check(ok, f"cv2 could not encode {dst.name} at q{MIXED_WEBP_QUALITY}")
+            dst.write_bytes(buf.tobytes())
+        elif kind == "dng":
+            dst = root / "mixed" / "images" / "val" / f"{f.stem}.dng"
+            dst.write_bytes(with_dng_version(imageio._tiff_encode(imageio.imread(f))))
         else:
             dst = root / "mixed" / "images" / "val" / f"{f.stem}.jpg"
             dst.write_bytes(exif_app1(f.read_bytes(), int(kind[1])))
             rows = turned_labels(rows, int(kind[1]))
         arrays[f.stem] = imageio.imread(dst)
+        if kind in ("bmp", "tif", "webp", "dng"):  # lossless: the JPEG's own pixels
+            check(np.array_equal(arrays[f.stem], imageio.imread(f)),
+                  f"{dst.name} does not read back to the pixels written")
         imageio.imwrite(root / "png" / "images" / "val" / f"{f.stem}.png", arrays[f.stem])
         for tree in ("mixed", "png"):
             np.savetxt(root / tree / "labels" / "val" / f"{f.stem}.txt", rows,
@@ -3100,7 +3193,9 @@ def mixed_formats(device, counters, model, weights, cfg, files, sizes, nc, worke
     out["detect_launches"] = {c.__name__: c.launches for c in counters}
     labels = label_lines(run / "labels")
     served = cli_common.load_model_from_checkpoint(weights, str(cfg_arg), device=device).fuse()
-    names = sorted(arrays)
+    sources = sorted(p for p in (root / "mixed" / "images" / "val").iterdir()
+                     if p.suffix.lower() in cli_detect.IMG_EXTS)
+    names = [p.stem for p in sources]
     x = np.stack([letterbox_host(arrays[k], imgsz, auto=False, stride=int(served.stride.max()))[0]
                   [:, :, ::-1] for k in names])
     with torch.inference_mode():
@@ -3118,7 +3213,8 @@ def mixed_formats(device, counters, model, weights, cfg, files, sizes, nc, worke
     out["detect_written"] = written
     check(not mismatched and out["detections"] > 0,
           f"cli.detect on the mixed formats differs from serving the same arrays: {mismatched}")
-    check(written == sorted(p.name for p in (root / "mixed" / "images" / "val").iterdir())
+    check(len(sources) == len(files) - MIXED_KINDS[:len(files)].count("dng")
+          and written == [p.name for p in sources]
           and all(imageio.imread(run / n).shape == arrays[Path(n).stem].shape for n in written),
           f"cli.detect wrote {written}")
     if on_card:
@@ -3259,18 +3355,19 @@ def data_phase(device, counters, model, cfg=None, sizes=DATA, nc=10, workers=Non
 
         # ---- 4b. CLAHE's cost in the train loader, at 1 thread
         out["clahe"] = clahe_cost(train_dir, sizes, stride, nc)
-        # ---- 4c. 8 val files as BMP, TIFF and EXIF-rotated JPEG: run_validation
-        # and cli.detect against the same decoded arrays
+        # ---- 4c. 12 val files as BMP, TIFF, EXIF-rotated JPEG, webp and DNG:
+        # run_validation and cli.detect against the same decoded arrays
         # (files whose own labels are not empty: a model's boxes that fall in
         # the letterbox's padding are dropped, and some files keep none)
         labelled = [f for f in sorted((DATA_DIR / "images" / "val").iterdir())
                     if (DATA_DIR / "labels" / "val" / f"{f.stem}.txt").read_text().strip()]
-        check(len(labelled) >= 8, f"only {len(labelled)} val files have labels")
+        check(len(labelled) >= len(MIXED_KINDS), f"only {len(labelled)} val files have labels")
         start = DATA_DIR / "start.npz"  # the eval weights, also the Trainer's below
         save_checkpoint(start, meta={"nc": nc}, **dict(zip(("params", "stats"),
                                                           jax_from_state_dict(model))))
         out["mixed"] = mixed_formats(device, counters, model, start,
-                                     cfg or model_config(FLAGSHIP), labelled[:8], sizes, nc,
+                                     cfg or model_config(FLAGSHIP), labelled[:len(MIXED_KINDS)], sizes,
+                                     nc,
                                      workers)
         print("data clahe: " + json.dumps(out["clahe"]) + " mixed formats: "
               + json.dumps(out["mixed"]), flush=True)
@@ -4165,11 +4262,17 @@ def jpeg_phase():
 # ---------------------------------------------------------------------------
 # The inference tools: detect, export, hub, REST, Grad-CAM, WBF
 # ---------------------------------------------------------------------------
-TOOLS = dict(imgsz=1536, batch=16, live=4000, crop_files=4, augment_files=4, export_batch=8,
-             pt2_files=8, hub_files=4, rest_imgsz=640, rest_batch=16, rest_requests=32,
-             rest_single=4, gradcam_files=1, gradcam_imgsz=640, gradcam_max_dets=4,
-             gradcam_layer="model_17_cv3_act", frame_top=100, wbf_imgsz=1280, wbf_files=4)
+TOOLS = dict(imgsz=1536, batch=16, detect_files=32, live=4000, crop_files=2, augment_files=2,
+             export_batch=2, pt2_files=4, video_frames=12, video_size=(1920, 1080),
+             stream_sources=3, stream_steps=8, hub_files=2, rest_imgsz=640, rest_batch=16,
+             rest_requests=16, rest_single=2, gradcam_files=1,
+             gradcam_imgsz=640, gradcam_max_dets=4, gradcam_layer="model_17_cv3_act",
+             frame_top=100, wbf_imgsz=1280, wbf_files=2)
 TOOLS_DIR = DATA_DIR / "tools"
+VIDEO_FPS = 30
+# the streams' paced reads: a reader at most STREAM_AHEAD frames ahead of
+# the steps served; a read held past the timeout fails the check
+STREAM_AHEAD, STREAM_PACE_TIMEOUT = 1, 120.0
 # the CAM on the card (f32, TF32 off) against the host CPU's of the same
 # weights, image and detection: the normalised map's max |difference|
 CAM_TOL = {"gradcam": 1e-3, "gradcampp": 1e-2}
@@ -4233,6 +4336,267 @@ def same_sets(a, b, box_tol, score_tol, conf, by_class=True):
     return max(unmatched(a, b), unmatched(b, a))
 
 
+def write_clip(path, sources, size, fps=VIDEO_FPS):
+    """An `mp4v` clip of `sources` (image files), each letterboxed to
+    `size` (width, height) on the host library, through the port's writer."""
+    from dmayolo_tpu_torch.data import imageio, video
+    from dmayolo_tpu_torch.data.letterbox import letterbox_host
+
+    w = video.Writer(path, fps, size)
+    try:
+        for f in sources:
+            w.write(letterbox_host(imageio.imread(f), (size[1], size[0]), auto=False)[0])
+    finally:
+        w.release()
+    return path
+
+
+def video_checks(device, counters, files, weights, model, pt2, gate, sizes, prec, dev):
+    """`cli.detect` on a 1080p `mp4v` clip of `sizes["video_frames"]` val
+    files (the tools' conf gate, their size): its model inputs the
+    letterbox of the decoded frames, each frame's detections the same
+    sets as `serve_detections` of that frame at batch 1 on `model`
+    (`weights` folded), K3 once a frame and held against its plain
+    version on frame 0's own candidates, `{stem}_det.mp4` read back with
+    the input's frame count; FPS and ms a frame by part (decode,
+    letterbox, infer synchronised, draw, encode: the CLI's own calls,
+    clocked) over the frames after the first.  Then `stream_sources` such
+    clips as a `.streams` list whose reads are paced against the served
+    steps (a reader at most STREAM_AHEAD frames ahead), so that every run
+    serves exactly `sizes["stream_steps"]` steps of every source: on the
+    native model (K3 once a step) and through `pt2`, whose static batch
+    `sizes["export_batch"]` is under the sources, so that the CLI chunks
+    and pads;
+    aggregate FPS over the steps after the first."""
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.cli import backends as cli_backends
+    from dmayolo_tpu_torch.cli import detect as cli_detect
+    from dmayolo_tpu_torch.core import nms as nms_mod
+    from dmayolo_tpu_torch.core.fixpoint_kernel import (fixpoint_keep_blocked,
+                                                        fixpoint_keep_blocked_plain)
+    from dmayolo_tpu_torch.data import letterbox as lb_mod
+    from dmayolo_tpu_torch.data import video
+
+    on_card = device.type == "cuda"
+    dtype = torch.bfloat16 if on_card else torch.float32
+    n, size, imgsz = sizes["video_frames"], tuple(sizes["video_size"]), sizes["imgsz"]
+    n_src, n_steps, export_batch = (sizes["stream_sources"], sizes["stream_steps"],
+                                    sizes["export_batch"])
+    # a clip must outlast the paced steps: no source ends before the last
+    check(n > n_steps + STREAM_AHEAD and export_batch < n_src,
+          f"video sizes: {n} frames for {n_steps} steps, a batch-{export_batch} program for "
+          f"{n_src} sources")
+    root = TOOLS_DIR / "video"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    clips = [write_clip(root / f"clip{i}.mp4", files[i * n:(i + 1) * n], size)
+             for i in range(n_src)]
+    out = {"frames": n, "size": list(size), "imgsz": imgsz, "write_s": time.perf_counter() - t0}
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def counted():
+        return {c.__name__: c.launches for c in counters}
+
+    def argv(source, name, w=weights):
+        return ["--weights", str(w), "--source", str(source), "--imgsz", str(imgsz),
+                "--conf-thres", repr(gate), "--project", str(root / "detect"), "--name", name,
+                "--exist-ok", *prec, *dev]
+
+    # ---- the clip through cli.detect, its calls clocked, its model inputs
+    # and outputs kept, and frame 0's candidates to K3 recorded
+    parts = {k: [] for k in ("decode", "letterbox", "infer", "draw", "encode")}
+    inputs, outputs, loop, recorded = [], [], [], {}
+
+    def clocked(name, fn, sync=False):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                r = fn(*a, **k)
+                if sync and on_card:
+                    torch.cuda.synchronize()
+                return r
+            finally:
+                parts[name].append((t, time.perf_counter()))
+        return run
+
+    real = (cli_detect._run_video, video.Capture.read, lb_mod.letterbox_host, cli_detect.draw,
+            video.Writer.write, nms_mod.fixpoint_keep_blocked)
+
+    def run_video(opt, infer, *a, **k):
+        timed = clocked("infer", infer, sync=True)
+
+        def kept(x):
+            dets, valid = timed(x)
+            inputs.append(x.copy())
+            outputs.append((dets.float().cpu().numpy(), valid.cpu().numpy()))
+            return dets, valid
+        t = time.perf_counter()
+        try:
+            return real[0](opt, kept, *a, **k)
+        finally:
+            loop.append(time.perf_counter() - t)
+
+    def recording(boxes, valid, thr, max_det, block=512):
+        recorded.setdefault("args", (boxes.clone(), valid.clone(), thr, max_det, block))
+        return real[5](boxes, valid, thr, max_det, block)
+
+    cli_detect._run_video, video.Capture.read = run_video, clocked("decode", real[1])
+    lb_mod.letterbox_host, cli_detect.draw = clocked("letterbox", real[2]), clocked("draw", real[3])
+    video.Writer.write, nms_mod.fixpoint_keep_blocked = clocked("encode", real[4]), recording
+    zero()
+    try:
+        t0 = time.perf_counter()
+        run = cli_detect.main(argv(clips[0], "clip"))
+        wall = time.perf_counter() - t0
+    finally:
+        (cli_detect._run_video, video.Capture.read, lb_mod.letterbox_host, cli_detect.draw,
+         video.Writer.write, nms_mod.fixpoint_keep_blocked) = real
+    launches = counted()
+    written = video.count_frames(run / "clip0_det.mp4")
+    check(len(inputs) == n and written == n and len(parts["decode"]) == n + 1,
+          f"cli.detect on the clip: {len(inputs)} frames served, {written} written, of {n}")
+    # the frames after the first (its call builds and tunes): read i starts
+    # frame i, read n (the end of the clip) ends frame n - 1
+    reads = [t for t, _ in parts["decode"]]
+    steady = reads[n] - reads[1]
+    ms = {k: 1e3 * sum(b - a for a, b in v[1:n]) / (n - 1) for k, v in parts.items()}
+    ms["other"] = 1e3 * steady / (n - 1) - sum(ms.values())
+    out["detect"] = {"main_s": wall, "s": loop[0], "fps": (n - 1) / steady,
+                     "fps_with_first": n / loop[0],
+                     "first_frame_ms": 1e3 * (reads[1] - reads[0]), "ms_a_frame": ms,
+                     "frames": len(inputs), "frames_written": written, "launches": launches}
+    if on_card:
+        check(launches["fixpoint_keep_blocked"] + launches["fixpoint_keep"] == n,
+              f"cli.detect on the clip: K3 once a frame? {launches}")
+    # K3 blocked on frame 0's own candidates, at the CLI's max_det
+    check("args" in recorded, "cli.detect on the clip did not reach K3's blocked entry")
+    boxes, valid, thr, max_det, block = recorded["args"]
+    check(max_det == 1000 and boxes.shape[0] == 1 and boxes.shape[1] > 512,
+          f"the clip's NMS took max_det {max_det}, candidates {tuple(boxes.shape)}")
+    got = fixpoint_keep_blocked(boxes, valid, thr, max_det, block)
+    want = fixpoint_keep_blocked_plain(boxes, valid, thr, max_det, block)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "K3 blocked differs from its plain version on the clip's frame 0 (max_det 1000)")
+    out["k3_blocked"] = {"max_abs_err": max(float((a.long() - b.long()).abs().max())
+                                            for a, b in zip(got, want)),
+                         "live_candidates": int(valid.sum()),
+                         **blocked_timing(device, "video frame 0", boxes, valid, thr, max_det,
+                                          block)}
+    # the same decoded frames served at batch 1
+    cap = video.Capture(clips[0])
+    unmatched, exact, dets_n, i = [], 0, 0, 0
+    try:
+        with torch.inference_mode():
+            while (f := cap.read()) is not None:
+                x = np.ascontiguousarray(lb_mod.letterbox_host(f, imgsz, auto=False)[0]
+                                         [None, :, :, ::-1])
+                check(i < n and np.array_equal(x, inputs[i]),
+                      f"cli.detect's model input {i} is not the letterbox of decoded frame {i}")
+                xt = torch.as_tensor(x, device=device)
+                d, v = model.serve_detections(model.apply(xt.to(dtype) / 255.0, dtype=dtype,
+                                                          fused=True), conf_thres=gate,
+                                              iou_thres=0.45, max_det=1000, max_nms=30000)
+                want = det_lines(d.float().cpu().numpy()[0][v.cpu().numpy()[0]], x.shape[1:3],
+                                 f.shape[:2])
+                got = det_lines(outputs[i][0][0][outputs[i][1][0]], x.shape[1:3], f.shape[:2])
+                exact += got == want
+                dets_n += len(got)
+                unmatched.append(same_sets(rows_of(got), rows_of(want), 1e-5, 1e-5,
+                                           SAME_SET_BAND * gate))
+                i += 1
+    finally:
+        cap.release()
+    out["detect"].update(vs_serve_unmatched=max(unmatched), vs_serve_exact_frames=exact,
+                         detections=dets_n)
+    check(i == n and max(unmatched) == 0 and dets_n > 0,
+          f"cli.detect on the clip differs from serve_detections: {out['detect']}")
+    del inputs, outputs
+
+    # ---- the clips as streams, natively and through the .pt2, each
+    # capture's reads paced against the served steps until the last
+    streams = root / "clips.streams"
+    streams.write_text("".join(f"{c}\n" for c in clips))
+    real_parser, real_streams, real_load = (cli_detect.build_parser, cli_detect._run_streams,
+                                            cli_backends.load_backend)
+    pace, served, late = threading.Condition(), [0], []
+
+    def paced_read(cap):
+        k = getattr(cap, "paced_reads", 0)
+        with pace:
+            if not pace.wait_for(lambda: served[0] >= n_steps or k <= served[0] + STREAM_AHEAD,
+                                 timeout=STREAM_PACE_TIMEOUT):
+                late.append((cap.source, k))
+        cap.paced_reads = k + 1
+        return real[1](cap)
+
+    def parser():
+        p = real_parser()
+        p.set_defaults(max_stream_steps=n_steps)
+        return p
+
+    out["streams"] = {"sources": n_src, "export_batch": export_batch}
+    for label, w in (("native", weights), ("pt2", pt2)):
+        steps, starts, program, loop = [], [], [], []
+        served[0] = 0
+
+        def run_streams(opt, infer, *a, **k):
+            def step(x):
+                steps.append(x.shape[0])
+                starts.append(time.perf_counter())
+                try:
+                    return infer(x)
+                finally:
+                    with pace:
+                        served[0] += 1
+                        pace.notify_all()
+            t = time.perf_counter()
+            try:
+                return real_streams(opt, step, *a, **k)
+            finally:
+                loop.append(time.perf_counter() - t)
+
+        def load(*a, **k):
+            fn, meta = real_load(*a, **k)
+
+            def called(x):
+                program.append(x.shape[0])
+                return fn(x)
+            return called, meta
+
+        cli_detect.build_parser, cli_detect._run_streams = parser, run_streams
+        cli_backends.load_backend, video.Capture.read = load, paced_read
+        zero()
+        try:
+            t0 = time.perf_counter()
+            cli_detect.main(argv(streams, f"streams_{label}", w))
+            wall = time.perf_counter() - t0
+        finally:
+            cli_detect.build_parser, cli_detect._run_streams = real_parser, real_streams
+            cli_backends.load_backend, video.Capture.read = real_load, real[1]
+        # step 1 builds and tunes the batch's shapes: the aggregate FPS is
+        # over the cycles from step 2's call to the last step's
+        r = out["streams"][label] = {
+            "main_s": wall, "s": loop[0], "steps": len(steps), "batches": steps,
+            "fps_aggregate": sum(steps[1:-1]) / (starts[-1] - starts[1]),
+            "first_step_ms": 1e3 * (starts[1] - starts[0]),
+            "program_batches": program, "late_reads": late[:], "launches": counted()}
+        check(steps == [n_src] * n_steps and not late,
+              f"streams {label}: steps of {steps}, reads past the pace {late}")
+        if label == "pt2":
+            check(program == [export_batch] * (-(-n_src // export_batch) * n_steps),
+                  f"streams on the .pt2: program calls at {program}")
+        elif on_card:
+            k3 = r["launches"]
+            check(k3["fixpoint_keep_blocked"] + k3["fixpoint_keep"] == n_steps,
+                  f"streams: K3 once a step? {k3}")
+    return out
+
+
 def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes=TOOLS,
                 nc=10):
     """The inference tools on the CLI phase's trained flagship (its EMA
@@ -4241,8 +4605,8 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
     of the same batches; `fixpoint_keep_blocked` held against its plain
     version on the run's own candidates at max_det 1000), `--augment`,
     `cli.export` and detect on the `.pt2`, the `.pt` and fused `.npz`
-    exports read back, the frame decoded by nvJPEG and by libjpeg served
-    to the same detections, `hub.load` and `Detections`, the REST server
+    exports read back, a 1080p clip and three streams (`video_checks`), the
+    frame decoded by nvJPEG and by libjpeg served to the same detections, `hub.load` and `Detections`, the REST server
     (batched and per request), `cli.gradcam` (held against the host CPU),
     and `cli.wbf` over two detect runs."""
     import shutil
@@ -4284,7 +4648,8 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
     dtype = torch.bfloat16 if on_card else torch.float32
     prec = [] if on_card else ["--fp32"]
     imgsz, bs = sizes["imgsz"], sizes["batch"]
-    out, t_phase = {"files": len(files), "imgsz": imgsz}, time.perf_counter()
+    out = {"files": len(files), "imgsz": imgsz, "crop_files": sizes["crop_files"]}
+    t_phase = time.perf_counter()
 
     def subset(name, n):
         d = TOOLS_DIR / "src" / name
@@ -4345,24 +4710,27 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
         reads.append(time.perf_counter())
         return real_imread(path)
 
+    main_files = files[:sizes["detect_files"]]
+    main_src = subset("main", sizes["detect_files"])
     nms_mod.fixpoint_keep_blocked, imageio.imread = recording, clocked_imread
     zero()
     try:
         t0 = time.perf_counter()
         run = detect("main", "--imgsz", str(imgsz), "--batch-size", str(bs), "--save-txt",
-                     "--save-conf", *conf)
+                     "--save-conf", *conf, source=main_src)
         t1 = time.perf_counter()
     finally:
         nms_mod.fixpoint_keep_blocked, imageio.imread = real_blocked, real_imread
-    n_batches = -(-len(files) // bs)
+    n_batches = -(-len(main_files) // bs)
     labels = label_lines(run / "labels")
     n_dets = sum(len(v) for v in labels.values())
-    out["detect"] = {"s": t1 - t0, "img_per_s": len(files) / (t1 - t0),
-                     "img_per_s_after_first_batch": (len(files) - bs) / (t1 - reads[bs])
+    out["detect"] = {"s": t1 - t0, "files": len(main_files),
+                     "img_per_s": len(main_files) / (t1 - t0),
+                     "img_per_s_after_first_batch": (len(main_files) - bs) / (t1 - reads[bs])
                      if len(reads) > bs else None,
                      "batch": bs, "batches": n_batches, "detections": n_dets,
                      "images_written": len(list(run.glob("*.jpg"))), "launches": counted()}
-    check(len(labels) == len(files) and n_dets > 0, f"detect wrote {len(labels)} label files "
+    check(len(labels) == len(main_files) and n_dets > 0, f"detect wrote {len(labels)} label files "
                                                     f"with {n_dets} detections")
     if on_card:
         check(out["detect"]["launches"]["fixpoint_keep_blocked"] == n_batches,
@@ -4376,8 +4744,8 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
     # the same batches through serve_detections: the same sets
     mismatched = []
     with torch.inference_mode():
-        for start in range(0, len(files), bs):
-            chunk = files[start:start + bs]
+        for start in range(0, len(main_files), bs):
+            chunk = main_files[start:start + bs]
             ims0, x = letterboxed(chunk, imgsz)
             dets, valid = serve(model, x, gate)
             for i, (f, im0) in enumerate(zip(chunk, ims0)):
@@ -4449,7 +4817,7 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
                                  source=src32, weights=pt2) / "labels")
     out["export"]["pt2_detect_s"] = time.perf_counter() - t0
     out["export"]["pt2_launches"] = counted()
-    native = label_lines(detect("native_bs8", "--imgsz", str(imgsz), "--batch-size", eb,
+    native = label_lines(detect("native_pt2_batch", "--imgsz", str(imgsz), "--batch-size", eb,
                                 "--save-txt", "--save-conf", "--nosave", *conf,
                                 source=src32) / "labels")
     check(via_pt2.keys() == native.keys(), "the .pt2 run labelled other files")
@@ -4501,7 +4869,16 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
                                                       npz_model.apply(x, fused=True)))
     check(same, "the fused .npz export serves another head than the folded .npz")
     out["export"]["pt_and_fused_npz_read_back"] = True
-    del npz_model, pt_model, fz_model
+    del pt_model, fz_model
+
+    # ---- 4b. video: a 1080p mp4v clip of val frames through cli.detect,
+    # frame by frame against serve_detections (on the folded .npz model);
+    # three clips as streams, on the native model and through the .pt2
+    # (batch 2, under the 3 sources: chunked and padded)
+    out["video"] = video_checks(device, counters, files, weights, npz_model, pt2, gate, sizes,
+                                prec, dev)
+    del npz_model
+    print("tools video: " + json.dumps(out["video"]), flush=True)
 
     # ---- 5. hub.load, AutoShape, Detections
     zero()
@@ -4521,7 +4898,7 @@ def tools_phase(device, counters, smi, frame, data_dir=DATA_DIR, cfg=None, sizes
         check(out["hub"]["launches"]["fixpoint_keep_blocked"] == 1, f"hub: {out['hub']}")
     del auto, res, crops
 
-    # ---- 6. the REST server: 32 concurrent requests batched, then a few
+    # ---- 6. the REST server: 16 concurrent requests batched, then a few
     # per request; each answer against the same path called directly
     rest_model = cli_common.load_model_from_checkpoint(weights, device=device)
     batcher = MicroBatcher(rest_model, imgsz=sizes["rest_imgsz"], max_batch=sizes["rest_batch"],
@@ -4725,15 +5102,35 @@ def print_tools(jp, tp, smi):
     d, k = tp["detect"], tp["k3_blocked"]
     print(f"tools conf gate {tp['conf']['gate']:.3e} (best score {tp['conf']['best_score']:.3e}; "
           f"the default 0.25 keeps nothing)", flush=True)
-    print(f"tools detect {tp['files']} JPEG files at {tp['imgsz']} px bs{d['batch']}: "
+    print(f"tools detect {d['files']} JPEG files at {tp['imgsz']} px bs{d['batch']}: "
           f"{d['img_per_s']:.2f} img/s whole run, {d['img_per_s_after_first_batch']:.2f} after "
-          f"the first batch; {d['detections']} detections, {d['crops']} crops from 4 files; K3 "
-          f"blocked "
+          f"the first batch; {d['detections']} detections, {d['crops']} crops from "
+          f"{tp['crop_files']} files; K3 blocked "
           f"{d['launches']['fixpoint_keep_blocked']} launches; on {smi}", flush=True)
     print(f"tools K3 blocked {tuple(k['shape'])} on detect's candidates ({k['live_candidates']} "
           f"live, {k['blocks_walked']} blocks walked): call {k['ms']:.4f} ms, kernel "
           f"{k['kernel_ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound {k['bound_ms']:.4f} ms "
           f"({k['bound_by']}); on {smi}", flush=True)
+    v, vd, vk = tp["video"], tp["video"]["detect"], tp["video"]["k3_blocked"]
+    vs = {k: r for k, r in v["streams"].items() if k in ("native", "pt2")}
+    print(f"tools video: {v['size'][0]}x{v['size'][1]} mp4v clip of {vd['frames']} val frames "
+          f"through cli.detect at {v['imgsz']} px: {vd['fps']:.2f} FPS after the first frame "
+          f"({vd['first_frame_ms']:.1f} ms; {vd['fps_with_first']:.2f} FPS with it); ms a frame "
+          + ", ".join(f"{k} {x:.2f}" for k, x in vd["ms_a_frame"].items())
+          + f"; {vd['detections']} detections, {vd['vs_serve_exact_frames']} of {vd['frames']} "
+          f"frames' label lines equal to serve_detections' at batch 1 (unmatched "
+          f"{vd['vs_serve_unmatched']}); K3 blocked {vd['launches']['fixpoint_keep_blocked']} "
+          f"launches, on frame 0's {tuple(vk['shape'])} ({vk['live_candidates']} live) call "
+          f"{vk['ms']:.4f} ms, kernel {vk['kernel_ms']:.4f} ms, plain {vk['plain_ms']:.2f} ms, "
+          f"bound {vk['bound_ms']:.4f} ms ({vk['bound_by']}), max |err| {vk['max_abs_err']}; "
+          f"{vd['frames_written']} frames written back; streams over {v['streams']['sources']} "
+          f"clips, paced: "
+          + "; ".join(f"{k} {r['steps']} steps of {r['batches'][0]}, {r['fps_aggregate']:.2f} "
+                      f"FPS aggregate after the first step ({r['first_step_ms']:.1f} ms), "
+                      f"{r['s']:.1f} s" for k, r in vs.items())
+          + f" (the batch-{v['streams']['export_batch']} .pt2's program called "
+          f"{len(vs['pt2']['program_batches'])} times); clips written in {v['write_s']:.1f} s; "
+          f"on {smi}", flush=True)
     r = tp["rest"]
     print(f"tools rest {r['requests']} concurrent requests: p50 {r['p50_ms']:.1f} ms, p99 "
           f"{r['p99_ms']:.1f} ms, {r['req_per_s']:.1f} req/s, batches {r['batch_hist']} (the "
@@ -6847,9 +7244,9 @@ def main(argv=None):
                 res["train"]["checkpoint_serve"]["launches"]
     paths.update({f"sweep {name} serving matrix": r["launches"] for name, r in sweep.items()})
     paths.update({f"run_validation {b}": r["launches"] for b, r in dp["run_validation"].items()})
-    paths["run_validation matrix, BMP/TIFF/EXIF copies"] = \
+    paths["run_validation matrix, BMP/TIFF/EXIF/webp/DNG copies"] = \
         dp["mixed"]["run_validation"]["mixed"]["launches"]
-    paths["cli.detect, BMP/TIFF/EXIF copies"] = dp["mixed"]["detect_launches"]
+    paths["cli.detect, BMP/TIFF/EXIF/webp copies"] = dp["mixed"]["detect_launches"]
     for t in dp["train"]:
         paths[f"data-trained best.npz served, matrix, device_aug {int(t['device_aug'])}"] = \
             t["best_serve"]["launches"]
@@ -6858,6 +7255,9 @@ def main(argv=None):
     paths.update({"tools detect": tp["detect"]["launches"],
                   "tools detect --augment": tp["augment"]["launches"],
                   "tools detect on the .pt2": tp["export"]["pt2_launches"],
+                  "tools detect on the 1080p clip": tp["video"]["detect"]["launches"],
+                  "tools streams, three clips": tp["video"]["streams"]["native"]["launches"],
+                  "tools streams on the .pt2": tp["video"]["streams"]["pt2"]["launches"],
                   "tools hub": tp["hub"]["launches"], "tools rest batched": tp["rest"]["launches"],
                   "tools detect for wbf": tp["wbf"]["second_launches"]})
 
@@ -6913,10 +7313,13 @@ def main(argv=None):
          "shape": k3b["shape"], "kernel_ms": k3b["kernel_ms"],
          "nms_matrix_blocked_ms": k3b["nms_ms"],
          **{k: k3b[k] for k in ("blocks_walked", "pairs", "cross_tests", "walk_all")},
-         # the tools' shape: detect's own candidates at max_det 1000
-         "tools_detect": {k: tp["k3_blocked"][k] for k in (
+         # the tools' shapes: detect's own candidates at max_det 1000, and
+         # the 1080p clip's frame 0 at batch 1
+         **{name: {k: res[k] for k in (
              "shape", "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-             "blocks_walked", "pairs", "cross_tests", "live_candidates")}},
+             "blocks_walked", "pairs", "cross_tests", "live_candidates")}
+            for name, res in (("tools_detect", tp["k3_blocked"]),
+                              ("tools_video_frame", tp["video"]["k3_blocked"]))}},
         {"name": "conv3x3_s1", "route": "cuda",
          "design": "implicit GEMM on wgmma with TMA loads: bf16, and f32 as 3xTF32",
          "source": "dmayolo_tpu_torch/csrc/conv3x3_s1.cu",

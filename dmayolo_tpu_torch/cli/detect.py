@@ -1,4 +1,5 @@
-"""Inference CLI: images and folders -> annotated images, txt labels, crops.
+"""Inference CLI: images, folders, videos, webcams and streams -> annotated
+images and videos, txt labels, crops.
 
 Port of `dmayolo_tpu/cli/detect.py` (the reference's detect.py:38-394),
 with its flags.  Images are read with the port's `imread` (JPEG through
@@ -12,11 +13,20 @@ not cv2's Hershey strokes) and written under the source's file name.
 Weights: `.npz`, the reference `.pt`, or a `torch.export` program from
 `cli.export` (`.pt2`, through `cli/backends.py`).
 
-Video files, webcams and streams raise: the JAX CLI reads them with
-`cv2.VideoCapture`, and the port has no video decoder.  `--view-img`
-prints that there is no display.
+A video file (`.mp4`, `.avi`, `.mov`, `.mkv`), a webcam index or a
+stream URL (`://`) runs frame by frame at batch 1 (`_run_video`, as the
+JAX CLI): each frame decoded by OpenCV (`data/video.py`, the JAX CLI's
+`cv2.VideoCapture`), letterboxed on the host, served, drawn and written to
+`{stem}_det.mp4` (`mp4v`, the source's FPS and size; not for a webcam,
+nor under `--nosave`).  A comma-separated list or a `.streams` file (one
+source a line) runs batched (`_run_streams`): a reader thread a source
+keeps its latest frame, and each step serves every live source's in one
+batch (chunked where an exported program's batch is smaller), printing
+the detections a stream every 10 steps.  `--view-img` prints that there
+is no display.
 
     python -m dmayolo_tpu_torch.cli.detect --weights best.npz --source images/ --imgsz 1536
+    python -m dmayolo_tpu_torch.cli.detect --weights best.npz --source flight.mp4 --imgsz 1536
 """
 from __future__ import annotations
 
@@ -42,7 +52,9 @@ def build_parser():
     p = argparse.ArgumentParser("dmayolo-detect")
     p.add_argument("--weights", type=str, required=True)
     p.add_argument("--cfg", type=str, default=None)
-    p.add_argument("--source", type=str, required=True, help="image or folder")
+    p.add_argument("--source", type=str, required=True,
+                   help="image, folder, video file, webcam index, stream URL, comma-separated "
+                        "sources or a .streams file")
     p.add_argument("--imgsz", "--img", "--img-size", type=int, default=640,
                    dest="imgsz")
     p.add_argument("--conf-thres", type=float, default=0.25)
@@ -94,25 +106,37 @@ def _gather_sources(source: Path):
     return [source]
 
 
-def check_source(source: str) -> None:
-    """Video files, webcam indices, stream URLs and stream lists raise:
-    the JAX CLI decodes them with cv2.VideoCapture, which the port lacks."""
+def is_streams(source) -> bool:
+    """A comma-separated list or a `.streams` file: `_run_streams`."""
+    return "," in str(source) or str(source).endswith(".streams")
+
+
+def is_video(source) -> bool:
+    """A video file, a webcam index or a stream URL: `_run_video`."""
     s = str(source)
-    if ("," in s or s.endswith(".streams") or Path(s).suffix.lower() in VID_EXTS
-            or s.isdigit() or "://" in s):
-        raise NotImplementedError(
-            f"--source {s}: video files, webcams and streams need a video decoder "
-            "(the JAX CLI uses cv2.VideoCapture); the port has none: pass images or a folder")
+    return Path(s).suffix.lower() in VID_EXTS or s.isdigit() or "://" in s
+
+
+def draw(im: np.ndarray, d: np.ndarray, names, opt) -> None:
+    """Boxes and labels of `d` (n, 6: native xyxy, conf, cls) on `im` in
+    place, as the JAX CLI draws them with cv2."""
+    from ..data import cvops
+
+    for x1, y1, x2, y2, conf, cls in d:
+        c = int(cls)
+        color = PALETTE[c % len(PALETTE)]
+        cvops.rectangle(im, (int(x1), int(y1)), (int(x2), int(y2)), color, opt.line_thickness)
+        if not opt.hide_labels:
+            txt = names[c] if opt.hide_conf else f"{names[c]} {conf:.2f}"
+            cvops.put_text(im, txt, (int(x1), int(y1) - 4), 0.6, color, 2)
 
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
-    check_source(opt.source)
     import torch
     import yaml
 
     from ..core.nms import batched_nms, nms_parts
-    from ..data import cvops
     from ..data.imageio import imread, imwrite
     from ..data.letterbox import letterbox_host
     from ..eval.second_stage import apply_classifier, save_one_box
@@ -205,6 +229,14 @@ def main(argv=None):
                                  iou_thres=opt.iou_thres, agnostic=opt.agnostic_nms,
                                  max_det=opt.max_det, max_nms=30000)
 
+    if opt.view_img:
+        print("--view-img: no display available, skipping")
+        opt.view_img = False
+    if is_streams(opt.source) or is_video(opt.source):
+        run = _run_streams if is_streams(opt.source) else _run_video
+        res = run(opt, infer, names, out, classifier_fn)
+        _maybe_update(opt, backend)
+        return res
     files = _gather_sources(Path(opt.source))
     if not files:
         raise FileNotFoundError(f"no inputs in {opt.source}")
@@ -221,9 +253,6 @@ def main(argv=None):
             if torch.is_tensor(t) and t.dim() == 4:
                 feature_visualization(t.float().cpu().numpy(), tname, i, save_dir=vis_dir)
         print(f"feature maps -> {vis_dir}")
-    if opt.view_img:
-        print("--view-img: no display available, skipping")
-        opt.view_img = False
     bs = min(opt.batch_size, len(files))
 
     n_done = 0
@@ -235,9 +264,7 @@ def main(argv=None):
         x = np.stack([im[:, :, ::-1] for im in lbs])  # BGR -> RGB
         if x.shape[0] < bs:
             x = np.concatenate([x, np.zeros((bs - x.shape[0],) + x.shape[1:], x.dtype)])
-        dets, valid = infer(x)
-        dets = dets.float().cpu().numpy()
-        valid = valid.cpu().numpy()
+        dets, valid = _to_host(*infer(x))
 
         for i, (f, im0) in enumerate(zip(chunk, ims0)):
             d = dets[i][valid[i]]
@@ -247,17 +274,10 @@ def main(argv=None):
             n_done += 1
             imc = im0.copy() if opt.save_crop else None  # clean copy before the drawing
             label_summary = {}
-            for x1, y1, x2, y2, conf, cls in d:
-                c = int(cls)
-                label_summary[names[c]] = label_summary.get(names[c], 0) + 1
-                if not opt.nosave:
-                    color = PALETTE[c % len(PALETTE)]
-                    cvops.rectangle(im0, (int(x1), int(y1)), (int(x2), int(y2)), color,
-                                    opt.line_thickness)
-                    if not opt.hide_labels:
-                        txt = names[c] if opt.hide_conf else f"{names[c]} {conf:.2f}"
-                        cvops.put_text(im0, txt, (int(x1), int(y1) - 4), 0.6, color, 2)
+            for cls in d[:, 5]:
+                label_summary[names[int(cls)]] = label_summary.get(names[int(cls)], 0) + 1
             if not opt.nosave:
+                draw(im0, d, names, opt)
                 imwrite(out / f.name, im0)
             if opt.save_crop:
                 for j, (x1, y1, x2, y2, conf, cls) in enumerate(d):
@@ -279,17 +299,152 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"done: {n_done} images in {dt:.2f}s ({1000 * dt / max(n_done, 1):.1f} ms/img) "
           f"-> {out}")
-    if opt.update:  # the reference's detect.py --update
-        if backend != "native":
-            print("--update: n/a for exported-program artifacts")
-        elif str(opt.weights).endswith(".pt"):
-            print("--update: skipped: reference .pt checkpoints are loaded read-only "
-                  "(cli.export --include torch writes torch weights)")
-        else:
-            from ..utils.checkpoint import strip_checkpoint
+    _maybe_update(opt, backend)
+    return out
 
-            strip_checkpoint(opt.weights)
-            print(f"--update: stripped optimizer state from {opt.weights}")
+
+def _maybe_update(opt, backend) -> None:
+    """--update (the reference's detect.py): strip the optimizer state from
+    the weights file after the run."""
+    if not opt.update:
+        return
+    if backend != "native":
+        print("--update: n/a for exported-program artifacts")
+    elif str(opt.weights).endswith(".pt"):
+        print("--update: skipped: reference .pt checkpoints are loaded read-only "
+              "(cli.export --include torch writes torch weights)")
+    else:
+        from ..utils.checkpoint import strip_checkpoint
+
+        strip_checkpoint(opt.weights)
+        print(f"--update: stripped optimizer state from {opt.weights}")
+
+
+def _to_host(dets, valid):
+    """`infer`'s (dets, valid) as float and bool numpy arrays."""
+    return dets.float().cpu().numpy(), valid.cpu().numpy()
+
+
+def _run_video(opt, infer, names, out, classifier_fn=None):
+    """A video file, webcam index or stream URL, frame by frame at batch 1
+    (the JAX CLI's `_run_video`; the reference's LoadImages video branch):
+    letterboxed without stride padding, served, the second stage applied,
+    drawn, and written to `{stem}_det.mp4` at the source's FPS and size
+    (not for a webcam, nor under --nosave)."""
+    from ..data.letterbox import letterbox_host
+    from ..data.video import Capture, Writer
+    from ..eval.second_stage import apply_classifier
+    from ..eval.validator import _scale_to_native
+
+    cap = Capture(opt.source)
+    writer = None
+    n = 0
+    t0 = time.perf_counter()
+    try:
+        if not opt.nosave and not cap.is_camera:
+            writer = Writer(out / (Path(str(opt.source)).stem + "_det.mp4"), cap.fps,
+                            (cap.width, cap.height))
+        while (frame := cap.read()) is not None:
+            lb = letterbox_host(frame, opt.imgsz, auto=False)[0]
+            dets, valid = _to_host(*infer(np.ascontiguousarray(lb[None, :, :, ::-1])))  # RGB
+            d = dets[0][valid[0]]
+            if classifier_fn is not None:  # the reference's detect.py:253-255
+                d = apply_classifier([d], classifier_fn, lb.shape[:2], [frame])[0]
+            d[:, :4] = _scale_to_native(d[:, :4], lb.shape[:2], frame.shape[:2])
+            draw(frame, d, names, opt)
+            if writer is not None:
+                writer.write(frame)
+            n += 1
+    finally:
+        if writer is not None:
+            writer.release()
+        cap.release()
+    dt = time.perf_counter() - t0
+    print(f"video: {n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.1f} FPS) -> {out}")
+    return out
+
+
+# how long the streams' loop waits at its end for a reader's last read
+READER_JOIN_S = 10.0
+
+
+def stream_sources(source) -> list:
+    """The sources of a comma-separated list or of a `.streams` file (one
+    path, URL or webcam index a line)."""
+    if str(source).endswith(".streams"):
+        return [s.strip() for s in Path(source).read_text().splitlines() if s.strip()]
+    return [s.strip() for s in str(source).split(",") if s.strip()]
+
+
+def _run_streams(opt, infer, names, out, classifier_fn=None):
+    """Several sources batched through one program a step (the JAX CLI's
+    `_run_streams`; the reference's LoadStreams): a reader thread a source
+    keeps its latest frame under a lock; each step, once every live source
+    has a frame, their frames (a finished source's last one too) are
+    letterboxed and served as one batch.  Every 10 steps the detections a
+    stream are printed, after the second stage.  Stops when every source
+    has ended, or after `max_stream_steps` steps where `opt` has it.  A
+    capture is released once its reader has ended; a reader still blocked
+    in a read READER_JOIN_S after the loop (a stalled camera or stream)
+    keeps its capture, left to the daemon thread."""
+    import threading
+
+    from ..data.letterbox import letterbox_host
+    from ..data.video import Capture
+    from ..eval.second_stage import apply_classifier
+
+    srcs = stream_sources(opt.source)
+    caps, threads = [], []
+    frames = [None] * len(srcs)
+    alive = [True] * len(srcs)
+    lock = threading.Lock()
+
+    def reader(i):
+        while alive[i]:
+            f = caps[i].read()
+            if f is None:
+                alive[i] = False
+                break
+            with lock:
+                frames[i] = f
+
+    n_steps = 0
+    t0 = time.perf_counter()
+    try:
+        for s in srcs:
+            caps.append(Capture(s))
+        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+                   for i in range(len(srcs))]
+        for t in threads:
+            t.start()
+        while any(alive) and n_steps < getattr(opt, "max_stream_steps", 10 ** 9):
+            with lock:
+                batch0 = [f.copy() for f in frames if f is not None]
+            if len(batch0) < sum(alive):
+                time.sleep(0.01)
+                continue
+            if not batch0:
+                break
+            lbs = [letterbox_host(f, opt.imgsz, auto=False)[0] for f in batch0]
+            dets, valid = _to_host(*infer(np.stack([f[:, :, ::-1] for f in lbs])))  # RGB
+            n_steps += 1
+            if n_steps % 10 == 0:
+                ds = [dets[i][valid[i]] for i in range(len(batch0))]
+                if classifier_fn is not None:  # the reference's detect.py:253-255
+                    ds = apply_classifier(ds, classifier_fn, lbs[0].shape[:2], batch0)
+                print(f"step {n_steps}: dets per stream {[len(d) for d in ds]}", flush=True)
+    finally:
+        for i in range(len(srcs)):
+            alive[i] = False
+        for i, c in enumerate(caps):  # a reader ends after the read it is in
+            if i < len(threads):
+                threads[i].join(timeout=READER_JOIN_S)
+                if threads[i].is_alive():
+                    continue
+            c.release()
+    dt = time.perf_counter() - t0
+    print(f"streams: {n_steps} batched steps over {len(srcs)} sources in {dt:.1f}s "
+          f"({n_steps * len(srcs) / max(dt, 1e-9):.1f} FPS aggregate)")
     return out
 
 

@@ -1,7 +1,8 @@
-"""Image files: read, write and size, without OpenCV or PIL.
+"""Image files: read, write and size.
 
 One image path for the whole port.  Each file is read by its signature,
 not its extension (a `.jpg` holding PNG bytes reads as PNG, as in cv2).
+One rule: what the port's host library has a codec for, it decodes.
 JPEG (and MPO, whose first image is a JPEG) takes one of two codecs,
 chosen by `jpeg_codec()`:
 
@@ -24,16 +25,23 @@ Python's standard library; the PNG row filters, the BMP row unpacking and
 TIFF's LZW, PackBits and predictor in the host library.  BMP: 1/4/8-bit
 palette, 16-bit 5-5-5 and 5-6-5, 24 and 32 bits, either row order; TIFF:
 the first IFD, either byte order, strips or tiles, 8- or 16-bit grey,
-RGB(A) or palette, compression none, LZW, deflate or PackBits.  webp and
-dng (a TIFF with a DNGVersion tag) raise, naming the format: the card's
-machine has no library for either.  `imwrite` writes JPEG, PNG, 24-bit
-BMP and LZW TIFF.
+RGB(A) or palette, compression none, LZW, deflate or PackBits.  A DNG is
+read as its first IFD, a TIFF, as cv2's libtiff reads it (a raw CFA or
+JPEG-compressed IFD0 raises, naming what it holds).
+
+webp has no codec here that could match libwebp's: it is read and
+written through OpenCV's (`_cv2()`, imported lazily, in that one
+function), as the JAX package reads and writes it with `cv2.imread` and
+`cv2.imwrite`; `image_shape` reads its size from the VP8, VP8L or VP8X
+header.  Video goes the same way (`data/video.py`).  `imwrite` writes
+JPEG, PNG, 24-bit BMP, LZW TIFF and webp.
 
 `imread` and `imdecode` return BGR uint8 (H, W, 3), as `cv2.imread` does:
 grey images are replicated to three channels, alpha is dropped, 16-bit
 samples keep their high byte (PNG, grey TIFF) or are scaled (colour
 TIFF), and the EXIF orientation (a JPEG's APP1, a PNG's eXIf, a TIFF's
-tag 274) is applied.  Every call into either library releases the GIL.
+tag 274, a webp's EXIF chunk) is applied.  Every call into the host
+library releases the GIL.
 """
 from __future__ import annotations
 
@@ -145,6 +153,18 @@ def jpeg_available() -> bool:
 
 def _ext(path) -> str:
     return str(path).rsplit(".", 1)[-1].lower()
+
+
+def _cv2():
+    """OpenCV, imported here and nowhere else in the port: webp and video
+    are decoded and encoded by it, as the JAX package does.  Raises,
+    naming the need, where it is not installed."""
+    try:
+        import cv2
+    except ImportError as err:
+        raise RuntimeError("video and webp need OpenCV's decoder, as the JAX package's "
+                           f"cv2.imread / VideoCapture; cv2 is not installed ({err})") from None
+    return cv2
 
 
 # --------------------------------------------------------------------- JPEG
@@ -544,9 +564,7 @@ def _tiff_ifd0(buf: bytes, path):
 
 
 def _tiff_geometry(tags, path):
-    """(height, width, orientation) of the first IFD; raises for a DNG."""
-    if DNG_VERSION in tags:
-        raise ValueError(f"{path}: format 'dng' is not supported by the port's image reader")
+    """(height, width, orientation) of the first IFD (a DNG's too)."""
     try:
         w, h = tags[256][0], tags[257][0]
     except KeyError:
@@ -579,9 +597,10 @@ def _tiff_inflate(data: bytes, comp: int, size: int, path) -> np.ndarray:
 def _tiff_decode(buf: bytes, path) -> np.ndarray:
     e, tags = _tiff_ifd0(buf, path)
     h, w, o = _tiff_geometry(tags, path)
+    what = "DNG" if DNG_VERSION in tags else "TIFF"
     comp = tags.get(259, (1,))[0]
     if comp not in _TIFF_DECODERS:
-        raise ValueError(f"{path}: TIFF compression {comp} "
+        raise ValueError(f"{path}: {what} compression {comp} "
                          f"({_TIFF_COMPRESSION.get(comp, 'unknown')}) is not supported")
     if tags.get(284, (1,))[0] != 1:
         raise ValueError(f"{path}: TIFF planar configuration 2 (separate planes) is not supported")
@@ -592,7 +611,7 @@ def _tiff_decode(buf: bytes, path) -> np.ndarray:
         raise ValueError(f"{path}: TIFF samples of {bits} bits (format "
                          f"{tags.get(339, (1,))[0]}) are not supported")
     if photo not in (1, 2, 3) or (photo == 2 and spp < 3) or (photo == 3 and bits[0] != 8):
-        raise ValueError(f"{path}: TIFF photometric interpretation {photo} with {spp} samples "
+        raise ValueError(f"{path}: {what} photometric interpretation {photo} with {spp} samples "
                          f"of {bits[0]} bits is not supported")
     pred = tags.get(317, (1,))[0]
     if pred not in (1, 2):
@@ -684,8 +703,59 @@ def _tiff_encode(img: np.ndarray) -> bytes:
             + ifd)
 
 
-# ------------------------------------------------------------------- public
+# --------------------------------------------------------------------- webp
 WEBP_SIG = (b"RIFF", b"WEBP")
+
+
+def _webp_chunks(buf: bytes):
+    """(fourcc, body) of each chunk of a RIFF WEBP file."""
+    at, end = 12, min(len(buf), 8 + struct.unpack("<I", buf[4:8])[0])
+    while at + 8 <= end:
+        n = struct.unpack("<I", buf[at + 4:at + 8])[0]
+        yield buf[at:at + 4], buf[at + 8:at + 8 + n]
+        at += 8 + n + (n & 1)
+
+
+def _webp_header(buf: bytes, path):
+    """(height, width, EXIF orientation) of a webp, from its VP8X canvas,
+    its VP8 key frame or its VP8L header, without decoding."""
+    chunks = list(_webp_chunks(buf))
+    kind, body = chunks[0] if chunks else (b"", b"")
+    if kind == b"VP8X" and len(body) >= 10:
+        w = int.from_bytes(body[4:7], "little") + 1
+        h = int.from_bytes(body[7:10], "little") + 1
+    elif kind == b"VP8 " and len(body) >= 10 and body[3:6] == b"\x9d\x01\x2a":
+        w, h = (v & 0x3FFF for v in struct.unpack("<HH", body[6:10]))
+    elif kind == b"VP8L" and len(body) >= 5 and body[0] == 0x2F:
+        bits = struct.unpack("<I", body[1:5])[0]
+        w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    else:
+        raise ValueError(f"{path}: not a readable webp (first chunk {kind!r})")
+    o = next((_exif_orientation(b[6:] if b[:6] == b"Exif\0\0" else b)
+              for k, b in chunks if k == b"EXIF"), 1)
+    return h, w, o
+
+
+def _webp_decode(buf: bytes, path) -> np.ndarray:
+    """libwebp's pixels through OpenCV, as stored (the orientation is the
+    caller's, as for JPEG and PNG); raises where cv2 cannot read them."""
+    cv2 = _cv2()
+    img = cv2.imdecode(np.frombuffer(buf, np.uint8),
+                       cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    if img is None:
+        raise ValueError(f"{path}: cv2 could not decode this webp")
+    return img
+
+
+def _webp_encode(img: np.ndarray, path) -> bytes:
+    """cv2.imwrite's webp at its default parameters (quality 100: lossless)."""
+    ok, data = _cv2().imencode(".webp", img)
+    if not ok:
+        raise ValueError(f"{path}: cv2 could not encode webp")
+    return data.tobytes()
+
+
+# ------------------------------------------------------------------- public
 
 
 def _kind(buf: bytes, path) -> str:
@@ -700,15 +770,15 @@ def _kind(buf: bytes, path) -> str:
     if buf[:4] in TIFF_SIGS:
         return "tiff"
     if buf[:4] == WEBP_SIG[0] and buf[8:12] == WEBP_SIG[1]:
-        raise ValueError(f"{path}: format 'webp' is not supported by the port's image reader")
+        return "webp"
     raise ValueError(f"{path}: format {_ext(path)!r} is not supported by the port's "
-                     "image reader (JPEG, MPO, PNG, BMP and TIFF are)")
+                     "image reader (JPEG, MPO, PNG, BMP, TIFF, DNG and webp are)")
 
 
 def _decode(buf: bytes, path, exif: bool = True) -> np.ndarray:
-    """Encoded bytes -> BGR uint8, with the orientation of a JPEG's or PNG's
-    EXIF applied unless `exif` is False (a TIFF's own tag is applied
-    always)."""
+    """Encoded bytes -> BGR uint8, with the orientation of a JPEG's, PNG's
+    or webp's EXIF applied unless `exif` is False (a TIFF's own tag is
+    applied always)."""
     kind = _kind(buf, path)
     if kind == "jpeg":
         o, mpo = _jpeg_meta(buf)
@@ -717,6 +787,8 @@ def _decode(buf: bytes, path, exif: bool = True) -> np.ndarray:
         o, img = _png_orientation(buf, path), _png_decode(buf, path)
     elif kind == "bmp":
         o, img = 1, _bmp_decode(buf, path)
+    elif kind == "webp":
+        o, img = _webp_header(buf, path)[2], _webp_decode(buf, path)
     else:
         return _tiff_decode(buf, path)
     return _orient(img, o) if exif else img
@@ -732,7 +804,7 @@ def imread(path) -> np.ndarray:
 def imdecode(buf: bytes, exif: bool = True) -> np.ndarray:
     """Encoded image bytes as BGR uint8 (H, W, 3), as `cv2.imdecode(...,
     IMREAD_COLOR)`, which applies the EXIF orientation; `exif=False`
-    leaves a JPEG, MPO or PNG as stored, as PIL's
+    leaves a JPEG, MPO, PNG or webp as stored, as PIL's
     `Image.open(...).convert("RGB")` does (both apply a TIFF's orientation
     tag).  Raises ValueError when they cannot be read."""
     return _decode(bytes(buf), "<buffer>", exif)
@@ -740,8 +812,9 @@ def imdecode(buf: bytes, exif: bool = True) -> np.ndarray:
 
 def imwrite(path, img: np.ndarray, quality: int = JPEG_QUALITY) -> None:
     """Write BGR uint8 (H, W, 3) by the file's extension: JPEG (`.jpg`,
-    `.jpeg`, at `quality`), PNG, BMP (24-bit) or TIFF (`.tif`, `.tiff`:
-    LZW with predictor 2), as cv2.imwrite writes them."""
+    `.jpeg`, at `quality`), PNG, BMP (24-bit), TIFF (`.tif`, `.tiff`:
+    LZW with predictor 2) or webp (through cv2, lossless), as cv2.imwrite
+    writes them."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"imwrite takes (H, W, 3) uint8, got {img.shape}")
@@ -754,6 +827,8 @@ def imwrite(path, img: np.ndarray, quality: int = JPEG_QUALITY) -> None:
         data = _bmp_encode(img)
     elif ext in ("tif", "tiff"):
         data = _tiff_encode(img)
+    elif ext == "webp":
+        data = _webp_encode(img, path)
     else:
         raise ValueError(f"{path}: format {ext!r} is not supported by the port's image writer")
     Path(path).write_bytes(data)
@@ -779,6 +854,8 @@ def image_shape(path) -> Tuple[int, int]:
         o = _png_orientation(buf, path)
     elif kind == "bmp":
         h, w, o = *_bmp_header(buf, path)[:2], 1
+    elif kind == "webp":
+        h, w, o = _webp_header(buf, path)
     else:
         h, w, o = _tiff_geometry(_tiff_ifd0(buf, path)[1], path)
     return (int(w), int(h)) if o >= 5 else (int(h), int(w))

@@ -8,10 +8,11 @@ utils/flask_rest_api/restapi.py:16-36), on the standard library's
     -> [{"xmin":..,"ymin":..,"xmax":..,"ymax":..,"confidence":..,"class":..,"name":..}, ...]
 
 The upload is decoded by the port's `imageio.imdecode` (JPEG, MPO, PNG,
-BMP or TIFF) in place of PIL, as PIL decodes it: a JPEG's or PNG's EXIF
-orientation is not applied, a TIFF's is.  Two differences stay: webp is a
-400 (the card's machine has no webp library), and 16-bit TIFF and 16-bit
-BMP samples take cv2's scaling, not PIL's.  Per request, an `AutoShape` from `hub.load` serves it
+BMP, TIFF, or webp through cv2's libwebp, whose pixels are PIL's) in
+place of PIL, as PIL decodes it: a JPEG's, PNG's or webp's EXIF
+orientation is not applied, a TIFF's is, and alpha is dropped.  One
+difference stays: 16-bit TIFF and 16-bit BMP samples take cv2's scaling,
+not PIL's.  Per request, an `AutoShape` from `hub.load` serves it
 (batch 1, its records built without pandas, the keys and values of JAX's
 `results.pandas().xyxy[0].to_dict(orient="records")`); with
 `--batch-serve N` a `MicroBatcher` coalesces concurrent requests into
@@ -67,8 +68,8 @@ class Handler(BaseHTTPRequestHandler):
             self.send_error(400, "no image field")
             return
         try:
-            # PIL's decode, which the REST API answers to: a JPEG's or PNG's
-            # EXIF orientation is not applied
+            # PIL's decode, which the REST API answers to: a JPEG's, PNG's
+            # or webp's EXIF orientation is not applied
             rgb = imdecode(data, exif=False)[:, :, ::-1].copy()  # BGR -> RGB
         except ValueError:
             self.send_error(400, "undecodable image")

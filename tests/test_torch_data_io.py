@@ -83,16 +83,20 @@ def test_imwrite_png_and_jpeg(tmp_path, images):
 
 
 def test_unsupported_and_corrupt(tmp_path, images):
-    # BMP and TIFF read and write now (tests/test_torch_image_formats.py);
-    # webp raises, naming itself, at both ends
+    # BMP, TIFF and webp read and write (tests/test_torch_image_formats.py):
+    # webp through cv2's decoder, to cv2's pixels; a GIF raises, naming
+    # itself, at both ends, and so does a corrupt JPEG
     cv2.imwrite(str(tmp_path / "a.webp"), images["noise"])
-    with pytest.raises(ValueError, match="webp"):
-        imageio.imread(tmp_path / "a.webp")
+    np.testing.assert_array_equal(imageio.imread(tmp_path / "a.webp"),
+                                  cv2.imread(str(tmp_path / "a.webp")))
+    (tmp_path / "a.gif").write_bytes(b"GIF89a" + b"\0" * 64)
+    with pytest.raises(ValueError, match="'gif' is not supported"):
+        imageio.imread(tmp_path / "a.gif")
     (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff" + b"\0" * 64)
     with pytest.raises(ValueError, match="JPEG"):
         imageio.imread(tmp_path / "b.jpg")
-    with pytest.raises(ValueError, match="webp"):
-        imageio.imwrite(tmp_path / "c.webp", images["noise"])
+    with pytest.raises(ValueError, match="'gif' is not supported"):
+        imageio.imwrite(tmp_path / "c.gif", images["noise"])
 
 
 @pytest.mark.parametrize("kind", ["noise", "smooth"])

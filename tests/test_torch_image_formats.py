@@ -16,7 +16,11 @@ and the JAX `DetectionDataset`, on the CPU.
   does.  Bytes read by their signature: a `.jpg` holding PNG is a PNG.
 - `imwrite` writes BMP (24-bit) and TIFF (LZW, predictor 2) that cv2 and
   the port read back to the same pixels; LZW and PackBits round trips.
-- webp and dng raise, naming the format; so does writing webp.
+- webp (lossy q80, lossless, lossless with alpha, and one under EXIF
+  orientation 6, through cv2's decoder) reads to cv2's pixels by
+  `imread` and `imdecode`, `image_shape` gives its shape from the header,
+  and `imwrite` writes cv2's own bytes; a DNG (a TIFF with DNGVersion)
+  reads as its IFD0, to cv2's (24, 40, 3).
 - The REST decode (`imdecode(exif=False)`) is PIL's `convert("RGB")` on
   every fixture (no EXIF rotation of JPEG, MPO or PNG; a TIFF's tag
   applied), but the four whose samples the port scales as cv2 does
@@ -189,17 +193,71 @@ def _dng(tmp_path):
     return path
 
 
+def _webps(tmp_path):
+    """Lossy q80, lossless (cv2's default), lossless with alpha and one
+    under EXIF orientation 6 (PIL writes those two)."""
+    img = _pattern(24, 40, 0)
+    paths = {"q80": tmp_path / "q80.webp", "lossless": tmp_path / "lossless.webp",
+             "alpha": tmp_path / "alpha.webp", "o6": tmp_path / "o6.webp"}
+    cv2.imwrite(str(paths["q80"]), img, [cv2.IMWRITE_WEBP_QUALITY, 80])
+    cv2.imwrite(str(paths["lossless"]), img)
+    rgba = np.dstack([img[:, :, ::-1], np.arange(24 * 40, dtype=np.uint8).reshape(24, 40)])
+    Image.fromarray(rgba).save(paths["alpha"], "WEBP", lossless=True)
+    exif = Image.Exif()
+    exif[274] = 6
+    Image.fromarray(img[:, :, ::-1]).save(paths["o6"], "WEBP", lossless=True,
+                                          exif=exif.tobytes())
+    return paths
+
+
 def test_webp_and_dng_raise(tmp_path):
+    """webp and DNG read as cv2 reads them; webp is written as cv2 writes
+    it."""
+    paths = _webps(tmp_path)
+    for kind, path in paths.items():
+        want = cv2.imread(str(path))
+        assert want is not None and want.shape[:2] == ((40, 24) if kind == "o6" else (24, 40))
+        np.testing.assert_array_equal(imageio.imread(path), want)
+        np.testing.assert_array_equal(imageio.imdecode(path.read_bytes()), want)
+        assert imageio.image_shape(path) == want.shape[:2], kind
+    # the REST decode (PIL's) leaves the EXIF orientation unapplied
+    np.testing.assert_array_equal(imageio.imdecode(paths["o6"].read_bytes(), exif=False),
+                                  np.asarray(Image.open(paths["o6"]).convert("RGB"))[:, :, ::-1])
     img = _pattern(16, 16, 0)
-    cv2.imwrite(str(tmp_path / "a.webp"), img)
+    imageio.imwrite(tmp_path / "b.webp", img)
+    cv2.imwrite(str(tmp_path / "c.webp"), img)
+    assert (tmp_path / "b.webp").read_bytes() == (tmp_path / "c.webp").read_bytes()
+    np.testing.assert_array_equal(imageio.imread(tmp_path / "b.webp"), img)  # lossless
     dng = _dng(tmp_path)
-    for path, fmt in ((tmp_path / "a.webp", "webp"), (dng, "dng")):
-        for call in (imageio.imread, imageio.image_shape,
-                     lambda p: imageio.imdecode(Path(p).read_bytes())):
-            with pytest.raises(ValueError, match=fmt):
-                call(path)
-    with pytest.raises(ValueError, match="webp"):
-        imageio.imwrite(tmp_path / "b.webp", img)
+    want = cv2.imread(str(dng))
+    assert want.shape == (24, 40, 3)
+    np.testing.assert_array_equal(imageio.imread(dng), want)
+    np.testing.assert_array_equal(imageio.imdecode(dng.read_bytes()), want)
+    assert imageio.image_shape(dng) == (24, 40)
+
+
+@pytest.mark.parametrize("kind", ["q80", "lossless", "alpha"])
+def test_webp_decode_as_pil(tmp_path, kind):
+    """The REST decode of a webp upload is PIL's `convert("RGB")`, which
+    the JAX server answers to: alpha dropped, the same pixels."""
+    path = _webps(tmp_path)[kind]
+    np.testing.assert_array_equal(imageio.imdecode(path.read_bytes(), exif=False)[:, :, ::-1],
+                                  np.asarray(Image.open(path).convert("RGB")))
+
+
+def test_dng_compression_the_reader_lacks_raises(tmp_path):
+    """A DNG whose IFD0 is JPEG-compressed raises, naming it (cv2 reads
+    none such either: it returns None for a JPEG TIFF it wrote itself)."""
+    buf = bytearray(_dng(tmp_path).read_bytes())
+    ifd = struct.unpack("<I", buf[4:8])[0]
+    for k in range(struct.unpack("<H", buf[ifd:ifd + 2])[0]):
+        e = ifd + 2 + 12 * k
+        if struct.unpack("<H", buf[e:e + 2])[0] == 259:
+            buf[e + 8:e + 10] = struct.pack("<H", 7)
+    path = tmp_path / "jpeg.dng"
+    path.write_bytes(bytes(buf))
+    with pytest.raises(ValueError, match="DNG compression 7 .JPEG."):
+        imageio.imread(path)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -1,13 +1,16 @@
 """The port stands alone: no file of dmayolo_tpu_torch/ and not
-chip_smoke.py imports jax or the JAX package, nor OpenCV, PIL or
-torchvision (the card's machine need not have them; the port reads and
-writes images with its own host library), by an AST walk."""
+chip_smoke.py imports jax or the JAX package, nor PIL or torchvision, nor
+OpenCV but in the one lazy accessor `data/imageio.py::_cv2` (video and
+webp go through cv2's decoder there, as the JAX package's; every other
+image is read and written by the port's own host library), by an AST
+walk."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "dmayolo_tpu_torch"
 FILES = sorted((ROOT / "dmayolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu", "cv2", "PIL", "torchvision")
 
@@ -24,11 +27,38 @@ def _imported(tree):
             yield node.args[0].value
 
 
+def forbidden_imports(source: str, rel: str):
+    """The imports of FORBIDDEN modules in `source` (the file `rel` below
+    the package), but those LAZY allows."""
+    tree = ast.parse(source, rel)
+    names = list(_imported(tree))
+    for mod, fn in _imports_with_scope(tree):
+        if LAZY.get((mod or "").split(".")[0]) == (rel, fn):
+            names.remove(mod)  # this one import, in its function
+    return [n for n in names if n.split(".")[0] in FORBIDDEN]
+
+
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
 def test_no_jax_import(path):
-    names = list(_imported(ast.parse(path.read_text(), str(path))))
-    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    rel = path.relative_to(PKG).as_posix() if PKG in path.parents else path.name
+    bad = forbidden_imports(path.read_text(), rel)
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("rel,source", [
+    ("data/imageio.py", "import cv2\n"),  # at the top, not in _cv2
+    ("data/imageio.py", "def _webp_decode():\n    import cv2\n"),
+    ("data/video.py", "def _cv2():\n    import cv2\n"),  # another file's _cv2
+    ("cli/detect.py", "def f():\n    from cv2 import VideoCapture\n"),
+    ("chip_smoke.py", "def probe():\n    import cv2\n"),
+    ("data/imageio.py", "def _cv2():\n    import jax\n"),
+    ("data/imageio.py", "import cv2\ndef _cv2():\n    import cv2\n"),  # and at the top
+])
+def test_other_cv2_imports_fail(rel, source):
+    """The walk still refuses cv2 anywhere but `imageio._cv2`, and jax
+    even there."""
+    assert forbidden_imports(source, rel)
+    assert not forbidden_imports("def _cv2():\n    import cv2\n", "data/imageio.py")
 
 
 def test_port_has_its_own_configs():
@@ -50,7 +80,8 @@ def test_port_has_its_own_configs():
 
 # the only places the port may import these, and only inside the function
 LAZY = {"matplotlib": ("utils/plots.py", "_plt"),
-        "pandas": ("hub.py", "pandas")}
+        "pandas": ("hub.py", "pandas"),
+        "cv2": ("data/imageio.py", "_cv2")}
 
 
 def _imports_with_scope(tree):
@@ -67,14 +98,13 @@ def _imports_with_scope(tree):
 
 
 def test_matplotlib_and_pandas_only_lazily():
-    """matplotlib (absent on the card's machine) and pandas are imported
-    only inside `utils/plots.py::_plt` (which every plot calls) and
-    `hub.py::Detections.pandas`, as the JAX package does, never at a
-    module's top."""
-    pkg = ROOT / "dmayolo_tpu_torch"
+    """matplotlib (absent on the card's machine), pandas and cv2 are
+    imported only inside `utils/plots.py::_plt` (which every plot calls),
+    `hub.py::Detections.pandas` and `data/imageio.py::_cv2` (webp and
+    video), as the JAX package does, never at a module's top."""
     seen = set()
     for path in FILES:
-        rel = path.relative_to(pkg).as_posix() if pkg in path.parents else path.name
+        rel = path.relative_to(PKG).as_posix() if PKG in path.parents else path.name
         for mod, fn in _imports_with_scope(ast.parse(path.read_text(), str(path))):
             top = (mod or "").split(".")[0]
             if top in LAZY:

@@ -24,12 +24,14 @@ route, read by both packages to the same pixels) at 128 px.
   as JAX's own weights; the fused `.npz` loaded by both packages.
 - `serve.restapi` over localhost in a thread: each batched answer equal
   to `MicroBatcher` on the same image, the per-request records' keys and
-  values equal to JAX's `pandas().xyxy[0].to_dict(orient="records")`.
+  values equal to JAX's `pandas().xyxy[0].to_dict(orient="records")`; a
+  webp upload answered with JAX's detections of PIL's decode.
 - `apply_with_features` equal to JAX's; `feature_visualization` writes
   its PNG, or raises naming matplotlib where it is missing.
-- what the port does not have raises, naming it: video and stream
-  sources, `stablehlo`/`tf`/`saved_model`/`tflite`/`onnx`, `--int8`, PIL
-  images.
+- video, webcam, URL and stream sources reach the runner JAX's CLI
+  dispatches them to (tests/test_torch_video.py holds the runners).
+- what the port does not have raises, naming it:
+  `stablehlo`/`tf`/`saved_model`/`tflite`/`onnx`, `--int8`, PIL images.
 """
 import builtins
 import contextlib
@@ -500,6 +502,43 @@ def test_restapi_matches_batcher_and_jax_records(setup):
     assert batcher.names[3] == "c3"
 
 
+def test_restapi_webp_upload_as_jax(setup, tmp_path):
+    """A lossy webp upload is answered with JAX's detections: its REST
+    server's PIL decode through its AutoShape, per request."""
+    from PIL import Image
+
+    src = sorted(setup["src"].glob("*.jpg"))[1]
+    webp = tmp_path / "a.webp"
+    webp.write_bytes(cv2_webp(imread(src), 80))
+    server = restapi.make_server("127.0.0.1", 0, model=phub.AutoShape(
+        load_model_from_checkpoint(setup["ckpt"], device="cpu").fuse(), dtype=torch.float32),
+        imgsz=IMG)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got = example_request.detect(
+            str(webp), f"http://127.0.0.1:{server.server_address[1]}/v1/object-detection")
+    finally:
+        server.shutdown()
+        server.server_close()
+    jm, params, stats = jax_load(str(setup["ckpt"]))
+    fp, fs = fuse_params(jm, params, stats)
+    rgb = np.asarray(Image.open(webp).convert("RGB"))
+    want = jhub.AutoShape(jm, fp, fs, dtype=jnp.float32)(rgb, size=IMG).pandas().xyxy[0].to_dict(
+        orient="records")
+    keys = ("xmin", "ymin", "xmax", "ymax", "confidence", "class")
+    assert got and [r.keys() for r in got] == [r.keys() for r in want]
+    assert_same_dets([[r[k] for k in keys] for r in got], [[r[k] for k in keys] for r in want])
+
+
+def cv2_webp(img, quality):
+    import cv2
+
+    ok, buf = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, quality])
+    assert ok
+    return buf.tobytes()
+
+
 # ---------------------------------------------------------- visualisation
 def test_apply_with_features_matches_jax(setup, tmp_path):
     x = np.random.default_rng(1).uniform(0, 1, (1, IMG, IMG, 3)).astype(np.float32)
@@ -531,12 +570,26 @@ def test_visualize_without_matplotlib_names_it(monkeypatch, tmp_path):
                                     save_dir=tmp_path)
 
 
-# ------------------------------------------------------ what is not ported
+# ------------------------------------------------- video and stream sources
 @pytest.mark.parametrize("source", ["clip.mp4", "0", "rtsp://cam/1", "a.jpg,b.jpg",
                                     "list.streams"])
-def test_video_and_streams_raise(setup, source):
-    with pytest.raises(NotImplementedError, match="video decoder.*cv2.VideoCapture"):
-        pdetect.main(["--weights", str(setup["ckpt"]), "--source", source, "--device", "cpu"])
+def test_video_and_streams_raise(setup, monkeypatch, tmp_path, source):
+    """Each video, webcam, URL or stream source reaches the runner that
+    JAX's CLI dispatches it to (`_run_video` or `_run_streams`), with the
+    same source; no capture is opened here."""
+    reached = {}
+    for tag, cli in (("jax", jdetect), ("port", pdetect)):
+        for runner in ("_run_video", "_run_streams"):
+            monkeypatch.setattr(cli, runner, lambda opt, *a, _r=runner, _t=tag, **k:
+                                reached.setdefault(_t, (_r, opt.source)))
+        cli.main(["--weights", str(setup["ckpt"]), "--source", source, "--device", "cpu",
+                  "--project", str(tmp_path), "--name", tag])
+    assert reached["port"] == reached["jax"]
+    assert reached["jax"] == ("_run_streams" if source in ("a.jpg,b.jpg", "list.streams")
+                              else "_run_video", source)
+
+
+# ------------------------------------------------------ what is not ported
 
 
 @pytest.mark.parametrize("fmt", ["stablehlo", "tf", "saved_model", "tflite", "onnx"])
