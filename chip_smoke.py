@@ -93,6 +93,20 @@ source, all at once), then:
    kernels transposed must exceed.  Then fused and served one batch on
    "matrix" at a conf below every image's best score: K3 must launch, and
    the detections be non-empty and equal to the plain "scan" backend's.
+7b. The JAX package's Orbax checkpoint (`orbax_phase`, inside 7 after
+   its timed steps; `utils/orbax_ckpt.py`, without orbax or tensorstore,
+   zstd through the system's libzstd): the recipe Trainer's full state
+   (`state_trees`: params, stats, their EMA, both optimizer moments; 78.26
+   M parameters a model tree) written by the port's
+   `AsyncTrainCheckpointer` into build/orbax_smoke/ (the call and the
+   write until `wait` timed) and restored onto the card (timed; GB/s of
+   the raw trees), every leaf equal to the last bit; the model built from
+   the restored meta and EMA trees, BN-folded, serving one bs128 640 px
+   bf16 batch on "matrix" (K3
+   counted) with the same detections as the in-memory EMA model; then
+   the JAX package's own save committed in tests/fixtures/orbax_jax_tiny
+   (8-device mesh, chunked, zstd) read onto the card equal to its
+   `expected.npz`.  A crc, zstd or shape error fails the run.
 8. The SPD-Conv family on four scales (P2-P5, strides 4-32): C3CASPD2
    (anchor-based Detect, its `anchors: 4` placeholders replaced by
    autoanchor on the labels of seeded rectangle images) and CASPD_ODRTA
@@ -103,7 +117,7 @@ source, all at once), then:
    serving tails identical at conf 0.0, its raw head on the card within
    1e-3 of the CPU's, bs128 timed and profiled; evaluated as in 6 (one TTA
    batch of 8 for TDetect); and trained at the author's recipe through the
-   `Trainer` over 6 in-memory batches (img/s over the last 4, ms per
+   `Trainer` over 5 in-memory batches (img/s over the last 3, ms per
    optimizer step at accumulate 1, peak memory, one step profiled):
    C3CASPD2 at train.sh:10-13 (1024 px, batch 8, Adam, hyp scratch,
    autoanchor), CASPD_ODRTA at train.sh:15-19 (1536 px, batch 4, Adam, hyp
@@ -178,7 +192,7 @@ source, all at once), then:
    "layernorm"/"gelu"/"window shuffle", "depthwise conv", "gnconv" and
    "horblock" of the port); and evaluated as in 6 with one TTA batch of 8.
    DMA-full and DMA-HorNet are trained at the flagship's recipe
-   (train.sh:5-9) through the `Trainer` over 6 in-memory batches, as the
+   (train.sh:5-9) through the `Trainer` over 5 in-memory batches, as the
    SPD models are, each checkpoint served on "matrix"; `TrainProbe` checks
    that every BiFPN `w` moved, that the frozen parameters (the Swin bias
    tables, HorBlock's LayerScale gammas) did not and every gamma stayed
@@ -245,7 +259,7 @@ source, all at once), then:
    `serve_detections` of the same batches; the frame decoded by nvJPEG
    and by libjpeg served to the same detections; `--augment` on 2
    files; `cli.export --include torch_export npz torch` at bs2, detect on
-   the `.pt2` on 4 files (equal to its model's decode through `batched_nms`; the
+   the `.pt2` on 2 files (equal to its model's decode through `batched_nms`; the
    exported program equal to the model), the `.pt` loaded back to the
    same weights and the fused `.npz` to the same head; video
    (`video_checks`): 12 val files letterboxed to 1920x1080 into an `mp4v`
@@ -295,7 +309,8 @@ source, all at once), then:
    (`INT8_HEAD_TOL`, which the card's float head must fail); CASMM served
    int8 once at bs8, so that route (d) runs on a main path.
    Last, the tiny model trained as tests/test_int8_serve.py trains it
-   (256 px, 32 epochs, f32): int8 mAP@.5 within 0.05 of float at f32 and
+   but for 28 epochs, not 32 (256 px, f32): int8 mAP@.5 within 0.05 of
+   float at f32 and
    bf16 (counted), and `cli.val --int8 --ncalib 8` on its checkpoint.
    The CLI phase (12) runs its train recipe with `--ckpt-async`, holds
    `results.csv`'s header to the JAX trainer's columns, and times one
@@ -1853,7 +1868,7 @@ def train_checks(device, cfg, nc, recipe, check_imgsz, seed, bf16_checks=True):
 
 def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
           n_batches=TRAIN_BATCHES, warmup_batches=TRAIN_WARMUP_BATCHES, accs=TRAIN_ACCS,
-          counters=(), seed=7, checks=("f32", "bf16"), probe=None):
+          counters=(), seed=7, checks=("f32", "bf16"), probe=None, orbax=None):
     """The training path: the `checks` of `train_checks` ("f32": the card's
     f32 step against the host's; "bf16": the bf16 step's loss against f32
     and its backward layer by layer, with a control fault), the recipe's
@@ -1862,8 +1877,10 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
     step profiled, and the EMA checkpoint held against the live EMA and
     served on "matrix" (K3 counted) equal to "scan".  A `probe`
     (`TrainProbe`) watches the Trainer's model over the epoch (`before`,
-    `after`; its findings in "probe").  On the CPU (a rehearsal at a small
-    `cfg` and size) nothing is timed."""
+    `after`; its findings in "probe").  `orbax` (`ORBAX`'s keys) runs
+    `orbax_phase` on the state after the timed steps (its findings in
+    "orbax").  On the
+    CPU (a rehearsal at a small `cfg` and size) nothing is timed."""
     import shutil
 
     import numpy as np
@@ -1956,6 +1973,8 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
             out["profile"] = profile_train_step(
                 lambda: step1(tr.state, imgs[:b], type(tg)(*(t[:b] for t in tg)), gen))
             del imgs, tg
+        if orbax is not None:  # after the peak memory and the step times are read
+            out["orbax"] = orbax_phase(device, tr, counters, nc=nc, **orbax)
         anchors = getattr(tr.model.head, "anchors", None)
         del tr, state
 
@@ -2031,6 +2050,149 @@ def train(device, cfg=None, nc=10, recipe=RECIPE, imgsz=None, check_imgsz=640,
 
 
 # ---------------------------------------------------------------------------
+# the JAX package's Orbax checkpoints, read and written by the port
+# ---------------------------------------------------------------------------
+
+ORBAX = dict(batch=128, imgsz=640)
+ORBAX_DIR = ROOT / "build" / "orbax_smoke"
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax_jax_tiny"
+
+
+def same_bits(a, t) -> bool:
+    """A numpy array and a tensor (any device) hold the same bytes,
+    compared where the tensor lies."""
+    import torch
+
+    w = torch.from_numpy(a)
+    return (w.shape == t.shape and w.dtype == t.dtype
+            and torch.equal(w.reshape(-1).view(torch.uint8).to(t.device),
+                            t.reshape(-1).view(torch.uint8)))
+
+
+def orbax_phase(device, tr, counters, batch=128, imgsz=640, nc=10, seed=19):
+    """The `Trainer`'s full state (`state_trees`: six trees) through the
+    port's Orbax checkpoint (`utils/orbax_ckpt.py`): written by
+    `AsyncTrainCheckpointer` under build/orbax_smoke/ (timed: the call,
+    and until `wait` returns), restored onto `device` (timed), every leaf
+    equal to the last bit and the meta the Trainer's; the model built from
+    the restored meta (cfg, nc, anchors) and EMA trees, BN-folded, serving
+    one `batch` of
+    `imgsz` rectangle images on "matrix" (K3 counted) at a conf under
+    every image's best score: the same detections as the in-memory EMA
+    model's.  Then the committed JAX fixture (tests/fixtures/
+    orbax_jax_tiny: chunked by device, zstd) read onto `device`, every leaf
+    equal to its `expected.npz`.  The directory is removed."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.graph import DetectionModel
+    from dmayolo_tpu_torch.train.step import state_trees
+    from dmayolo_tpu_torch.utils import zstd
+    from dmayolo_tpu_torch.utils.orbax_ckpt import AsyncTrainCheckpointer, restore
+    from dmayolo_tpu_torch.utils.weights import state_dict_from_jax
+
+    on_card = device.type == "cuda"
+    t_phase = t0 = time.perf_counter()
+    trees = state_trees(tr.state)
+    meta = tr.checkpoint_meta(0)
+    out = {"pull_s": time.perf_counter() - t0, "zstd_version": zstd.version(),
+           "leaves": sum(len(t) for t in trees.values()),
+           "params": sum(a.size for a in trees["params"].values()),
+           "raw_bytes": sum(a.nbytes for t in trees.values() for a in t.values())}
+    path = ORBAX_DIR / "last_orbax"
+    shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+    try:
+        ck = AsyncTrainCheckpointer()
+        t0 = time.perf_counter()
+        ck.save(path, trees, meta=meta)
+        out["write_call_s"] = time.perf_counter() - t0
+        ck.wait()
+        out["write_s"] = time.perf_counter() - t0
+        ck.close()
+        out["dir_bytes"] = ck.last_bytes
+        t0 = time.perf_counter()
+        got, got_meta = restore(path, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["write_gb_per_s"] = out["raw_bytes"] / out["write_s"] / 1e9
+        out["restore_gb_per_s"] = out["raw_bytes"] / out["restore_s"] / 1e9
+        check(got_meta == json.loads(json.dumps(meta)), f"restored meta {got_meta} is not {meta}")
+        check(sorted(got) == sorted(trees) and all(sorted(got[n]) == sorted(t)
+                                                   for n, t in trees.items()),
+              "the restored trees' keys are not the state's")
+        out["unequal_leaves"] = [f"{n} {k}" for n, t in trees.items() for k, a in t.items()
+                                 if not same_bits(a, got[n][k])]
+        check(not out["unequal_leaves"], f"restored leaves differ: {out['unequal_leaves'][:5]}")
+        del trees
+
+        # ---- the model from the restored trees against the in-memory EMA model
+        ema = [{k: v.cpu().numpy() for k, v in got[n].items()} for n in ("ema_params", "ema_stats")]
+        del got
+        restored = DetectionModel(got_meta["cfg"], nc=got_meta["nc"], device=device)
+        restored.load_state_dict(state_dict_from_jax(*ema, device=device), strict=True)
+        if "anchors" in got_meta:
+            restored.head.anchors = np.asarray(got_meta["anchors"], np.float32)
+        del ema
+        live = copy.deepcopy(tr.state.ema)
+        dtype = torch.bfloat16 if on_card else torch.float32
+        x, _ = rectangles(batch, imgsz, nc, seed)
+        x = torch.from_numpy(x).to(device).to(dtype) / 255.0
+        sets = {}
+        with torch.inference_mode():
+            for name, model in (("live", live), ("restored", restored)):
+                model.eval().fuse()
+                raw = model.apply(x, dtype=dtype, fused=True)
+                if name == "live":
+                    conf = min(0.25, 0.5 * float(model.decode_parts(raw)[1].amax(1).min()))
+                for c in counters:
+                    c.launches = 0
+                sets[name] = model.serve_detections(raw, conf_thres=conf, backend="matrix")
+                launches = {c.__name__: c.launches for c in counters}
+                del raw
+        (d, v), (wd, wv) = sets["restored"], sets["live"]
+        out["serve"] = {"batch": batch, "imgsz": imgsz, "conf_thres": conf,
+                        "detections": int(v.sum()), "launches": launches}
+        check(bool(torch.isfinite(d).all()) and int(v.sum()) > 0 and torch.equal(v, wv)
+              and torch.equal(d, wd),
+              f"the restored model's detections differ from the in-memory model's: {out['serve']}")
+        del live, restored, sets, x, d, v, wd, wv
+    finally:
+        shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+
+    # ---- the JAX package's own save, committed: chunks assembled, zstd
+    t0 = time.perf_counter()
+    got, fmeta = restore(ORBAX_FIXTURE / "last_orbax", device=device)
+    with np.load(ORBAX_FIXTURE / "expected.npz") as z:
+        want = {k: z[k] for k in z.files}
+    have = {"|".join((n, *k)): v for n, t in got.items() for k, v in t.items()}
+    out["fixture"] = {"leaves": len(have), "nc": fmeta.get("nc"), "s": time.perf_counter() - t0,
+                      "unequal": sorted(k for k in want if k not in have
+                                        or not same_bits(want[k], have[k]))}
+    check(sorted(have) == sorted(want) and not out["fixture"]["unequal"],
+          f"the JAX fixture reads wrong: {out['fixture']}")
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_orbax(ob, smi):
+    print(f"orbax: the flagship Trainer's state, {ob['leaves']} leaves, {ob['params'] / 1e6:.2f} M "
+          f"parameters a model tree, {ob['raw_bytes'] / 1e9:.3f} GB raw, {ob['dir_bytes'] / 1e9:.3f} "
+          f"GB on disk (zstd 1, libzstd {ob['zstd_version']}); pull {ob['pull_s']:.2f} s; write "
+          f"call {ob['write_call_s']:.3f} s, until wait {ob['write_s']:.2f} s "
+          f"({ob['write_gb_per_s']:.3f} GB/s); restore onto the card {ob['restore_s']:.2f} s "
+          f"({ob['restore_gb_per_s']:.3f} GB/s); every leaf bit-equal; the restored model's "
+          f"bs{ob['serve']['batch']} {ob['serve']['imgsz']} px serve on 'matrix' "
+          f"{ob['serve']['detections']} detections equal to the in-memory model's, K3 "
+          f"{ob['serve']['launches']['fixpoint_keep']} launch; the JAX fixture's "
+          f"{ob['fixture']['leaves']} leaves equal to expected.npz; phase {ob['s']:.1f} s; on {smi}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 # the SPD-Conv family (P2-P5 heads): C3CASPD2 and CASPD_ODRTA
 # ---------------------------------------------------------------------------
 
@@ -2062,7 +2224,7 @@ SPD_RECIPES = {
     "CASPD_ODRTA": dict(imgsz=1536, batch=4, adam=True, hyp="visdrone", max_targets=128,
                         assignment="tal", autoanchor=False),
 }
-SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 6, 2  # 4 timed loader batches
+SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 5, 2  # 3 timed loader batches
 SPD_TRAIN_CHECKS = {"C3CASPD2": (), "CASPD_ODRTA": ("f32",)}  # TAL's f32 step vs the CPU
 SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 8}  # TTA over TDetect's four levels
 
@@ -4263,7 +4425,7 @@ def jpeg_phase():
 # The inference tools: detect, export, hub, REST, Grad-CAM, WBF
 # ---------------------------------------------------------------------------
 TOOLS = dict(imgsz=1536, batch=16, detect_files=32, live=4000, crop_files=2, augment_files=2,
-             export_batch=2, pt2_files=4, video_frames=12, video_size=(1920, 1080),
+             export_batch=2, pt2_files=2, video_frames=12, video_size=(1920, 1080),
              stream_sources=3, stream_steps=8, hub_files=2, rest_imgsz=640, rest_batch=16,
              rest_requests=16, rest_single=2, gradcam_files=1,
              gradcam_imgsz=640, gradcam_max_dets=4, gradcam_layer="model_17_cv3_act",
@@ -5199,7 +5361,7 @@ TINY_HYP = {"lr0": 0.01, "lrf": 0.1, "momentum": 0.937, "weight_decay": 0.0005,
             "hsv_h": 0.015, "hsv_s": 0.5, "hsv_v": 0.3, "degrees": 0.0, "translate": 0.1,
             "scale": 0.3, "shear": 0.0, "perspective": 0.0, "flipud": 0.0, "fliplr": 0.5,
             "mosaic": 0.5, "mixup": 0.0}
-INT8_TINY = dict(img_size=256, n_train=48, n_val=24, epochs=32, batch=8, warmup_min_iters=60,
+INT8_TINY = dict(img_size=256, n_train=48, n_val=24, epochs=28, batch=8, warmup_min_iters=60,
                  ncalib=8)
 INT8 = dict(imgsz=640, check_batch=8, step_batch=128, serve_batch=128, tiny=INT8_TINY)
 
@@ -5600,7 +5762,8 @@ def int8_head_vs_cpu(model, scales, device, seed=9):
 
 def int8_tiny(device, counters, sizes=INT8_TINY):
     """The tiny model trained as tests/test_int8_serve.py trains it (48 + 24
-    synthetic images at 256 px, 32 epochs, f32), then its EMA folded and
+    synthetic images at 256 px, f32), but for `sizes["epochs"]` (28, where
+    the test takes 32), then its EMA folded and
     calibrated on 16 train images: `run_validation` float and int8 at f32
     and at bf16 (|int8 - float| mAP@.5 within `INT8_MAP_TOL`, float above
     `INT8_MAP_FLOOR`; the int8 runs counted), and `cli.val --int8 --ncalib
@@ -7122,13 +7285,17 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phases["flagship: K1 at its convs, serving, eval"] = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    report["train"] = tr = train(device, counters=counters)
+    report["train"] = tr = train(device, counters=counters, orbax=ORBAX)
     print("train: " + json.dumps(tr), flush=True)
     check(tr["checkpoint_serve"]["launches"]["fixpoint_keep"] > 0,
           "K3 did not launch serving the trained checkpoint on 'matrix'")
+    check(tr["orbax"]["serve"]["launches"]["fixpoint_keep"] > 0,
+          "K3 did not launch serving the model restored from the Orbax checkpoint")
     print_train("train", tr, smi)
+    print_orbax(tr["orbax"], smi)
 
-    phases["flagship: train"] = time.perf_counter() - t0
+    phases["flagship: train"] = time.perf_counter() - t0 - tr["orbax"]["s"]
+    phases["orbax"] = tr["orbax"]["s"]
 
     # ---- int8 PTQ: K4 at every eligible shape, int8 serving, the tiny model
     report["int8"] = i8 = int8_phase(device, counters, smi)
@@ -7225,6 +7392,7 @@ def main(argv=None):
              for r in (srv["batcher_pallas"], srv["batcher_default"])}
     paths.update({f"eval {b}": r["launches"] for b, r in ev["backends"].items()})
     paths["trained checkpoint served, matrix"] = tr["checkpoint_serve"]["launches"]
+    paths["Orbax-restored flagship served, matrix"] = tr["orbax"]["serve"]["launches"]
     for name, res in spd.items():
         paths.update({f"{name} serving {r['backend']}": r["launches"]
                       for r in (res["serving"]["batcher_pallas"],

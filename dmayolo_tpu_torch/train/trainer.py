@@ -376,14 +376,19 @@ class Trainer:
             max_targets=self.max_targets, single_cls=self.single_cls, workers=self.workers,
             device=self.device, mesh=self.mesh, spatial=self.spatial)
 
-    def _save(self, name: str, epoch: int):
-        if not self.is_main:
-            return
+    def checkpoint_meta(self, epoch: int) -> Dict:
+        """The meta a checkpoint of `epoch` carries, as the JAX Trainer's."""
         meta = {"epoch": epoch, "best_fitness": float(self.best_fitness),
                 "step": self.state.step, "updates": self.state.ema_updates,
                 "nc": self.nc, "cfg": self.cfg_ref}
         if isinstance(self.model.head, Detect):  # the live anchors, in stride units
             meta["anchors"] = np.asarray(self.model.head.anchors, np.float32).tolist()
+        return meta
+
+    def _save(self, name: str, epoch: int):
+        if not self.is_main:
+            return
+        meta = self.checkpoint_meta(epoch)
         # one device-to-host pull an optimizer step, shared by its best and last
         if self._pulled is None or self._pulled[0] != self.state.step:
             self._pulled = (self.state.step, state_trees(self.state))

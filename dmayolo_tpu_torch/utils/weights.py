@@ -23,10 +23,12 @@ attribute names equal those path parts, so the map is mechanical:
 `state_dict_from_jax` goes one way, `jax_from_state_dict` the other (a
 `.weight` is a kernel or a scale by the type of its module).
 `load_jax_checkpoint` reads the JAX `.npz` checkpoint format
-(`utils/checkpoint.py`).
+(`utils/checkpoint.py`) and the JAX `Trainer`'s Orbax directories
+(`<name>_orbax/`, `utils/orbax_ckpt.py`).
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -139,13 +141,28 @@ def state_dict_from_jax(params: Mapping, stats: Mapping,
     return out
 
 
+def _orbax_trees(path) -> Tuple[Dict[str, Dict], dict]:
+    """An Orbax train-state directory as `load_checkpoint` gives a
+    `.npz`: numpy trees, f16 and bf16 leaves upcast to f32 (f32 leaves
+    stay as saved: Orbax does not halve)."""
+    from .orbax_ckpt import restore
+
+    trees, meta = restore(path, device="cpu")
+    return {name: {k: (v.float() if v.dtype in (torch.float16, torch.bfloat16) else v).numpy()
+                   for k, v in tree.items()}
+            for name, tree in trees.items() if isinstance(tree, dict)}, meta
+
+
 def load_jax_checkpoint(path, device=None) -> Tuple[Dict[str, torch.Tensor], dict]:
-    """Read a JAX `.npz` checkpoint -> (state_dict on `device`, meta).
+    """Read a JAX checkpoint -> (state_dict on `device`, meta): a `.npz`,
+    or an Orbax directory that `--ckpt-async` wrote (`<name>_orbax`, its
+    meta from `<name>_orbax.meta.json`).
 
     Prefers the EMA trees when present (as the JAX CLIs do) and upcasts
-    f16 leaves to f32."""
+    f16 leaves to f32.  The meta carries the run's `cfg`, `nc` and live
+    `anchors`."""
     dev = resolve_device(device)
-    trees, meta = load_checkpoint(path)
+    trees, meta = _orbax_trees(path) if Path(path).is_dir() else load_checkpoint(path)
     params = trees.get("ema_params") or trees.get("params", {})
     # a fully fused checkpoint may hold no BN statistics at all
     stats = trees.get("ema_stats") or trees.get("stats", {})

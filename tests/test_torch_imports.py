@@ -1,5 +1,7 @@
 """The port stands alone: no file of dmayolo_tpu_torch/ and not
 chip_smoke.py imports jax or the JAX package, nor PIL or torchvision, nor
+orbax, tensorstore, zstandard or ml_dtypes (the Orbax checkpoints go
+through the port's own OCDBT and zarr code and the system's libzstd), nor
 OpenCV but in the one lazy accessor `data/imageio.py::_cv2` (video and
 webp go through cv2's decoder there, as the JAX package's; every other
 image is read and written by the port's own host library), by an AST
@@ -12,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "dmayolo_tpu_torch"
 FILES = sorted((ROOT / "dmayolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu", "cv2", "PIL", "torchvision")
+FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu", "cv2", "PIL", "torchvision",
+             "orbax", "tensorstore", "zstandard", "ml_dtypes")
 
 
 def _imported(tree):
@@ -95,6 +98,18 @@ def _imports_with_scope(tree):
                 yield child.module, fn
             yield from walk(child, name)
     yield from walk(tree, None)
+
+
+@pytest.mark.parametrize("source", [
+    "import orbax.checkpoint as ocp\n",
+    "def restore():\n    import tensorstore as ts\n",
+    "from zstandard import ZstdDecompressor\n",
+    "def bf16():\n    import ml_dtypes\n",
+])
+def test_checkpoint_libraries_fail(source):
+    """The walk refuses the libraries under the JAX package's Orbax
+    checkpoints, at a module's top and inside a function."""
+    assert forbidden_imports(source, "utils/orbax_ckpt.py")
 
 
 def test_matplotlib_and_pandas_only_lazily():
