@@ -362,6 +362,16 @@ source, all at once), then:
    the H-sharded step against the plain one within `TRAIN_F32_TOL`, the
    plain step's own move under a 1e-7 change of its weights printed
    beside it.
+17. TFLite without TensorFlow (`tflite_phase`, after 14, on its trained
+   tiny model): the JAX package's committed artifacts
+   (tests/fixtures/tflite_jax_tiny) through `TFLiteProgram` on the card
+   (f32 within 1e-4 scaled, int8 bit-equal to expected.npz); the
+   full-width flagship exported by the port at bs8 640 px to both
+   artifacts, the f32 one against the native program and its K3 sets, the
+   int8 one's K4 s32 calls against the plain conv and timed by route,
+   the f32, int8 and `.pt2` programs timed; the tiny model's mAP@.5
+   through `cli.export --int8`'s artifact within 0.03 of float;
+   `cli.detect` on the flagship's two artifacts.
 
 Every phase's seconds are printed before the kernels line.
 Prints, before the last line, a `{"kernels": [...]}` JSON line and the
@@ -2224,9 +2234,9 @@ SPD_RECIPES = {
     "CASPD_ODRTA": dict(imgsz=1536, batch=4, adam=True, hyp="visdrone", max_targets=128,
                         assignment="tal", autoanchor=False),
 }
-SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 5, 2  # 3 timed loader batches
+SPD_TRAIN_BATCHES, SPD_WARMUP_BATCHES = 4, 2  # 2 timed loader batches
 SPD_TRAIN_CHECKS = {"C3CASPD2": (), "CASPD_ODRTA": ("f32",)}  # TAL's f32 step vs the CPU
-SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 8}  # TTA over TDetect's four levels
+SPD_TTA_BATCH = {"C3CASPD2": 0, "CASPD_ODRTA": 4}  # TTA over TDetect's four levels
 
 
 def spd_model(device, name, cfg=None, imgsz=640, nc=10, seed=0, n_images=64, hyp=None,
@@ -2475,7 +2485,7 @@ SWEEP_MODELS = ("C3CASPD6", "CADM", "CADMM2", "CASMM", "CASMMsiou", "CMCA", "CSP
                 "ca-sppfcspc-bifpn-scconv-adapt-gnconv", "hornet", "hornet2", "hornet3",
                 "spdconv", "spdconv2", "yolo_convmix", "yolo_cspcm", "yolov3-tiny",
                 "yolov5s-ghost")
-SWEEP_BATCH, SWEEP_CHECK_IMGSZ = 8, 256
+SWEEP_BATCH, SWEEP_CHECK_IMGSZ = 4, 256
 # where a head is ill-conditioned even at 256 px (CMCA: the CPU's f32 and
 # f64 heads 7.5e-3 of the largest value apart, the card's f32 head 7.3e-3
 # from the f64 one, on an H100 80GB HBM3 at 700 W), the card's f32 head is
@@ -2488,7 +2498,7 @@ SWEEP_F64_FACTOR = 2
 ANCHOR_CACHE = {}
 HORBLOCK_GAMMA = 1e-6  # HorBlock's LayerScale init, never optimized (optimizer group "frozen")
 ZOO_HYP = "visdrone"
-ZOO_TTA_BATCH = 8
+ZOO_TTA_BATCH = 4
 SAME_SEED_LOSS_TOL = 1e-6  # relative, two train-mode losses from one generator seed
 
 
@@ -4425,8 +4435,8 @@ def jpeg_phase():
 # The inference tools: detect, export, hub, REST, Grad-CAM, WBF
 # ---------------------------------------------------------------------------
 TOOLS = dict(imgsz=1536, batch=16, detect_files=32, live=4000, crop_files=2, augment_files=2,
-             export_batch=2, pt2_files=2, video_frames=12, video_size=(1920, 1080),
-             stream_sources=3, stream_steps=8, hub_files=2, rest_imgsz=640, rest_batch=16,
+             export_batch=2, pt2_files=2, video_frames=10, video_size=(1920, 1080),
+             stream_sources=3, stream_steps=6, hub_files=2, rest_imgsz=640, rest_batch=16,
              rest_requests=16, rest_single=2, gradcam_files=1,
              gradcam_imgsz=640, gradcam_max_dets=4, gradcam_layer="model_17_cv3_act",
              frame_top=100, wbf_imgsz=1280, wbf_files=2)
@@ -5822,6 +5832,9 @@ def int8_tiny(device, counters, sizes=INT8_TINY):
     params, stats = jax_from_state_dict(tr.state.ema)
     save_checkpoint(INT8_DIR / "trained", params=params, stats=stats, meta={})
     (INT8_DIR / "tiny.yaml").write_text(json.dumps(TINY_CFG))  # JSON is YAML
+    # the files the TFLite phase exports and evaluates (INT8_DIR outlives the phase)
+    out.update(weights=str(INT8_DIR / "trained.npz"), cfg=str(INT8_DIR / "tiny.yaml"),
+               data=str(data), val=d["val"], img_size=sz)
     printed = io.StringIO()
     for c in counters:
         c.launches = 0
@@ -6027,7 +6040,6 @@ def int8_phase(device, counters, smi, cfgs=None, sizes=INT8):
           f"{tiny['f32']['int8_map50']:.4f}, at bf16 {tiny['bf16']['float_map50']:.4f} / "
           f"{tiny['bf16']['int8_map50']:.4f}; cli.val --int8: {tiny['cli_val']['calibration'][0]}, "
           f"mAP@.5 {tiny['cli_val']['map50']:.4f}; trained in {tiny['train_s']:.1f} s", flush=True)
-    shutil.rmtree(INT8_DIR, ignore_errors=True)
     out["s"] = time.perf_counter() - t0
     print(f"int8 phase: {out['s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()) + ")", flush=True)
@@ -6046,14 +6058,15 @@ INT8_DESIGN = {
 }
 
 
-def int8_kernel_entries(i8, launches):
+def int8_kernel_entries(i8, launches, tflite_s32=None):
     """The kernels line's K4 entries, one a route, and the quantize's.
     Each entry's times, bound and plain time are over one set of shapes:
     the route's bs8 shapes, each once, of the flagship (routes (a)-(c)) or
     of `INT8_GENERAL_MODEL` (route (d), which it serves at bs8);
     `library_ms` is `_int_mm` on the shapes it takes (route (a)).  Beside
     them, under "steps", each route's sums over the served models' bs128
-    steps, count-weighted.  The quantize's entry: over the route-(d)
+    steps, count-weighted, and under "tflite_s32" its s32 calls at the
+    flagship's int8 TFLite artifact (bs8 640 px).  The quantize's entry: over the route-(d)
     shapes' bf16 inputs, the ones that take it on the bf16 path."""
     from dmayolo_tpu_torch.nn.conv_int8 import ROUTE_COUNTS, quantize_s8
 
@@ -6080,6 +6093,8 @@ def int8_kernel_entries(i8, launches):
         entry["steps"] = {f"{name}_bs{st['batch']}": {k: v for k, v in st["routes"][route].items()
                                                       if k != "bytes_bound_ms"}
                           for name, st in i8["step"].items() if route in st["routes"]}
+        if tflite_s32 and route in tflite_s32:
+            entry["tflite_s32"] = tflite_s32[route]
         entries.append(entry)
     q = i8["check_general"]["routes"]["general"]
     entries.append({
@@ -6095,6 +6110,490 @@ def int8_kernel_entries(i8, launches):
                   f"bs{i8['check_general']['batch']}, {q['shapes']} shapes each once (f32 inputs "
                   f"take it on every route)"})
     return entries
+
+
+# ---------------------------------------------------------------------------
+# 17. TFLite without TensorFlow
+# ---------------------------------------------------------------------------
+
+TFLITE = dict(imgsz=640, batch=8, calib_batches=4, iters=5, tiny_ncalib=16)
+TFLITE_DIR = ROOT / "build" / "tflite_smoke"
+TFLITE_FIXTURE = ROOT / "tests" / "fixtures" / "tflite_jax_tiny"
+TFLITE_F32_TOL = 1e-4  # of the reference's largest magnitude
+# the full-width flagship's f32 artifact and the native f32 program, each
+# held to the native f64 program, box and score columns apart: the
+# artifact within this many times the native program's distance (1.43
+# measured on the box columns: 3.68e-3 against 2.58e-3, an H100 at 700 W)
+TFLITE_F32_NOISE = 2.0
+# an int8 artifact's op against its float op on its own dequantized
+# operands (`int8_op_errors`), in output steps: a rounding, where the
+# float value lies within f32 rounding of a tie or the weights' own
+# quantization moves it across one
+TFLITE_INT8_OP_STEPS = 1
+# the int8 artifact's heads' mean |err| over mean |head| against f32: at
+# most this many times the float program's with 8-bit rounding as noise
+# (`int8_noise_heads`; 0.86-0.89 measured on the full-width flagship, an
+# H100 at 700 W; 1.4-1.5 at width 0.125 on the CPU)
+TFLITE_INT8_NOISE = 2.0
+SERVE_CONF = 0.25  # batched_nms's default gate, the sets' check
+TFLITE_GATE_BAND = 1.05  # the sets' rows above this times the gate must match
+TFLITE_MAP_TOL = 0.03  # the tiny model's mAP@.5 through its int8 artifact against its float
+
+
+def scaled_max(got, want):
+    """max |got - want| over max |want|."""
+    g, w = got.double().cpu(), want.double().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-12))
+
+
+def float64_model(model):
+    """A TFLite model (`utils/tflite.py::Model`) with every f32 tensor,
+    constants included, made f64: the same graph and values, computed in
+    double, so that it tells a translation fault from f32 rounding."""
+    import dataclasses
+
+    import numpy as np
+
+    from dmayolo_tpu_torch.utils import tflite as T
+
+    f32, f64 = T.TYPE_OF[np.dtype(np.float32)], T.TYPE_OF[np.dtype(np.float64)]
+    g = model.subgraphs[0]
+    buffers, done, tensors = list(model.buffers), set(), []
+    for t in g.tensors:
+        if t.type == f32:
+            c = model.constant(t)
+            if c is not None and t.buffer not in done:
+                buffers[t.buffer] = np.ascontiguousarray(c, np.float64).reshape(-1).view(np.uint8)
+                done.add(t.buffer)
+            t = dataclasses.replace(t, type=f64)
+        tensors.append(t)
+    return dataclasses.replace(model, buffers=buffers,
+                               subgraphs=[dataclasses.replace(g, tensors=tensors)])
+
+
+def quant_params(prog, i):
+    """(scale, zero point) of tensor i of a TFLite program."""
+    q = prog.tensors[i].quantization
+    return float(q.scale[0]), int(q.zero_point[0])
+
+
+def int8_op_errors(fprog, prog8, env8):
+    """Each int8 tensor of an int8 artifact's run (`prog8`, `env8` from
+    `run(keep_all=True)`) against the op of the float program `fprog`
+    that it was quantized from (the same tensor indices; the float
+    weights), computed on the run's own operands dequantized, then
+    quantized to the tensor's parameters: the error of one op alone, apart
+    from what the ops before it did to its inputs.  {op: {"tensors",
+    "max_steps", "rms_steps" (the worst tensor's)}}."""
+    import torch
+
+    names = {op.outputs[0]: op.op for op in fprog.model.subgraphs[0].operators}
+
+    def operand(i):
+        if i in fprog.constants:
+            return fprog.constants[i]
+        v = env8[i]
+        if v.dtype != torch.int8:
+            return v
+        s, z = quant_params(prog8, i)
+        return (v.float() - z) * s
+
+    out = {}
+    with torch.inference_mode():
+        for fn, ins, o in fprog.steps:
+            got = env8.get(o)
+            if got is None or got.dtype != torch.int8:
+                continue
+            s, z = quant_params(prog8, o)
+            want = (fn(*(operand(i) for i in ins)).double() / s).round().add(z).clamp(-128, 127)
+            d = got.double() - want
+            row = out.setdefault(names[o], {"tensors": 0, "max_steps": 0.0, "rms_steps": 0.0})
+            row["tensors"] += 1
+            row["max_steps"] = max(row["max_steps"], float(d.abs().max()))
+            row["rms_steps"] = max(row["rms_steps"], float(d.square().mean().sqrt()))
+    return out
+
+
+def int8_noise_heads(fprog, prog8, env8, x, seed):
+    """The float program's heads (`fprog`, what the int8 artifact was
+    quantized from) on x / 255 with every tensor that the artifact holds
+    in int8 moved by uniform noise of half its step: 8-bit rounding as
+    noise, every op exact."""
+    import torch
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    env = dict(fprog.constants)
+    env[fprog.inputs[0]] = x.float() / 255.0
+    with torch.inference_mode():
+        for fn, ins, o in fprog.steps:
+            y = fn(*(env[i] for i in ins))
+            if o in env8 and env8[o].dtype == torch.int8:
+                y = y + (torch.rand(y.shape, generator=g, device=y.device) - 0.5) * \
+                    quant_params(prog8, o)[0]
+            env[o] = y
+    return [env[o] for o in fprog.outputs]
+
+
+def tflite_map(model, program_path, data_val, img_size, device, counters):
+    """`run_validation` of the tiny model with its forward, decode and NMS
+    replaced by the TFLite artifact's through `cli/backends.py` (static
+    batch padded; the decoded rows through `batched_nms` as
+    `make_infer_fn` runs it)."""
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.cli.backends import detect_backend, load_backend
+    from dmayolo_tpu_torch.core.nms import batched_nms
+    from dmayolo_tpu_torch.eval import validator
+
+    fn, meta = load_backend(str(program_path), detect_backend(str(program_path)), device=device)
+    bs = int(meta["batch_size"])
+
+    def make_infer(model, conf_thres, iou_thres, max_det, max_nms=30000, nms_backend="scan",
+                   **kw):
+        def infer(x, *tgt):
+            x = torch.as_tensor(x, device=device)
+            b = x.shape[0]
+            if b < bs:
+                x = torch.cat([x, x.new_zeros((bs - b, *x.shape[1:]))])
+            with torch.inference_mode():
+                dets, valid = batched_nms(fn(x), conf_thres=conf_thres, iou_thres=iou_thres,
+                                          multi_label=True, max_det=max_det, max_nms=max_nms,
+                                          backend=nms_backend)
+            return dets[:b], valid[:b]
+        return infer
+
+    real = validator.make_infer_fn
+    validator.make_infer_fn = make_infer
+    try:
+        for c in counters:
+            c.launches = 0
+        r = validator.run_validation(model, data_val, img_size=img_size, batch_size=bs, nc=3,
+                                     dtype=torch.float32, fused=True, max_targets=64,
+                                     device=device)
+    finally:
+        validator.make_infer_fn = real
+    return {"map50": r.map50, "launches": {c.__name__: c.launches for c in counters}}
+
+
+def tflite_k4_convs(prog, env, iters):
+    """Each K4 conv of an int8 program at the inputs of one run (`env`):
+    its s32 call against `conv_int8_plain` on the same tensors (equal to
+    the bit), timed (CUDA events, plain once), with its bound (TFLite's
+    own tensors: the s8 input before any pad and the s8 weights read once,
+    the s32 output written once; 2 operations a multiply-add on the real
+    input channels; the int8 rate), and where `torch._int_mm` computes the
+    same s8 product (`int_mm_takes`), `_int_mm` on it; summed by route."""
+    import torch
+
+    from dmayolo_tpu_torch.cli.tflite_run import _Conv
+    from dmayolo_tpu_torch.nn.conv_int8 import conv_int8, conv_int8_plain, route_of
+
+    routes = {}
+    for fn, ins, _ in prog.steps:
+        if not (isinstance(fn, _Conv) and fn.int8 and fn.k4):
+            continue
+        x = env[ins[0]]
+        xk, pad, _ = fn.k4_input(x)
+        args = (xk, fn.wq, None, None, fn.stride, pad, fn.dil, torch.int32)
+        y = conv_int8(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_plain = conv_int8_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        check(torch.equal(y, y_plain), f"K4's s32 sums differ from the plain conv at "
+                                       f"{tuple(xk.shape)} x {tuple(fn.wq.shape)}")
+        b, ho, wo, c2 = y.shape
+        c_in = x.shape[3]
+        ms = cuda_ms(lambda: conv_int8(*args), iters)
+        bound_ms, _ = bound(x.numel() + c2 * fn.kh * fn.kw * c_in + 4 * y.numel(),
+                            2 * y.numel() * fn.kh * fn.kw * c_in, "int8")
+        route = route_of((fn.kh, fn.kw), fn.stride, pad, fn.dil)
+        r = routes.setdefault(route, dict(convs=0, ms=0.0, plain_ms=0.0, bound_ms=0.0))
+        r["convs"] += 1
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += bound_ms
+        if route == "1x1" and int_mm_takes(c2, 1, 1, 0):
+            a, bt = xk.view(-1, xk.shape[3]), fn.wq.view(c2, -1).t()
+            check(torch.equal(torch._int_mm(a, bt), y.view(-1, c2)),
+                  f"_int_mm and K4 disagree at {tuple(xk.shape)} x {tuple(fn.wq.shape)}")
+            r["int_mm_convs"] = r.get("int_mm_convs", 0) + 1
+            r["int_mm_ms"] = r.get("int_mm_ms", 0.0) + cuda_ms(lambda: torch._int_mm(a, bt), iters)
+            r["ms_on_int_mm_convs"] = r.get("ms_on_int_mm_convs", 0.0) + ms
+    return routes
+
+
+def tflite_phase(device, counters, smi, tiny, sizes=TFLITE, cfg=None, nc=10):
+    """TFLite on the card, without TensorFlow (`utils/tflite.py`,
+    `cli/tflite_run.py`, `cli/tflite_export.py`): the JAX package's
+    committed artifacts run by `TFLiteProgram` (f32 within
+    `TFLITE_F32_TOL`, int8 bit-equal to `expected.npz`); the full-width
+    flagship (seeded as the serving phase's, 640 px, batch 8) exported by
+    the port to both artifacts (the int8 one calibrated on `calib_batches`
+    noise batches).  The f32 one: its graph run in f64 within
+    `TFLITE_F32_TOL` of the native f64 program (the translation); run in
+    f32, its box and score columns each no further from the native f64
+    program than `TFLITE_F32_NOISE` times the native f32 program is (this
+    random model's decode moves 1e-3 under f32 rounding alone, so no
+    second f32 program holds 1e-4 of the first); its K3 ("matrix") sets
+    against the native ones (rows within 5% of the conf gate or of a full
+    set's lowest score may fall on either side of it, boxes move by that
+    noise).  The int8 one: its K4 convs bit-equal to the plain conv, each
+    op within `TFLITE_INT8_OP_STEPS` of its float op on its own operands
+    (`int8_op_errors`), its heads' error against f32 printed beside the
+    float program's with 8-bit rounding as noise (`int8_noise_heads`).  The three programs
+    (f32, int8, the `.pt2` program at f32) timed; `cli.export --int8` of the int8
+    phase's trained tiny model, its mAP@.5 through that artifact;
+    `cli.detect` on the flagship's two artifacts over the tiny model's val
+    files.  TF32 is off for the phase."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmayolo_tpu_torch.cli import detect as cli_detect
+    from dmayolo_tpu_torch.cli import export as cli_export
+    from dmayolo_tpu_torch.cli.export import InferenceProgram
+    from dmayolo_tpu_torch.cli.tflite_export import (F32, RawProgram, calibrate, export_tflite,
+                                                     quantize_model, translate)
+    from dmayolo_tpu_torch.cli.tflite_run import TFLiteProgram
+    from dmayolo_tpu_torch.utils.tflite import write_model
+    from dmayolo_tpu_torch.core.nms import batched_nms
+    from dmayolo_tpu_torch.graph import DetectionModel
+
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    shutil.rmtree(TFLITE_DIR, ignore_errors=True)
+    TFLITE_DIR.mkdir(parents=True)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        # the JAX package's artifacts
+        with np.load(TFLITE_FIXTURE / "expected.npz") as z:
+            exp = {k: z[k] for k in z.files}
+        got = TFLiteProgram(TFLITE_FIXTURE / "flagship.tflite", device=device)(exp["x"])[0]
+        f32_err = scaled_max(got, torch.as_tensor(exp["f32_out"]))
+        heads = TFLiteProgram(TFLITE_FIXTURE / "flagship-int8.tflite", device=device)(exp["x"])
+        int8_equal = all(np.array_equal(h.cpu().numpy(), exp[f"int8_out{k}"])
+                         for k, h in enumerate(heads))
+        out["jax_fixture"] = {"f32_scaled_err": f32_err, "int8_bit_equal": int8_equal}
+        check(f32_err <= TFLITE_F32_TOL, f"the JAX f32 artifact: {f32_err:.2e} off expected.npz")
+        check(int8_equal, "the JAX int8 artifact's heads differ from expected.npz")
+
+        # the full-width flagship
+        b, s = sizes["batch"], sizes["imgsz"]
+        model = build_model(device, imgsz=s, cfg=cfg, nc=nc).eval().fuse()
+        # uniform noise, the images `build_model` calibrates BN on: on
+        # `rectangles` this model's own f32 decode is 0.12 (scaled) off its
+        # f64 one, on noise 1.3e-3 (an H100 80GB HBM3 at 700 W, TF32 off)
+        g = torch.Generator(device=device).manual_seed(23)
+        x, *calib = (torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, device=device,
+                                   generator=g) for _ in range(1 + sizes["calib_batches"]))
+        calib = [c.cpu().numpy() for c in calib]
+        t1 = time.perf_counter()
+        f32_path = export_tflite(model, s, b, TFLITE_DIR / "flagship.tflite")
+        cli_export.write_sidecar(f32_path, model, s, b)
+        t2 = time.perf_counter()
+        # `export_tflite_int8`'s three steps, keeping its float program for
+        # the per-op check below (`cli.export --int8` runs the function
+        # itself, on the tiny model)
+        fm = translate(RawProgram(model), x.float(), input_type=F32, raw=True)
+        i8_path = TFLITE_DIR / "flagship-int8.tflite"
+        write_model(quantize_model(fm, calibrate(fm, calib, device)), i8_path)
+        cli_export.write_sidecar(i8_path, model, s, b, **cli_export.raw_head_meta(model, s))
+        t3 = time.perf_counter()
+        fl = out["flagship"] = {
+            "shape": [b, s, s, 3], "export_f32_s": t2 - t1, "export_int8_s": t3 - t2,
+            "f32_bytes": f32_path.stat().st_size, "int8_bytes": i8_path.stat().st_size}
+        with torch.inference_mode():
+            native = InferenceProgram(model, torch.float32)(x)
+            raw_f32 = RawProgram(model)(x.float() / 255.0)
+            # the model's own f32 rounding noise: its f64 program
+            m64 = copy.deepcopy(model).double()
+            nat64 = InferenceProgram(m64, torch.float64)(x)
+            raw64 = m64.apply(x.double() / 255.0, dtype=torch.float64, fused=True)
+            del m64
+        p32 = TFLiteProgram(f32_path, device=device)
+        dec = p32(x)[0]
+        fl["f32_scaled_err"] = scaled_max(dec, native)
+        # the artifact's graph and constants run in f64: its translation,
+        # apart from f32 rounding (the native decode rounds to f32)
+        fl["f64_graph_err"] = scaled_max(
+            TFLiteProgram(float64_model(p32.model), device=device)(x)[0], nat64)
+        check(fl["f64_graph_err"] <= TFLITE_F32_TOL,
+              f"the flagship's f32 artifact run in f64: {fl['f64_graph_err']:.2e} off the native "
+              f"f64 program")
+        # its f32 rounding against the native program's, each to f64; the
+        # box columns (px) and the score columns (objectness and classes,
+        # in [0, 1]) each on their own scale
+        for part, cols in (("box", slice(0, 4)), ("score", slice(4, None))):
+            r = fl[part] = {"f32_vs_native": scaled_max(dec[..., cols], native[..., cols]),
+                            "native_vs_f64": scaled_max(native[..., cols], nat64[..., cols]),
+                            "f32_vs_f64": scaled_max(dec[..., cols], nat64[..., cols])}
+            check(r["f32_vs_f64"] <= TFLITE_F32_NOISE * r["native_vs_f64"],
+                  f"the flagship's f32 artifact's {part} columns: {r['f32_vs_f64']:.2e} off the "
+                  f"native f64 program, against the native f32 program's "
+                  f"{r['native_vs_f64']:.2e} (limit {TFLITE_F32_NOISE}x)")
+        # the raw heads' f32 rounding at the heads: mean |f32 - f64| over mean |head|
+        fl["raw_f32_vs_f64"] = [float((r.double() - r64).abs().mean() / r64.abs().mean())
+                                for r, r64 in zip(raw_f32, raw64)]
+        del nat64, raw64
+        with torch.inference_mode():
+            want = batched_nms(native, conf_thres=SERVE_CONF, backend="matrix")
+            for c in counters:
+                c.launches = 0
+            got_sets = batched_nms(dec, conf_thres=SERVE_CONF, backend="matrix")
+        fl["f32_launches"] = {c.__name__: c.launches for c in counters}
+        # rows within 5% of the conf gate, or of the lowest score of a set
+        # that max_det cut, may fall on either side of it (as
+        # `unmatched_sets`); a box may move by the limit above on the
+        # decode's own rounding noise (in px, over the image's side), where
+        # that is above 2e-3
+        fl["box_tol"] = max(2e-3, TFLITE_F32_NOISE * fl["box"]["native_vs_f64"]
+                            * float(native[..., :4].abs().max()) / s)
+        gate = TFLITE_GATE_BAND * SERVE_CONF
+        fl["f32_unmatched"] = max(
+            same_sets(g, w, fl["box_tol"], 0.05, gate if len(w) < PROTOCOL["max_det"]
+                      else max(gate, TFLITE_GATE_BAND * float(w[:, -1].min())))
+            for g, w in zip(det_rows(*got_sets, s), det_rows(*want, s)))
+        fl["f32_detections"] = int(got_sets[1].sum())
+        check(fl["f32_unmatched"] == 0, f"the f32 artifact's K3 sets differ from the native "
+                                        f"ones: {fl['f32_unmatched']} unmatched")
+        check(not on_card or fl["f32_launches"]["fixpoint_keep"]
+              + fl["f32_launches"]["fixpoint_keep_blocked"] > 0,
+              f"K3 did not launch on the f32 artifact's sets: {fl['f32_launches']}")
+        p8 = TFLiteProgram(i8_path, device=device)
+        for c in counters:
+            c.launches = 0
+        env = p8.run(x, keep_all=True)
+        fl["int8_launches"] = {c.__name__: c.launches for c in counters}
+        heads = [env[i] for i in p8.outputs]
+        fl["int8_head_mean_abs_err"] = [float((h - r).abs().mean()) for h, r in zip(heads, raw_f32)]
+        fl["f32_head_mean_abs"] = [float(r.abs().mean()) for r in raw_f32]
+        # each int8 op alone against the float program it was quantized from
+        fprog = TFLiteProgram(fm, device=device)
+        del fm
+        fl["int8_op_errors"] = int8_op_errors(fprog, p8, env)
+        worst = max(fl["int8_op_errors"].items(), key=lambda kv: kv[1]["max_steps"])
+        check(worst[1]["max_steps"] <= TFLITE_INT8_OP_STEPS,
+              f"the int8 artifact's {worst[0]} is {worst[1]['max_steps']:.0f} steps off its float "
+              f"op on its own operands (limit {TFLITE_INT8_OP_STEPS})")
+        # how far this random model carries 8-bit rounding to the heads:
+        # the float program with that rounding as noise
+        fl["noise_head_rel_err"] = [
+            float((a - r).abs().mean() / r.abs().mean())
+            for a, r in zip(int8_noise_heads(fprog, p8, env, x, 24), raw_f32)]
+        del fprog
+        rel = [e / m for e, m in zip(fl["int8_head_mean_abs_err"], fl["f32_head_mean_abs"])]
+        check(all(r <= TFLITE_INT8_NOISE * n for r, n in zip(rel, fl["noise_head_rel_err"])),
+              f"the int8 artifact's heads are {[round(r, 3) for r in rel]} off f32 (mean |err| "
+              f"over mean |head|), against {[round(n, 3) for n in fl['noise_head_rel_err']]} "
+              f"for 8-bit rounding as noise (limit {TFLITE_INT8_NOISE}x)")
+        if on_card:
+            fl["k4_s32"] = tflite_k4_convs(p8, env, sizes["iters"])
+            check(sum(v for k, v in fl["int8_launches"].items() if k.startswith("conv_int8_"))
+                  == sum(r["convs"] for r in fl["k4_s32"].values()),
+                  f"the int8 artifact's K4 launches {fl['int8_launches']} are not its convs")
+        del env
+        with torch.no_grad():  # the `.pt2` program, as `cli.export` writes it, in memory
+            prog_pt2 = torch.export.export(InferenceProgram(model, torch.float32).eval(),
+                                           (x,)).module()
+        if on_card:
+            with torch.inference_mode():
+                fl["ms"] = {"tflite_f32": cuda_ms(lambda: p32(x), sizes["iters"]),
+                            "tflite_int8": cuda_ms(lambda: p8(x), sizes["iters"]),
+                            "pt2_f32": cuda_ms(lambda: prog_pt2(x), sizes["iters"])}
+        del p32, p8, prog_pt2, model
+        torch.cuda.empty_cache()
+
+        # cli.export of the int8 phase's trained tiny model, and its mAP
+        t1 = time.perf_counter()
+        outs = cli_export.main(["--weights", tiny["weights"], "--cfg", tiny["cfg"], "--include",
+                                "npz", "--int8", "--data", tiny["data"], "--ncalib",
+                                str(sizes["tiny_ncalib"]), "--imgsz", str(tiny["img_size"]),
+                                "--batch-size", "8", *([] if on_card else ["--device", "cpu"])])
+        tm = out["tiny"] = {"export_s": time.perf_counter() - t1,
+                            "float_map50": tiny["f32"]["float_map50"]}
+        # run_validation reads the stride, nc and device off a model; the
+        # artifacts carry the weights
+        tiny_model = DetectionModel(json.loads(Path(tiny["cfg"]).read_text()),
+                                    device=device).eval()
+        tm["int8"] = tflite_map(tiny_model, outs[-1], tiny["val"], tiny["img_size"], device,
+                                counters)
+        check(abs(tm["int8"]["map50"] - tm["float_map50"]) <= TFLITE_MAP_TOL,
+              f"the tiny model's int8 artifact: mAP@.5 {tm['int8']['map50']:.4f} against float "
+              f"{tm['float_map50']:.4f}")
+        check(not on_card or any(v for k, v in tm["int8"]["launches"].items()
+                                 if k.startswith("conv_int8_")),
+              "the tiny model's int8 artifact did not launch K4")
+
+        # cli.detect on the flagship's artifacts over the tiny model's val files
+        det = out["detect"] = {}
+        for tag, path in (("f32", f32_path), ("int8", i8_path)):
+            for c in counters:
+                c.launches = 0
+            t1 = time.perf_counter()
+            run = cli_detect.main(["--weights", str(path), "--source", tiny["val"], "--imgsz",
+                                   str(s), "--save-txt", "--save-conf", "--nosave", "--project",
+                                   str(TFLITE_DIR / "detect"), "--name", tag,
+                                   *([] if on_card else ["--device", "cpu"])])
+            det[tag] = {"s": time.perf_counter() - t1,
+                        "files": len(list((Path(run) / "labels").glob("*.txt"))),
+                        "launches": {c.__name__: c.launches for c in counters}}
+        check(det["f32"]["files"] == det["int8"]["files"] > 0, f"cli.detect wrote {det}")
+        check(not on_card or any(v for k, v in det["int8"]["launches"].items()
+                                 if k.startswith("conv_int8_")),
+              "cli.detect on the int8 artifact did not launch K4")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(TFLITE_DIR, ignore_errors=True)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def print_tflite(tp, smi):
+    fl, tm = tp["flagship"], tp["tiny"]
+    print("tflite: " + json.dumps(tp), flush=True)
+    print(f"tflite: the JAX artifacts on the card: f32 {tp['jax_fixture']['f32_scaled_err']:.2e} "
+          f"scaled off expected.npz, int8 bit-equal {tp['jax_fixture']['int8_bit_equal']}",
+          flush=True)
+    parts = "; ".join(f"{k} columns: artifact {fl[k]['f32_vs_native']:.2e} off the native "
+                      f"program, native {fl[k]['native_vs_f64']:.2e} and artifact "
+                      f"{fl[k]['f32_vs_f64']:.2e} off the f64 one" for k in ("box", "score"))
+    ops = ", ".join(f"{k} {v['tensors']}x max {v['max_steps']:.0f} rms {v['rms_steps']:.3f}"
+                    for k, v in fl["int8_op_errors"].items())
+    print(f"tflite flagship bs{fl['shape'][0]} {fl['shape'][1]}px: export f32 "
+          f"{fl['export_f32_s']:.1f} s ({fl['f32_bytes']} bytes), int8 {fl['export_int8_s']:.1f} s "
+          f"({fl['int8_bytes']} bytes); f32 artifact {fl['f32_scaled_err']:.2e} scaled off the "
+          f"native program, its graph in f64 {fl['f64_graph_err']:.2e} off the native f64 one; "
+          f"{parts}; K3 sets equal (box tol {fl['box_tol']:.2e} of the side) "
+          f"({fl['f32_detections']} detections); on {smi}", flush=True)
+    print(f"tflite flagship int8: heads' mean |err| against f32 "
+          f"{[round(e, 5) for e in fl['int8_head_mean_abs_err']]} (mean |head| "
+          f"{[round(e, 4) for e in fl['f32_head_mean_abs']]}); each op on its own operands, in "
+          f"output steps: {ops}; the f32 heads' mean |f32 - f64| over mean |head| "
+          f"{[f'{e:.2e}' for e in fl['raw_f32_vs_f64']]}; the float program with half-step "
+          f"noise at each int8 tensor: its heads' mean |err| over mean |head| "
+          f"{[round(e, 4) for e in fl['noise_head_rel_err']]}; on {smi}",
+          flush=True)
+    if "ms" in fl:
+        print(f"tflite flagship ms a step: f32 artifact {fl['ms']['tflite_f32']:.2f}, int8 "
+              f"artifact {fl['ms']['tflite_int8']:.2f}, .pt2 f32 {fl['ms']['pt2_f32']:.2f} "
+              f"(TF32 off) on {smi}", flush=True)
+        for route, r in fl["k4_s32"].items():
+            lib = (f"; _int_mm {r['int_mm_ms']:.3f} ms on {r['int_mm_convs']} of them, K4 "
+                   f"{r['ms_on_int_mm_convs']:.3f}" if "int_mm_ms" in r else "")
+            print(f"tflite K4 s32 route {route}: {r['convs']} convs, {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.1f}, bound {r['bound_ms']:.3f}{lib}) on {smi}", flush=True)
+    print(f"tflite tiny model: mAP@.5 float {tm['float_map50']:.4f}, int8 artifact "
+          f"{tm['int8']['map50']:.4f}; export "
+          f"{tm['export_s']:.1f} s; cli.detect on the flagship's artifacts "
+          f"{tp['detect']['f32']['s']:.1f} / {tp['detect']['int8']['s']:.1f} s; phase "
+          f"{tp['s']:.1f} s", flush=True)
 
 
 # One round of `int8_compare`, run in a fresh process from the root of a
@@ -7301,6 +7800,16 @@ def main(argv=None):
     report["int8"] = i8 = int8_phase(device, counters, smi)
     phases["int8"] = i8["s"]
 
+    # ---- TFLite: the JAX package's artifacts, the flagship's, the tiny model's
+    import shutil
+
+    try:
+        report["tflite"] = tfl = tflite_phase(device, counters, smi, i8["tiny"])
+    finally:
+        shutil.rmtree(INT8_DIR, ignore_errors=True)
+    phases["tflite"] = tfl["s"]
+    print_tflite(tfl, smi)
+
     # ---- the SPD-Conv family: both models served, evaluated and trained
     t0 = time.perf_counter()
     spd, spd_sites = {}, {}
@@ -7349,8 +7858,6 @@ def main(argv=None):
 
     # ---- the data path on disk: loader, run_validation, the data-built
     # Trainer; then the CLIs on the same files
-    import shutil
-
     try:
         t1 = time.perf_counter()
         model = build_model(device)
@@ -7440,6 +7947,10 @@ def main(argv=None):
     paths[f"int8 serving {INT8_GENERAL_MODEL}"] = i8["general"]["launches"]
     paths.update({f"int8 eval tiny {dt}": i8["tiny"][dt]["launches"] for dt in ("f32", "bf16")})
     paths["int8 cli val tiny"] = i8["tiny"]["cli_val"]["launches"]
+    paths.update({"tflite f32 flagship sets, matrix": tfl["flagship"]["f32_launches"],
+                  "tflite int8 flagship": tfl["flagship"]["int8_launches"],
+                  "tflite int8 tiny eval": tfl["tiny"]["int8"]["launches"],
+                  "tflite cli.detect int8": tfl["detect"]["int8"]["launches"]})
 
     def launches(counter):
         by_path = {p: n[counter.__name__] for p, n in paths.items() if n.get(counter.__name__)}
@@ -7501,7 +8012,7 @@ def main(argv=None):
          "spd_bs128": k1_spd,
          "flagship_f32_b2_max_scaled_err": k1f32["max_scaled_err"]},
     ]
-    kernels += int8_kernel_entries(i8, launches)
+    kernels += int8_kernel_entries(i8, launches, tfl["flagship"]["k4_s32"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

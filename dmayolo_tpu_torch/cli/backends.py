@@ -2,17 +2,25 @@
 
 Port of `dmayolo_tpu/cli/backends.py` (the reference's detect.py:96-141
 DetectMultiBackend).  The native `.npz` and the reference `.pt` go
-through `load_model_from_checkpoint`; the exported program is a
-`torch.export` program (`*.pt2`, written by `cli.export --include
-torch_export`) in place of the JAX package's `.stablehlo`: uint8 NHWC in
-at a static (batch, imgsz), the decoded predictions (B, A, 5 + nc) out
-(4 + nc for TDetect), so NMS stays in detect.  Its metadata (nc, imgsz,
-batch size, stride, head, names, the device type it was exported on)
-comes from the `.meta.yaml` sidecar beside it.
+through `load_model_from_checkpoint`; the exported programs are
+  * a `torch.export` program (`*.pt2`, written by `cli.export --include
+    torch_export`) in place of the JAX package's `.stablehlo`: uint8 NHWC
+    in at a static (batch, imgsz), the decoded predictions (B, A, 5 + nc)
+    out (4 + nc for TDetect), so NMS stays in detect;
+  * a TFLite model (`*.tflite`, `cli.export --include tflite`, or the
+    JAX package's), run by `cli/tflite_run.py::TFLiteProgram`: the f32
+    artifact returns the decoded predictions; the full-integer
+    `-int8.tflite` (`--int8`) ends at the raw per-scale heads, which
+    `decode_raw` decodes in float from the sidecar's `strides` and
+    `anchors_px`.
+Their metadata (nc, imgsz, batch size, stride, head, names; for a `.pt2`
+the device type it was exported on) comes from the `.meta.yaml` sidecar
+beside each.
 
-The JAX package's other program formats raise, naming what the port
-lacks: `.stablehlo` is a JAX artifact, SavedModel and TFLite need
-TensorFlow, ONNX needs the `onnx` package, which the port does not use.
+The JAX package's other program formats raise, naming why: `.stablehlo`
+is JAX's serialized MLIR and a SavedModel a TF graph around an
+XlaCallModule, both needing an XLA/MLIR runtime; ONNX needs the `onnx`
+package (and a runtime), which neither package uses.
 """
 from __future__ import annotations
 
@@ -21,12 +29,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..nn.heads import decode_levels
+
 # formats the JAX package runs and the port does not, with why
 UNSUPPORTED = {
-    "stablehlo": "a .stablehlo program is a JAX export; the port runs torch.export "
-                 "programs (.pt2, `cli.export --include torch_export`)",
-    "saved_model": "a TensorFlow SavedModel needs TensorFlow, which the port does not use",
-    "tflite": "a TFLite model needs TensorFlow Lite, which the port does not use",
+    "stablehlo": "a .stablehlo program is JAX's serialized MLIR, which needs an XLA runtime; "
+                 "the port runs torch.export programs (.pt2, `cli.export --include "
+                 "torch_export`) and TFLite models (.tflite)",
+    "saved_model": "a SavedModel of the JAX package is a TensorFlow graph around an "
+                   "XlaCallModule, which needs an XLA runtime; export a .tflite instead",
     "onnx": "an ONNX model needs the `onnx` package (and a runtime), which the port does "
             "not use",
 }
@@ -60,19 +71,62 @@ def _read_meta(weights: Path) -> dict:
         return yaml.safe_load(f)
 
 
+def decode_raw(raws, meta) -> torch.Tensor:
+    """Anchor-based decode of raw head tensors (B, ny, nx, na, no) from
+    the sidecar's `strides` and `anchors_px`: the JAX package's
+    `decode_raw_np`, as `Detect.decode` computes it (`decode_levels`)."""
+    return decode_levels(raws, meta["strides"],
+                         [np.asarray(a, np.float32) for a in meta["anchors_px"]])
+
+
+def raw_head_order(names, shapes, meta) -> list:
+    """Positions of the raw-head outputs in scale order: by the ":k"
+    suffix of their names (shapes alone can tie: two heads may share a
+    stride), else by (ny, nx) from the sidecar; then checked against the
+    sidecar's shapes (a check that survives python -O)."""
+    try:
+        order = sorted(range(len(names)), key=lambda i: int(names[i].split(":")[-1]))
+    except ValueError:
+        by_shape = {tuple(int(v) for v in shapes[i][1:3]): i for i in range(len(names))}
+        if len(by_shape) != len(names):
+            raise ValueError("int8 raw-head outputs have ambiguous shapes and unindexed names: "
+                             "cannot order the heads safely")
+        order = [by_shape[tuple(s)] for s in meta["shapes"]]
+    expect = [tuple(s) for s in meta["shapes"]]
+    got = [tuple(int(v) for v in shapes[i][1:3]) for i in order]
+    if got != expect:
+        raise ValueError(f"int8 raw-head output order mismatch: got {got}, metadata expects "
+                         f"{expect}")
+    return order
+
+
 def load_backend(weights: str, backend: str, device=None):
     """Returns (fn, meta): fn maps uint8 (B, H, W, 3) with B ==
     meta['batch_size'] (numpy or a tensor) to the decoded predictions, a
     tensor on the program's device."""
     if backend in UNSUPPORTED:
         raise NotImplementedError(f"{weights}: {UNSUPPORTED[backend]}")
-    if backend != "torch_export":
+    if backend not in ("torch_export", "tflite"):
         raise ValueError(f"not an exported-artifact backend: {backend}")
     from ..utils.device import resolve_device
 
     w = Path(weights)
     meta = _read_meta(w)
     dev = resolve_device(device)
+    if backend == "tflite":
+        from .tflite_run import TFLiteProgram
+
+        program = TFLiteProgram(w, device=dev)
+        if not meta.get("raw_heads"):
+            return (lambda x: program(x)[0]), meta
+        shapes = [program.tensors[i].shape for i in program.outputs]
+        order = raw_head_order(program.output_names, shapes, meta)
+
+        def fn(x):
+            outs = program(x)
+            return decode_raw([outs[i] for i in order], meta)
+
+        return fn, meta
     plats = tuple(p.lower() for p in meta.get("platforms") or ())
     if dev.type not in plats:
         raise SystemExit(

@@ -20,6 +20,32 @@ from .blocks import ConvBN
 from .primitives import Conv2d, Sequential
 
 
+def anchor_grid(ny: int, nx: int, anchor_px, device):
+    """(grid (1, ny, nx, 1, 2) as (x, y), anchors (1, 1, 1, na, 2) in px)."""
+    gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=device),
+                            torch.arange(nx, dtype=torch.float32, device=device),
+                            indexing="ij")
+    grid = torch.stack([gx, gy], dim=-1)  # (ny, nx, 2) as (x, y)
+    anchor_px = torch.as_tensor(anchor_px, device=device)
+    return grid[None, :, :, None, :], anchor_px[None, None, None, :, :]
+
+
+def decode_levels(raw: Sequence[torch.Tensor], strides, anchors_px) -> torch.Tensor:
+    """Raw anchor-based heads (B, ny, nx, na, no) a level -> (B,
+    sum(na*ny*nx), no) in reference (a, y, x) order: xy = (2 sig - 0.5 +
+    grid) * stride, wh = (2 sig)^2 * anchor_px (f32 (na, 2) a level)."""
+    z = []
+    for x, stride, anc in zip(raw, strides, anchors_px):
+        b, ny, nx, na, no = x.shape
+        y = torch.sigmoid(x.float())
+        grid, anchor_px = anchor_grid(ny, nx, anc, x.device)
+        xy = (y[..., 0:2] * 2 - 0.5 + grid) * float(stride)
+        wh = (y[..., 2:4] * 2) ** 2 * anchor_px
+        dec = torch.cat([xy, wh, y[..., 4:]], dim=-1)
+        z.append(dec.permute(0, 3, 1, 2, 4).reshape(b, na * ny * nx, no))
+    return torch.cat(z, dim=1)
+
+
 class Detect(nn.Module):
     def __init__(self, nc=80, anchors=(), ch=()):
         super().__init__()
@@ -52,27 +78,13 @@ class Detect(nn.Module):
         return out
 
     def _grid_anchor(self, i: int, ny: int, nx: int, device):
-        gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=device),
-                                torch.arange(nx, dtype=torch.float32, device=device),
-                                indexing="ij")
-        grid = torch.stack([gx, gy], dim=-1)  # (ny, nx, 2) as (x, y)
-        anchor_px = torch.as_tensor(self.anchors[i] * self.stride[i], device=device)
-        return grid[None, :, :, None, :], anchor_px[None, None, None, :, :]
+        return anchor_grid(ny, nx, self.anchors[i] * self.stride[i], device)
 
     def decode(self, raw: Sequence[torch.Tensor]) -> torch.Tensor:
-        """(B, sum(na*ny*nx), no) in reference (a, y, x) order:
-        xy = (2 sig - 0.5 + grid) * stride, wh = (2 sig)^2 * anchor_px."""
-        z = []
-        for i, x in enumerate(raw):
-            b, ny, nx, na, no = x.shape
-            y = torch.sigmoid(x.float())
-            grid, anchor_px = self._grid_anchor(i, ny, nx, x.device)
-            s = float(self.stride[i])
-            xy = (y[..., 0:2] * 2 - 0.5 + grid) * s
-            wh = (y[..., 2:4] * 2) ** 2 * anchor_px
-            dec = torch.cat([xy, wh, y[..., 4:]], dim=-1)
-            z.append(dec.permute(0, 3, 1, 2, 4).reshape(b, na * ny * nx, no))
-        return torch.cat(z, dim=1)
+        """(B, sum(na*ny*nx), no) in reference (a, y, x) order
+        (`decode_levels`)."""
+        return decode_levels(raw, self.stride,
+                             [self.anchors[i] * self.stride[i] for i in range(len(raw))])
 
     def decode_parts(self, raw: Sequence[torch.Tensor], class_mask=None,
                      ref_order: bool = True):

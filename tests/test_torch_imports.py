@@ -2,6 +2,9 @@
 chip_smoke.py imports jax or the JAX package, nor PIL or torchvision, nor
 orbax, tensorstore, zstandard or ml_dtypes (the Orbax checkpoints go
 through the port's own OCDBT and zarr code and the system's libzstd), nor
+tensorflow, tflite_runtime, ai_edge_litert or flatbuffers (TFLite models
+are read, written and run by the port's own FlatBuffers codec and
+program), nor
 OpenCV but in the one lazy accessor `data/imageio.py::_cv2` (video and
 webp go through cv2's decoder there, as the JAX package's; every other
 image is read and written by the port's own host library), by an AST
@@ -15,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "dmayolo_tpu_torch"
 FILES = sorted((ROOT / "dmayolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "dmayolo_tpu", "cv2", "PIL", "torchvision",
-             "orbax", "tensorstore", "zstandard", "ml_dtypes")
+             "orbax", "tensorstore", "zstandard", "ml_dtypes",
+             "tensorflow", "tflite_runtime", "ai_edge_litert", "flatbuffers")
 
 
 def _imported(tree):
@@ -110,6 +114,18 @@ def test_checkpoint_libraries_fail(source):
     """The walk refuses the libraries under the JAX package's Orbax
     checkpoints, at a module's top and inside a function."""
     assert forbidden_imports(source, "utils/orbax_ckpt.py")
+
+
+@pytest.mark.parametrize("source", [
+    "import tensorflow as tf\n",
+    "def run():\n    from tflite_runtime.interpreter import Interpreter\n",
+    "from ai_edge_litert.interpreter import Interpreter\n",
+    "def read():\n    import flatbuffers\n",
+])
+def test_tflite_libraries_fail(source):
+    """The walk refuses TensorFlow and the TFLite runtimes and the
+    flatbuffers package, at a module's top and inside a function."""
+    assert forbidden_imports(source, "cli/tflite_run.py")
 
 
 def test_matplotlib_and_pandas_only_lazily():

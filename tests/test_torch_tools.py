@@ -30,8 +30,11 @@ route, read by both packages to the same pixels) at 128 px.
   its PNG, or raises naming matplotlib where it is missing.
 - video, webcam, URL and stream sources reach the runner JAX's CLI
   dispatches them to (tests/test_torch_video.py holds the runners).
+- `cli.export --include tflite` and `--int8` write the artifacts that
+  `cli/backends.py` loads (`tests/test_torch_tflite.py` holds their
+  numbers); `--int8` on a TDetect model writes none and says so, as JAX's.
 - what the port does not have raises, naming it:
-  `stablehlo`/`tf`/`saved_model`/`tflite`/`onnx`, `--int8`, PIL images.
+  `stablehlo`/`tf`/`saved_model`/`onnx`, PIL images.
 """
 import builtins
 import contextlib
@@ -592,22 +595,63 @@ def test_video_and_streams_raise(setup, monkeypatch, tmp_path, source):
 # ------------------------------------------------------ what is not ported
 
 
-@pytest.mark.parametrize("fmt", ["stablehlo", "tf", "saved_model", "tflite", "onnx"])
+@pytest.mark.parametrize("fmt", ["stablehlo", "tf", "saved_model", "onnx"])
 def test_unported_export_formats_raise(setup, fmt):
     with pytest.raises(NotImplementedError, match=fmt):
         pexport.main(["--weights", str(setup["ckpt"]), "--include", fmt, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("name", ["w.stablehlo", "w.tflite", "w.onnx"])
+@pytest.mark.parametrize("name", ["w.stablehlo", "w.onnx"])
 def test_unported_backends_raise(tmp_path, name):
     backend = pbackends.detect_backend(str(tmp_path / name))
     with pytest.raises(NotImplementedError, match=backend.split("_")[0]):
         pbackends.load_backend(str(tmp_path / name), backend, device="cpu")
 
 
-def test_int8_export_raises(setup):
-    with pytest.raises(NotImplementedError, match="writes no TFLite"):
-        pexport.main(["--weights", str(setup["ckpt"]), "--int8", "--device", "cpu"])
+def _copy_ckpt(setup, tmp_path):
+    ckpt = tmp_path / "w.npz"
+    ckpt.write_bytes(Path(setup["ckpt"]).read_bytes())
+    return ckpt
+
+
+def test_tflite_export_loads(setup, tmp_path):
+    """`--include tflite` writes `<weights>.tflite` and its sidecar, which
+    the backend loads and runs: (B, A, 5 + nc) decoded predictions."""
+    ckpt = _copy_ckpt(setup, tmp_path)
+    outs = pexport.main(["--weights", str(ckpt), "--include", "tflite", "--imgsz", "64",
+                         "--device", "cpu"])
+    assert [o.name for o in outs] == ["w.tflite"]
+    fn, meta = pbackends.load_backend(str(outs[0]), pbackends.detect_backend(str(outs[0])),
+                                      device="cpu")
+    dec = fn(np.zeros((1, 64, 64, 3), np.uint8))
+    assert meta["imgsz"] == 64 and tuple(dec.shape) == (1, 3 * (64 + 16 + 4), 15)
+
+
+def test_int8_export_loads(setup, tmp_path, capsys):
+    """`--int8` writes `<weights>-int8.tflite` (calibrated on noise without
+    --data, with JAX's warning) whose sidecar carries the raw-head decode."""
+    ckpt = _copy_ckpt(setup, tmp_path)
+    outs = pexport.main(["--weights", str(ckpt), "--int8", "--include", "npz", "--imgsz", "64",
+                         "--device", "cpu"])
+    assert "calibrates on random noise" in capsys.readouterr().out
+    assert outs[-1].name == "w-int8.tflite"
+    fn, meta = pbackends.load_backend(str(outs[-1]), "tflite", device="cpu")
+    assert meta["raw_heads"] and meta["shapes"] == [[8, 8], [4, 4], [2, 2]]
+    assert tuple(fn(np.zeros((1, 64, 64, 3), np.uint8)).shape) == (1, 3 * (64 + 16 + 4), 15)
+
+
+def test_int8_export_skips_tdetect(tmp_path, capsys):
+    """A TDetect model gets no int8 artifact, and the CLI says so."""
+    from tests.test_torch_zoo_models import _cfg
+
+    cfg = _cfg("CASPD_ODRTA", depth=0.33, width=0.125)
+    ckpt = tmp_path / "t.npz"
+    params, stats = random_vars(JaxModel(cfg), seed=1)
+    jax_save_checkpoint(ckpt, params=params, stats=stats, meta={"cfg": cfg, "nc": 10})
+    outs = pexport.main(["--weights", str(ckpt), "--int8", "--include", "npz", "--imgsz", "64",
+                         "--device", "cpu"])
+    assert "skipping the int8 artifact" in capsys.readouterr().out
+    assert not any(o.name.endswith(".tflite") for o in outs)
 
 
 def test_pil_input_raises():
